@@ -1,0 +1,1 @@
+"""Operations: the hand-written CUDA kernels and their plain versions."""

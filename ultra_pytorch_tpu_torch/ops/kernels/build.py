@@ -1,0 +1,72 @@
+"""Build the port's CUDA sources into plain-C shared libraries.
+
+Each kernel's ``.cu`` file under ``csrc/`` is compiled at first use with
+``nvcc`` for ``sm_90a`` into ``build/ultra_pytorch_tpu_torch/`` at the
+root of the checkout, and loaded with ``ctypes``. The library's file name
+carries a hash of its sources and flags, so a stale build is never
+loaded. Nothing includes PyTorch's headers, which keeps a build to
+seconds. ``nvcc`` is found through ``CUDA_HOME``, then
+``torch.utils.cpp_extension.CUDA_HOME``, then ``PATH``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Sequence
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
+    "ultra_pytorch_tpu_torch"
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclasses.dataclass(frozen=True)
+class BuiltLibrary:
+    path: Path
+    seconds: float  # 0.0 when an up-to-date build was found
+    log: str        # nvcc's output, including ptxas's -v report
+
+
+def find_nvcc() -> str:
+    from torch.utils import cpp_extension
+
+    for home in (os.environ.get("CUDA_HOME"), cpp_extension.CUDA_HOME):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build_library(name: str, sources: Sequence[Path]) -> BuiltLibrary:
+    """Compile `sources` into ``lib<name>-<hash>.so`` unless it exists."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(Path(src).read_bytes())
+    path = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    log_path = path.with_suffix(".log")
+    if path.is_file():
+        log = log_path.read_text() if log_path.is_file() else ""
+        return BuiltLibrary(path, 0.0, log)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed building {name} (exit "
+                           f"{proc.returncode}):\n{proc.stderr}")
+    log = proc.stdout + proc.stderr
+    log_path.write_text(log)
+    os.replace(tmp, path)  # atomic: a concurrent process never loads half a file
+    return BuiltLibrary(path, seconds, log)
