@@ -8,19 +8,40 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Device: the card's name and power limit (nvidia-smi); TF32 off.
-2. Build: K1 (``ops/kernels/csrc/mlp_fwd.cu``) with nvcc, and ptxas's
-   register / shared-memory / spill report.
-3. Kernel parity: K1 against its plain PyTorch version on the card at the
-   full serving width (F = 136, hidden [512, 256, 128]).
+2. Build: K1-K5 (``ops/kernels/csrc/*.cu``), one nvcc per source, all
+   started together, and ptxas's register / shared-memory / spill report.
+3. Kernel parity, each kernel against its plain PyTorch version on the
+   card: K1 at the full serving width (F = 136, hidden [512, 256, 128]);
+   K2 at N = 2,560 (a training step), 1,000 (a ragged tile) and 32,768
+   (many blocks), bit-for-bit deterministic; K3/K4 at [256, 10] and
+   [1024, 200] with masked lists and zero-denominator lists; K5 exactly
+   equal to its plain version, and its per-position click rates within
+   4 sigma of exam * click_prob.
 4. Serving: a seeded full-width DNN written as a checkpoint, loaded by
    ``Scorer.from_checkpoint`` (auto mode, so K1), served over HTTP through
    a ``MicroBatcher``; every reply checked against the plain version, and
    the K1 launch count of that run must be positive.
-5. Timing: kernel, plain version and a chain of library calls at the
-   serving buckets (8x16, 256x16, 256x128 rows), with FLOPs, bytes and the
-   least time the card could take; and one ``Scorer`` call per bucket,
-   with K1 and with the plain DNN path (host clock).
-6. Kernels: one JSON line per the port's kernel table, then the result line.
+5. Serving timing: K1, plain version and a chain of library calls at the
+   serving buckets, with the least time the card could take; one
+   ``Scorer`` call per bucket, with K1 and with the plain DNN path.
+6. One DLA step at full width on a fixed batch, kernels on against the
+   plain path: the losses and both towers' gradients.
+7. Training at full width (the bench protocol of ``tools/bench_common.py``:
+   DLA, DNN [512, 256, 128], F = 136, B = 256, L = 10, PBM clicks with
+   compact resampling and the window plan, Adagrad): 4,096 synthetic
+   queries from ``--seed``, 4 windows of 50 steps with all three kernel
+   hparams on. The launch counts of that run must be K2 = steps,
+   K3 = K4 = 2 x steps, K5 = windows + 1 (the feed's click-rate estimate);
+   losses finite; a validation nDCG@10 after every window. The same run
+   with the kernels off, in turns (on, off, off, on), for queries/s; then
+   where a step's time goes (CUDA events per part, and torch.profiler).
+8. The CLI end to end on a small ULTRA-format dataset written under
+   ``build/``: ``python -m ultra_pytorch_tpu_torch.run`` trains with the
+   kernels on and keeps the best checkpoint, ``--test_only`` writes a
+   ranklist, and a ``Scorer`` loads that checkpoint and serves it.
+9. Kernel timing at the training shapes: K2-K5, their plain versions and
+   (K5) the library call, with the least time the card could take.
+10. Kernels: one JSON line listing K1-K5, then the result line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -28,8 +49,11 @@ The last line of standard output is
 
 from __future__ import annotations
 
+import argparse
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -42,13 +66,21 @@ import torch
 import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(ROOT, "build", "chip_smoke")
 FEATURES = 136                 # MSLR-WEB10K's feature count
 HIDDEN = "hidden_layer_sizes=[512, 256, 128]"
 BUCKETS = ((8, 16), (256, 16), (256, 128))   # (queries, docs) per call
+BATCH, LIST = 256, 10          # the bench protocol's training batch
+WINDOWS, WINDOW = 4, 50        # training windows x steps
 # K1 against its plain version: the same float32 arithmetic, but each
 # dot product over K <= 512 is summed in another order (per thread in the
 # kernel, blocked in cuBLAS), so results differ by a few ulps per layer.
 TOL = 2e-4
+# K2 and the DLA gradients: sums over rows in another order (per 16-row
+# tile, then over tiles, in K2), held relative to the largest magnitude.
+GRAD_TOL = 2e-4
+# K3/K4: sums over a list and over the batch in another order.
+LOSS_TOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_F32 = 67e12
 PEAK_TF32 = 495e12
@@ -92,10 +124,34 @@ def mlp_work(model, n_rows: int):
     return n_rows * ops, 4 * (n_rows * FEATURES + n_params + n_rows)
 
 
+def mlp_bwd_work(model, n_rows: int):
+    """(operations, bytes) of K2 over `n_rows` rows: the forward recompute
+    (``mlp_work``) plus, per layer, the two backward products dz @ W^T and
+    post^T @ dz (2*in*out each), db (out), the LayerNorm backward
+    (dscale, dbias, dnhat, two means, dh: 10*in) and, on every layer but
+    the first, the activation's derivative (2*in). Bytes read x, g and the weights once and write dx and one
+    gradient per parameter once."""
+    ops, _ = mlp_work(model, n_rows)
+    for j, layer in enumerate(model.layers):
+        d_in, d_out = layer.linear.in_features, layer.linear.out_features
+        ops += n_rows * (4 * d_in * d_out + d_out + 10 * d_in)
+        if j:
+            ops += n_rows * 2 * d_in
+    n_params = sum(p.numel() for p in model.parameters())
+    return ops, 4 * (2 * n_rows * FEATURES + n_rows + 2 * n_params)
+
+
+def bound(ops: float, nbytes: float, peak_ops: float = PEAK_F32):
+    """The least time in ms the card could take, and what bounds it."""
+    t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def time_ms(fn, iters: int) -> float:
     """Mean device time of `fn` over `iters` back-to-back calls (CUDA
-    events, after a warm-up). Weights stay in L2 between calls, as they do
-    in a server that scores request after request."""
+    events, after a warm-up). Inputs stay in L2 between calls, as they do
+    in a loop that calls the kernel step after step."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -109,6 +165,56 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int, replays: int = 5) -> float:
+    """Device time of one call of `fn`: `calls` calls captured in a CUDA
+    graph, and the graph replayed under CUDA events. A replay runs the
+    kernels back to back, so unlike ``time_ms`` this leaves out the card's
+    waits for the host's next launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm-up off the capture, as required
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def device_events(fn):
+    """(name, device microseconds) of every kernel, copy and set that
+    torch.profiler records on the card while `fn` runs; empty when the
+    profiler records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def max_rel_err(got, ref):
+    """(max abs error, max abs error over the reference's largest
+    magnitude)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / max(ref.abs().max().item(), 1e-12)
+
+
 def library_chain(model, x):
     """The same function as library calls (F.layer_norm's two-pass
     variance, F.linear, F.elu): the yardstick, never called by the port."""
@@ -120,6 +226,26 @@ def library_chain(model, x):
         if j != len(model.layers) - 1:
             h = F.elu(h)
     return h[:, 0]
+
+
+def counters():
+    """The five kernels' launch counters as (holder, attribute name)."""
+    from ultra_pytorch_tpu_torch.ops.kernels import click_sim, listwise_loss
+    from ultra_pytorch_tpu_torch.ops.kernels import mlp
+
+    return {"K1": mlp.fused_mlp_score, "K2": mlp.mlp_backward,
+            "K3": listwise_loss.listwise_loss_forward,
+            "K4": listwise_loss.listwise_loss_backward,
+            "K5": click_sim.pbm_clicks}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in counters().items()}
 
 
 def phase_device():
@@ -139,17 +265,30 @@ def phase_device():
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
 
-def phase_build(mlp):
+def phase_build():
+    from ultra_pytorch_tpu_torch.ops.kernels import click_sim, listwise_loss
+    from ultra_pytorch_tpu_torch.ops.kernels import mlp
+
+    builds = {"K1": mlp.build_kernel, "K2": mlp.build_backward_kernel,
+                "K3/K4": listwise_loss.build_kernel,
+                "K5": click_sim.build_kernel}
     t0 = time.perf_counter()
-    built = mlp.build_kernel()
-    print(f"[build] K1 {built.path.name}: nvcc {built.seconds:.2f} s, "
-          f"load {time.perf_counter() - t0:.2f} s", flush=True)
-    for line in built.log.splitlines():
-        if any(w in line for w in ("registers", "spill", "smem")):
-            print(f"[build] ptxas: {line.strip()}", flush=True)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futures = {name: pool.submit(fn) for name, fn in builds.items()}
+        built = {name: f.result() for name, f in futures.items()}
+    print(f"[build] {len(built)} libraries in "
+          f"{time.perf_counter() - t0:.2f} s wall", flush=True)
+    for name, lib in built.items():
+        print(f"[build] {name} {lib.path.name}: nvcc {lib.seconds:.2f} s",
+              flush=True)
+        for line in lib.log.splitlines():
+            if any(w in line for w in ("Compiling", "registers", "spill",
+                                       "smem")):
+                print(f"[build] {name} ptxas: {line.strip()}", flush=True)
 
 
 def phase_parity(mlp, gen, dev):
+    """K1 against its plain version; then K2 against autograd of it."""
     cases = (("elu/norm", HIDDEN, 32768), ("elu/norm ragged", HIDDEN, 1000),
              ("relu/no-norm", HIDDEN + ",activation_func=relu,norm=none",
               32768))
@@ -167,20 +306,126 @@ def phase_parity(mlp, gen, dev):
             err = (got - ref).abs()
             rel = (err / ref.abs().clamp_min(1e-12)).max().item()
             worst = max(worst, err.max().item())
-            print(f"[parity] {name} N={n}: max abs {err.max().item():.3e} "
+            print(f"[parity] K1 {name} N={n}: max abs {err.max().item():.3e} "
                   f"max rel {rel:.3e} (limit rtol=atol={TOL})", flush=True)
             check(got.shape == (n,) and bool(torch.isfinite(got).all()),
                   f"{name}: non-finite or misshapen scores")
             check(torch.allclose(got, ref, rtol=TOL, atol=TOL),
                   f"{name}: K1 disagrees with its plain version")
-    model = seeded_dnn(HIDDEN, gen, dev)
-    try:
-        mlp.fused_mlp_score(model.layers, torch.zeros(4, FEATURES,
-                                                      device=dev))
-        check(False, "a forward that needs gradients did not raise")
-    except NotImplementedError as exc:
-        print(f"[parity] gradient request refused: {exc}", flush=True)
     return worst
+
+
+def phase_k2_parity(mlp, gen, dev):
+    """K2 against autograd of the plain forward, at a training step's rows,
+    a ragged tile and many blocks; two runs must give the same bits.
+    Activations with a continuous derivative (elu is the path's)."""
+    cases = (("elu/norm", "elu", True, 2560),
+             ("elu/norm ragged", "elu", True, 1000),
+             ("elu/norm many blocks", "elu", True, 32768),
+             ("tanh/no-norm", "tanh", False, 2560))
+    worst = 0.0
+    for name, act, use_norm, n in cases:
+        model = seeded_dnn(HIDDEN, gen, dev)
+        x = torch.randn(n, FEATURES, generator=gen).to(dev)
+        g = torch.randn(n, generator=gen).to(dev)
+        dx, grads = mlp.mlp_backward(model.layers, x, g, act, use_norm)
+        again = mlp.mlp_backward(model.layers, x, g, act, use_norm)
+        ref_dx, ref_grads = mlp.mlp_backward_reference(model.layers, x, g,
+                                                       act, use_norm)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in
+                  zip([dx] + grads, [again[0]] + again[1])),
+              f"K2 {name}: two runs differ")
+        rel_worst = 0.0
+        for got, ref in zip([dx] + grads, [ref_dx] + ref_grads):
+            check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+                  f"K2 {name}: misshapen or non-finite gradient")
+            err, rel = max_rel_err(got, ref)
+            worst, rel_worst = max(worst, err), max(rel_worst, rel)
+            check(rel <= GRAD_TOL, f"K2 {name}: gradient {tuple(ref.shape)} "
+                  f"off by {rel:.3e} of its largest magnitude")
+        print(f"[parity] K2 {name} N={n}: max abs {worst:.3e}, max "
+              f"{rel_worst:.3e} of the largest magnitude (limit "
+              f"{GRAD_TOL}); deterministic", flush=True)
+    return worst
+
+
+def loss_inputs(batch, length, gen, dev):
+    """s, y, w, m [B, L] with a fully masked list, a zero-denominator list
+    and a half-masked one."""
+    s = torch.randn(batch, length, generator=gen)
+    y = (torch.rand(batch, length, generator=gen) < 0.3).float()
+    w = torch.rand(batch, length, generator=gen) + 0.5
+    m = (torch.rand(batch, length, generator=gen) < 0.9).float()
+    m[0] = 0.0
+    w[1] = 0.0
+    y[2], m[2, length // 2:] = 0.0, 0.0
+    return [t.to(dev) for t in (s, y, w, m)]
+
+
+def phase_loss_parity(gen, dev):
+    from ultra_pytorch_tpu_torch.ops import losses
+    from ultra_pytorch_tpu_torch.ops.kernels import listwise_loss as ll
+
+    worst = 0.0
+    for batch, length in ((BATCH, LIST), (1024, 200)):
+        s, y, w, m = loss_inputs(batch, length, gen, dev)
+        sr = s.clone().requires_grad_(True)
+        ref = losses.softmax_loss(sr, y, w, m)
+        (ref_ds,) = torch.autograd.grad(2.5 * ref, sr)
+        got = ll.listwise_loss_forward(s, y, w, m)
+        ds = ll.listwise_loss_backward(s, y, w, m,
+                                       torch.tensor(2.5, device=dev))
+        torch.cuda.synchronize()
+        loss_err = abs(got.item() - ref.item())
+        ds_err, ds_rel = max_rel_err(ds, ref_ds)
+        worst = max(worst, loss_err, ds_err)
+        print(f"[parity] K3 [{batch}, {length}]: loss {got.item():.6f} vs "
+              f"{ref.item():.6f} (abs err {loss_err:.3e}); K4: max abs "
+              f"{ds_err:.3e}, {ds_rel:.3e} of the largest (limit "
+              f"{LOSS_TOL})", flush=True)
+        check(loss_err <= LOSS_TOL * abs(ref.item()) + 1e-6,
+              f"K3 [{batch}, {length}] disagrees with softmax_loss")
+        check(ds_rel <= LOSS_TOL, f"K4 [{batch}, {length}] disagrees with "
+              "the gradient of softmax_loss")
+        check(not ds[0].any() and not ds[1].any(),
+              "K4: a masked or zero-denominator list took a gradient")
+    zero = torch.zeros_like(s)
+    check(ll.listwise_loss_forward(s, y, w, zero).item() == 0.0
+          and not ll.listwise_loss_backward(
+              s, y, w, zero, torch.tensor(1.0, device=dev)).any(),
+          "K3/K4: an all-masked batch is not 0")
+    return worst
+
+
+def phase_click_parity(dev):
+    from ultra_pytorch_tpu_torch.ops.kernels import click_sim
+    from ultra_pytorch_tpu_torch.sim.click_models import (
+        click_probs, make_click_model)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for shape in ((1,), (7, 10), (WINDOW, 9 * BATCH, LIST)):
+        probs = torch.rand(shape, generator=gen, device=dev)
+        mask = (torch.rand(shape, generator=gen, device=dev) < 0.9).float()
+        key = click_sim.draw_key(gen)
+        got = click_sim.pbm_clicks(probs, mask, key)
+        ref = click_sim.pbm_clicks_reference(probs, mask, key)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"K5 {shape}: clicks differ from the "
+              "plain version's")
+        print(f"[parity] K5 {shape}: equal to the plain version "
+              f"({int(got.sum().item())} clicks)", flush=True)
+    model = make_click_model("pbm", 0.1, 1.0, 4, 1.0).to(dev)
+    n = 400_000
+    labels = torch.full((n, LIST), 4.0, device=dev)
+    clicks = click_sim.sample_pbm_clicks(model, gen, labels)
+    p = click_probs(model, labels[:1])[0]
+    rate = clicks.mean(0)
+    z = ((rate - p).abs() / (p * (1 - p) / n).sqrt()).max().item()
+    print(f"[parity] K5 rates over {n} lists: max {z:.2f} sigma from "
+          f"exam * click_prob (limit 4)", flush=True)
+    check(z <= 4.0, "K5 click rates are off exam * click_prob")
+    return 0.0
 
 
 def phase_serving(mlp, gen, dev):
@@ -189,7 +434,7 @@ def phase_serving(mlp, gen, dev):
         make_server
     from ultra_pytorch_tpu_torch.utils.checkpoint import save_checkpoint
 
-    model_dir = os.path.join(ROOT, "build", "chip_smoke", "model")
+    model_dir = os.path.join(WORK, "model")
     model = seeded_dnn(HIDDEN, gen, "cpu")
     save_checkpoint(os.path.join(model_dir, "DLA.ckpt"), params_to_jax(model),
                     metadata={"serve": {
@@ -226,7 +471,7 @@ def phase_serving(mlp, gen, dev):
         return out, time.perf_counter() - t0
 
     try:
-        mlp.fused_mlp_score.launches = 0
+        reset_counts()
         with ThreadPoolExecutor(len(bodies)) as pool:
             replies = list(pool.map(post, bodies))
         launches = mlp.fused_mlp_score.launches
@@ -288,7 +533,7 @@ def phase_timing(mlp, gen, dev, model_dir):
     rng = np.random.default_rng(1)
     rows = {}
     with torch.inference_mode():
-        for q, docs in BUCKETS:
+        for q, docs in BUCKETS + ((BATCH, LIST),):
             n = q * docs
             x = torch.randn(n, FEATURES, generator=gen).to(dev)
             iters = 200 if n <= 4096 else 50
@@ -299,22 +544,23 @@ def phase_timing(mlp, gen, dev, model_dir):
             lib_diff = (library_chain(model, x)
                         - mlp.fused_mlp_score(layers, x)).abs().max().item()
             ops, nbytes = mlp_work(model, n)
-            bound = {name: 1e3 * max(ops / peak, nbytes / PEAK_BYTES)
-                     for name, peak in (("f32", PEAK_F32),
-                                        ("tf32", PEAK_TF32),
-                                        ("bf16", PEAK_BF16))}
-            by = "operations" if ops / PEAK_F32 >= nbytes / PEAK_BYTES \
-                else "bytes"
+            bounds = {name: bound(ops, nbytes, peak)[0]
+                      for name, peak in (("f32", PEAK_F32),
+                                         ("tf32", PEAK_TF32),
+                                         ("bf16", PEAK_BF16))}
+            bound_ms, by = bound(ops, nbytes)
             rows[(q, docs)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                   bound_ms=bound["f32"], bound_by=by)
-            print(f"[timing] {q}x{docs} ({n} rows): K1 {ms:.4f} ms, plain "
+                                   bound_ms=bound_ms, bound_by=by)
+            print(f"[timing] K1 {q}x{docs} ({n} rows): K1 {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms | "
                   f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB | bound "
-                  f"f32 {bound['f32']:.4f} ms ({by}), tf32 "
-                  f"{bound['tf32']:.4f} ms, bf16 {bound['bf16']:.4f} ms | "
-                  f"K1 at {100 * bound['f32'] / ms:.1f}% of the f32 bound, "
+                  f"f32 {bounds['f32']:.4f} ms ({by}), tf32 "
+                  f"{bounds['tf32']:.4f} ms, bf16 {bounds['bf16']:.4f} ms | "
+                  f"K1 at {100 * bound_ms / ms:.1f}% of the f32 bound, "
                   f"{ops / ms / 1e9:.2f} TFLOP/s | library vs K1 max abs "
                   f"{lib_diff:.2e}", flush=True)
+            if (q, docs) not in BUCKETS:
+                continue
             feats = rng.normal(size=(q, docs, FEATURES)).astype(np.float32)
             k1_call, plain_call = scorer_ms(with_k1, feats), \
                 scorer_ms(without, feats)
@@ -325,7 +571,408 @@ def phase_timing(mlp, gen, dev, model_dir):
     return rows
 
 
+def dla_settings(kernels: bool, click_json: str):
+    """The bench protocol's experiment settings, kernel hparams on or off."""
+    on = "true" if kernels else "false"
+    return {
+        "train_input_feed": "ClickSimulationFeed",
+        "train_input_hparams": f"click_model_json={click_json},"
+                               f"use_pallas_click={on}",
+        "valid_input_feed": "DirectLabelFeed", "valid_input_hparams": "",
+        "test_input_feed": "DirectLabelFeed", "test_input_hparams": "",
+        "ranking_model": "DNN",
+        "ranking_model_hparams": f"{HIDDEN},use_pallas={on}",
+        "learning_algorithm": "DLA",
+        "learning_algorithm_hparams":
+            "loss_func=fused_softmax_loss" if kernels else "",
+        "metrics": ["ndcg", "mrr"], "metrics_topn": [3, 5, 10],
+        "objective_metric": "ndcg_10", "selection_bias_cutoff": LIST,
+    }
+
+
+def click_model_file() -> str:
+    from ultra_pytorch_tpu_torch.sim.click_models import (
+        click_model_json_numpy)
+
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, "pbm_0.1_1.0_4_1.0.json")
+    with open(path, "w") as fout:
+        json.dump(click_model_json_numpy("pbm", 0.1, 1.0, 4, 1.0), fout)
+    return path
+
+
+def synthetic(num_queries: int, seed: int):
+    """The bench protocol's synthetic data (``__graft_entry__``'s
+    ``_make_synthetic``): normal features, grades 0-2, a positive first
+    document."""
+    from ultra_pytorch_tpu_torch.data.dataset import RankingDataset
+
+    rng = np.random.default_rng(seed)
+    d = num_queries * LIST
+    labels = rng.integers(0, 3, size=(num_queries, LIST)).astype(np.float32)
+    labels[:, 0] = np.maximum(labels[:, 0], 1.0)
+    return RankingDataset(
+        features=rng.normal(size=(d, FEATURES)).astype(np.float32),
+        initial_list=np.arange(d, dtype=np.int64).reshape(num_queries, LIST),
+        labels=labels, qids=[str(i) for i in range(num_queries)],
+        dids=[f"d{i}" for i in range(d)], feature_size=FEATURES,
+        rank_list_size=LIST, max_label=2.0)
+
+
+def phase_dla_step(dev, click_json):
+    """One DLA step at full width on a fixed batch: the kernels' losses and
+    gradients against the plain path's, from the same initialisation."""
+    from ultra_pytorch_tpu_torch.run.experiment import create_algorithm
+
+    rng = np.random.default_rng(3)
+    mask = np.ones((BATCH, LIST), np.float32)
+    mask[: BATCH // 4, 7:] = 0.0
+    clicks = (rng.random((BATCH, LIST)) < 0.3).astype(np.float32) * mask
+    clicks[:, 0] = 1.0
+    batch = {"features": torch.from_numpy(rng.normal(
+        size=(BATCH, LIST, FEATURES)).astype(np.float32)).to(dev),
+        "labels": torch.from_numpy(clicks).to(dev),
+        "mask": torch.from_numpy(mask).to(dev)}
+    out = {}
+    for kernels in (True, False):
+        settings = dla_settings(kernels, click_json)
+        settings.update(max_candidate_num=LIST)
+        alg = create_algorithm(settings, FEATURES, 2.0, dev)
+        state = alg.init_state(torch.Generator().manual_seed(1))
+        losses = alg.losses(state, batch)
+        grads = torch.autograd.grad(losses[0], alg.trainable(state))
+        n = len(state.params.jax_leaves())
+        out[kernels] = ([t.item() for t in losses],
+                        torch.cat([g.reshape(-1) for g in grads[:n]]),
+                        torch.cat([g.reshape(-1) for g in grads[n:]]))
+    (loss_k, rank_k, prop_k), (loss_p, rank_p, prop_p) = out[True], out[False]
+    loss_err = max(abs(a - b) for a, b in zip(loss_k, loss_p))
+    rank_err, rank_rel = max_rel_err(rank_k, rank_p)
+    prop_err, prop_rel = max_rel_err(prop_k, prop_p)
+    print(f"[dla step] kernels on vs plain: loss {loss_k[0]:.6f} vs "
+          f"{loss_p[0]:.6f} (max abs err over loss, rank, exam "
+          f"{loss_err:.3e}); ranker gradient max abs {rank_err:.3e} "
+          f"({rank_rel:.3e} of its largest), propensity gradient "
+          f"{prop_err:.3e} ({prop_rel:.3e}) (limit {GRAD_TOL})", flush=True)
+    check(all(math.isfinite(v) for v in loss_k), "non-finite DLA loss")
+    check(loss_err <= LOSS_TOL * abs(loss_p[0]) + 1e-6,
+          "DLA losses differ between the kernels and the plain path")
+    check(rank_rel <= GRAD_TOL and prop_rel <= GRAD_TOL,
+          "DLA gradients differ between the kernels and the plain path")
+
+
+def train_run(kernels: bool, dev, click_json, data, seed: int):
+    """A full-width DLA run of WINDOWS x WINDOW steps through the
+    Experiment API; returns the per-window host seconds, losses and
+    validation summaries, and the experiment."""
+    from ultra_pytorch_tpu_torch.run.experiment import Experiment
+
+    exp = Experiment(dla_settings(kernels, click_json), "unused",
+                     os.path.join(WORK, "train"), batch_size=BATCH,
+                     seed=seed, device=dev)
+    exp.setup(datasets=data)
+    exp.init_state()
+    seconds, losses, summaries = [], [], []
+    for _ in range(WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = exp.train_steps(WINDOW)   # ends with a device read
+        seconds.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+        summaries.append(exp.validate("valid"))
+    return seconds, losses, summaries, exp
+
+
+def phase_training(dev, click_json):
+    data = {"train": synthetic(4096, 0), "valid": synthetic(1024, 1)}
+    steps = WINDOWS * WINDOW
+    # The main path: counts set to 0 before the Experiment is built (its
+    # feed launches K5 once for the click-rate estimate) and read after.
+    reset_counts()
+    seconds, losses, summaries, exp = train_run(True, dev, click_json, data,
+                                                0)
+    counts = read_counts()
+    print(f"[training] kernels on: {steps} steps in {WINDOWS} windows; "
+          f"pool {exp.feeds['train']._pool_size(BATCH)} candidates a step; "
+          f"launches {counts}", flush=True)
+    for w, (sec, loss, summ) in enumerate(zip(seconds, losses, summaries)):
+        print(f"[training]   window {w + 1}: loss {loss:.5f}, "
+              f"{WINDOW * BATCH / sec:.0f} queries/s, ndcg_10 "
+              f"{summ['ndcg_10']:.5f} mrr_10 {summ['mrr_10']:.5f}",
+              flush=True)
+    check(all(math.isfinite(v) for v in losses), "non-finite training loss")
+    check(all(math.isfinite(s["ndcg_10"]) and 0 <= s["ndcg_10"] <= 1
+              for s in summaries), "validation nDCG@10 out of [0, 1]")
+    want = {"K2": steps, "K3": 2 * steps, "K4": 2 * steps,
+            "K5": WINDOWS + 1}
+    for k, n in want.items():
+        check(counts[k] == n, f"{k} launched {counts[k]} times on the "
+              f"training path, expected {n}")
+    check(counts["K1"] >= steps, "K1 launched fewer times than steps")
+
+    # Queries/s in turns (on, off, off, on); the first window of each run
+    # is its warm-up and is left out of the rate.
+    rates = {True: [], False: []}
+    rates[True].append(WINDOW * BATCH * (WINDOWS - 1) / sum(seconds[1:]))
+    for kernels in (False, False, True):
+        reset_counts()
+        secs, run_losses, _, _ = train_run(kernels, dev, click_json, data, 0)
+        if not kernels:
+            check(not any(read_counts().values()),
+                  "the plain path launched a kernel")
+        check(all(math.isfinite(v) for v in run_losses),
+              "non-finite training loss")
+        rates[kernels].append(WINDOW * BATCH * (WINDOWS - 1) / sum(secs[1:]))
+    print(f"[training] queries/s (host clock, windows 2-{WINDOWS}, turns "
+          f"on/off/off/on): kernels on {rates[True]}, plain path "
+          f"{rates[False]}", flush=True)
+    step_breakdown(exp)
+    return counts, exp.feeds["train"]._pool_size(BATCH)
+
+
+def step_breakdown(exp):
+    """Where a kernels-on step's time goes: CUDA events around each part of
+    WINDOW steps (device time between the marks, which counts the device
+    waiting on the host), the host's own time per part, then
+    torch.profiler's device time per kernel over the same kind of steps."""
+    feed, alg = exp.feeds["train"], exp.algorithm
+    parts = ("plan", "gather", "forward+loss", "backward", "optimizer")
+    ev = {p: [] for p in parts}
+    host = dict.fromkeys(parts, 0.0)
+
+    def mark():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e, time.perf_counter()
+
+    def window():
+        m0 = mark()
+        plan = feed.train_batch_plan(exp._window_generator(), exp.state.step,
+                                     WINDOW)
+        m1 = mark()
+        ev["plan"].append((m0[0], m1[0]))
+        host["plan"] += m1[1] - m0[1]
+        for i in range(WINDOW):
+            a = mark()
+            batch = feed.batch_from_plan(plan, i)
+            b = mark()
+            loss = alg.losses(exp.state, batch)[0]
+            c = mark()
+            grads = torch.autograd.grad(loss, alg.trainable(exp.state))
+            d = mark()
+            alg.apply_gradients(exp.state, grads)
+            e = mark()
+            for p, (x, y) in zip(parts[1:], ((a, b), (b, c), (c, d), (d, e))):
+                ev[p].append((x[0], y[0]))
+                host[p] += y[1] - x[1]
+        torch.cuda.synchronize()
+        return m0
+
+    window()  # warm-up
+    for p in parts:
+        ev[p].clear()
+        host[p] = 0.0
+    t0 = time.perf_counter()
+    window()
+    wall = time.perf_counter() - t0
+    dev_ms = {p: sum(x.elapsed_time(y) for x, y in ev[p]) for p in parts}
+    print(f"[step] {WINDOW} kernels-on steps in {1e3 * wall:.2f} ms wall "
+          f"({1e3 * wall / WINDOW:.3f} ms a step)", flush=True)
+    for p in parts:
+        print(f"[step]   {p}: device span {dev_ms[p] / WINDOW:.4f} ms a step,"
+              f" host {1e3 * host[p] / WINDOW:.4f} ms a step", flush=True)
+
+    step_wall = wall / WINDOW
+    timed = {}
+
+    def profiled_window():
+        t0 = time.perf_counter()
+        exp.train_steps(WINDOW)   # ends with a device read
+        timed["wall"] = time.perf_counter() - t0
+
+    kernels = device_events(profiled_window)
+    wall = timed["wall"]
+    if not kernels:
+        print("[profile] torch.profiler recorded no device activity: the "
+              "device busy share is not measured in this run", flush=True)
+        return
+    by_name = {}
+    for name, us in kernels:
+        total, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + us, count + 1)
+    busy_ms = sum(us for _, us in kernels) / 1e3
+    print(f"[profile] {WINDOW} steps: wall {1e3 * wall:.2f} ms, device busy "
+          f"{busy_ms:.2f} ms ({100 * busy_ms / (1e3 * wall):.1f}%, idle "
+          f"{100 - 100 * busy_ms / (1e3 * wall):.1f}%) under the profiler; "
+          f"{len(kernels) / WINDOW:.0f} device activities a step", flush=True)
+    busy_step = busy_ms / WINDOW
+    print(f"[profile] busy {busy_step:.4f} ms of the unprofiled "
+          f"{1e3 * step_wall:.4f} ms step: "
+          f"{100 - 100 * busy_step / (1e3 * step_wall):.1f}% idle",
+          flush=True)
+    for name, (us, count) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:15]:
+        print(f"[profile]   {us / 1e3 / WINDOW:.4f} ms a step, {count} "
+              f"launches: {name[:90]}", flush=True)
+
+
+def write_ultra_split(data_dir: str, split: str, num_queries: int,
+                      seed: int) -> None:
+    """One split of the synthetic data in ULTRA format."""
+    ds = synthetic(num_queries, seed)
+    sub = os.path.join(data_dir, split)
+    os.makedirs(sub, exist_ok=True)
+    cols = np.arange(1, FEATURES + 1)
+    with open(os.path.join(sub, f"{split}.feature"), "w") as fout:
+        for did, row in zip(ds.dids, ds.features):
+            fout.write(did + " " + " ".join(
+                f"{i}:{v:.6g}" for i, v in zip(cols, row)) + "\n")
+    with open(os.path.join(sub, f"{split}.init_list"), "w") as fout:
+        for qid, docs in zip(ds.qids, ds.initial_list):
+            fout.write(qid + " " + " ".join(map(str, docs)) + "\n")
+    with open(os.path.join(sub, f"{split}.labels"), "w") as fout:
+        for qid, labels in zip(ds.qids, ds.labels):
+            fout.write(qid + " " + " ".join(f"{v:g}" for v in labels) + "\n")
+
+
+def phase_cli(mlp, dev, click_json):
+    from ultra_pytorch_tpu_torch.data.dataset import read_data
+    from ultra_pytorch_tpu_torch.serve import Scorer
+
+    data_dir = os.path.join(WORK, "ultra_data")
+    model_dir = os.path.join(WORK, "cli_model")
+    out_dir = os.path.join(WORK, "cli_out")
+    for stale in (model_dir, out_dir):  # an earlier run's checkpoint
+        shutil.rmtree(stale, ignore_errors=True)
+    for split, q, seed in (("train", 512, 10), ("valid", 128, 11),
+                           ("test", 128, 12)):
+        write_ultra_split(data_dir, split, q, seed)
+    with open(os.path.join(data_dir, "settings.json"), "w") as fout:
+        json.dump({"feature_size": FEATURES, "max_label": 2}, fout)
+    setting_file = os.path.join(WORK, "cli_settings.json")
+    with open(setting_file, "w") as fout:
+        json.dump(dla_settings(True, click_json), fout)
+    common = [sys.executable, "-m", "ultra_pytorch_tpu_torch.run",
+              "--data_dir", data_dir, "--setting_file", setting_file,
+              "--model_dir", model_dir, "--batch_size", str(BATCH)]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    for extra in (["--max_train_iteration", str(2 * WINDOW),
+                   "--steps_per_checkpoint", str(WINDOW)],
+                  ["--output_dir", out_dir, "--test_only"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(common + extra, cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=400)
+        for line in proc.stdout.splitlines():
+            print(f"[cli] {line}", flush=True)
+        check(proc.returncode == 0, f"the CLI failed:\n{proc.stderr[-3000:]}")
+        print(f"[cli] ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(os.path.isfile(os.path.join(model_dir, "DLA.ckpt.npz")),
+          "the CLI saved no checkpoint")
+    ranklist = os.path.join(out_dir, "test.ranklist")
+    with open(ranklist) as fin:
+        lines = fin.read().splitlines()
+    check(len(lines) == 128 * LIST and all(len(x.split()) == 6
+                                           for x in lines),
+          "the ranklist is not one TREC line per test document")
+    scorer = Scorer.from_checkpoint(model_dir)
+    check(scorer.ranker.hparams.use_pallas, "Scorer did not select K1")
+    test = read_data(data_dir, "test")
+    feats = test.features[test.initial_list[:16]]
+    got = torch.from_numpy(scorer.score(feats))
+    with torch.inference_mode():
+        ref = mlp.fused_mlp_score_reference(
+            scorer.ranker.layers,
+            torch.from_numpy(feats).to(dev)).cpu()
+    err = (got - ref).abs().max().item()
+    print(f"[cli] ranklist {len(lines)} lines; Scorer on the trained "
+          f"checkpoint: 16 queries, max abs err vs the plain version "
+          f"{err:.3e}", flush=True)
+    check(torch.allclose(got, ref, rtol=TOL, atol=TOL),
+          "the served checkpoint disagrees with the plain version")
+
+
+def phase_kernel_timing(mlp, gen, dev, pool):
+    """K2-K5 at the training shapes. ``ms``, ``plain_ms`` and
+    ``library_ms`` are device time per call (``graph_ms``); each wrapper's
+    back-to-back call time (``time_ms``, which also counts the card waiting
+    for the host's next launch) is printed beside them."""
+    from ultra_pytorch_tpu_torch.ops import losses
+    from ultra_pytorch_tpu_torch.ops.kernels import click_sim
+    from ultra_pytorch_tpu_torch.ops.kernels import listwise_loss as ll
+
+    model = seeded_dnn(HIDDEN, gen, dev)
+    n = BATCH * LIST
+    x = torch.randn(n, FEATURES, generator=gen).to(dev)
+    g = torch.randn(n, generator=gen).to(dev)
+    k2_ops, k2_bytes = mlp_bwd_work(model, n)
+    print(f"[timing] K2 {n} rows: {k2_ops / 1e9:.3f} GFLOP, "
+          f"{k2_bytes / 1e6:.3f} MB", flush=True)
+
+    s, y, w, m = loss_inputs(BATCH, LIST, gen, dev)
+    one = torch.tensor(1.0, device=dev)
+    elems = BATCH * LIST
+
+    shape = (WINDOW, pool, LIST)
+    gen_c = torch.Generator(device=dev).manual_seed(7)
+    probs = torch.rand(shape, generator=gen_c, device=dev)
+    mask = (torch.rand(shape, generator=gen_c, device=dev) < 0.9).float()
+    key = click_sim.draw_key(gen_c)
+    clicks = probs.numel()
+    print(f"[timing] K5 window {list(shape)} = {clicks} elements", flush=True)
+
+    # (kernel call, plain version, library call, operations, bytes). K3: per element wl (add, 2 multiplies), the
+    # masked score, max, subtract, exp, sum, the label share (divide), its
+    # log-softmax term (2 subtracts, multiply, add) and the list's weight:
+    # ~15; K4 adds the softmax (exp), the difference and three multiplies:
+    # ~20. K5: Philox4x32-10 is 10 rounds of 2 mul.lo, 2 mul.hi, 4 xor and
+    # 2 key adds per 4 elements (25 an element), then shift, convert,
+    # scale, compare and the mask's multiply: ~30 32-bit operations an
+    # element, counted at the float32 CUDA-core rate; it reads probs and
+    # mask and writes clicks.
+    cases = {
+        "K2": (lambda: mlp.mlp_backward(model.layers, x, g, "elu", True),
+               lambda: mlp.mlp_backward_reference(
+                   model.layers, x, g, "elu", True), None, k2_ops, k2_bytes),
+        "K3": (lambda: ll.listwise_loss_forward(s, y, w, m),
+               lambda: losses.softmax_loss(s, y, w, m), None, 15 * elems,
+               16 * elems + 4),
+        "K4": (lambda: ll.listwise_loss_backward(s, y, w, m, one),
+               lambda: softmax_grad(losses, s, y, w, m), None, 20 * elems,
+               20 * elems + 4),
+        "K5": (lambda: click_sim.pbm_clicks(probs, mask, key),
+               lambda: click_sim.pbm_clicks_reference(probs, mask, key),
+               lambda: torch.bernoulli(probs), 30 * clicks,
+               12 * clicks + 16),
+    }
+    rows = {}
+    for name, (fn, plain, lib, n_ops, n_bytes) in cases.items():
+        b_ms, by = bound(n_ops, n_bytes)
+        rows[name] = dict(
+            ms=graph_ms(fn, 50), plain_ms=graph_ms(plain, 10),
+            library_ms=None if lib is None else graph_ms(lib, 50),
+            bound_ms=b_ms, bound_by=by)
+        r = rows[name]
+        lib_text = "none" if lib is None else f"{r['library_ms']:.4f} ms"
+        print(f"[timing] {name}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {lib_text} (device time a "
+              f"call) | wrapper call {time_ms(fn, 100):.4f} ms, plain call "
+              f"{time_ms(plain, 20):.4f} ms (back to back) | bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), kernel at "
+              f"{100 * r['bound_ms'] / r['ms']:.2f}% of it", flush=True)
+    return rows
+
+
+def softmax_grad(losses, s, y, w, m):
+    """K4's plain version: the gradient of softmax_loss by autograd."""
+    sr = s.detach().requires_grad_(True)
+    return torch.autograd.grad(losses.softmax_loss(sr, y, w, m), sr)[0]
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of every weight and input")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -333,21 +980,43 @@ def main() -> int:
     from ultra_pytorch_tpu_torch.ops.kernels import mlp
 
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(0)
+    gen = torch.Generator().manual_seed(args.seed)
+    t_start = time.perf_counter()
     phase_device()
-    phase_build(mlp)
-    max_err = phase_parity(mlp, gen, dev)
-    launches, model_dir = phase_serving(mlp, gen, dev)
-    timing = phase_timing(mlp, gen, dev, model_dir)[BUCKETS[-1]]
-    print(json.dumps({"kernels": [{
-        "name": "K1 fused_mlp_fwd",
-        "route": "cuda",
-        "source": "ultra_pytorch_tpu_torch/ops/kernels/csrc/mlp_fwd.cu",
-        "replaces": "ultra_pytorch_tpu/ops/pallas/mlp.py:91",
-        "launches": launches,
-        "max_abs_err": max_err,
-        **timing,
-    }]}), flush=True)
+    phase_build()
+    err = {"K1": phase_parity(mlp, gen, dev),
+           "K2": phase_k2_parity(mlp, gen, dev)}
+    err["K3"] = err["K4"] = phase_loss_parity(gen, dev)
+    err["K5"] = phase_click_parity(dev)
+    serving_launches, model_dir = phase_serving(mlp, gen, dev)
+    k1_timing = phase_timing(mlp, gen, dev, model_dir)[BUCKETS[-1]]
+    click_json = click_model_file()
+    phase_dla_step(dev, click_json)
+    counts, pool = phase_training(dev, click_json)
+    phase_cli(mlp, dev, click_json)
+    timing = phase_kernel_timing(mlp, gen, dev, pool)
+    timing["K1"] = k1_timing
+    counts["K1"] += serving_launches
+    sources = {
+        "K1": ("fused_mlp_fwd", "mlp_fwd.cu",
+               "ultra_pytorch_tpu/ops/pallas/mlp.py:91"),
+        "K2": ("fused_mlp_bwd", "mlp_bwd.cu",
+               "ultra_pytorch_tpu/ops/pallas/mlp.py:155"),
+        "K3": ("listwise_loss_fwd", "listwise_loss.cu",
+               "ultra_pytorch_tpu/ops/pallas/listwise_loss.py:47"),
+        "K4": ("listwise_loss_bwd", "listwise_loss.cu",
+               "ultra_pytorch_tpu/ops/pallas/listwise_loss.py:56"),
+        "K5": ("pbm_clicks", "click_sim.cu",
+               "ultra_pytorch_tpu/ops/pallas/click_sim.py:26"),
+    }
+    kernels = [{
+        "name": f"{k} {name}", "route": "cuda",
+        "source": f"ultra_pytorch_tpu_torch/ops/kernels/csrc/{src}",
+        "replaces": replaces, "launches": counts[k],
+        "max_abs_err": err[k], **timing[k]}
+        for k, (name, src, replaces) in sources.items()]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -97,3 +97,32 @@ def test_unported_ranker_raises(name):
 def test_unknown_component_raises():
     with pytest.raises(KeyError, match="Unknown component"):
         registry.find_class("NoSuchRanker", kind="ranker")
+
+
+@pytest.mark.parametrize("kind,name,module,attr", [
+    ("algorithm", "DLA", "algorithms.dla", "DLA"),
+    ("algorithm", "ultra.learning_algorithm.DLA", "algorithms.dla", "DLA"),
+    ("feed", "ClickSimulationFeed", "input_layer.feeds",
+     "ClickSimulationFeed"),
+    ("feed", "ultra.input_layer.ClickSimulationFeed", "input_layer.feeds",
+     "ClickSimulationFeed"),
+    ("feed", "ultra.input_layer.DirectLabelFeed", "input_layer.feeds",
+     "DirectLabelFeed"),
+])
+def test_registry_resolves_training_components(kind, name, module, attr):
+    import importlib
+
+    want = getattr(importlib.import_module(
+        f"ultra_pytorch_tpu_torch.{module}"), attr)
+    assert registry.find_class(name, kind=kind) is want
+
+
+@pytest.mark.parametrize("kind,name", [
+    ("algorithm", "ultra.learning_algorithm.IPWrank"),
+    ("algorithm", "NSGD"), ("algorithm", "PDGD"),
+    ("feed", "ultra.input_layer.StochasticOnlineSimulationFeed"),
+    ("feed", "DeterministicOnlineSimulationFeed"),
+])
+def test_unported_algorithms_and_feeds_raise(kind, name):
+    with pytest.raises(KeyError, match="not yet ported"):
+        registry.find_class(name, kind=kind)

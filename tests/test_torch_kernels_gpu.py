@@ -1,0 +1,175 @@
+"""K2-K5 on the card against their plain PyTorch versions.
+
+These need a CUDA device (the kernels have no CPU mode) and skip without
+one. The file imports nothing of JAX, so it runs on a machine with the
+card and no JAX:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_*.py -q
+"""
+
+import pytest
+import torch
+
+from ultra_pytorch_tpu_torch.models.dnn import DNN
+from ultra_pytorch_tpu_torch.ops import losses
+from ultra_pytorch_tpu_torch.ops.kernels import click_sim, listwise_loss, mlp
+
+pytestmark = pytest.mark.gpu
+
+FULL = "hidden_layer_sizes=[512, 256, 128]"
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, ref, rtol):
+    """Within rtol of the reference's largest magnitude: sums over rows
+    taken in another order (per tile in K2, blocked in cuBLAS)."""
+    scale = max(ref.abs().max().item(), 1e-6)
+    err = (got - ref).abs().max().item()
+    assert err <= rtol * scale, f"max abs err {err:.3e} vs scale {scale:.3e}"
+
+
+def _seeded_dnn(hparams, features, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    model = DNN(hparams, features, generator=gen)
+    with torch.no_grad():
+        for layer in model.layers:
+            n = layer.norm.weight.shape[0]
+            layer.norm.weight.add_(0.1 * torch.randn(n, generator=gen))
+            layer.norm.bias.add_(0.1 * torch.randn(n, generator=gen))
+    return model.to(device), gen
+
+
+@pytest.mark.parametrize("n_rows", [1, 31, 1000, 2560])
+@pytest.mark.parametrize("activation,use_norm", [("elu", True),
+                                                 ("elu", False),
+                                                 ("tanh", True),
+                                                 ("sigmoid", False)])
+def test_k2_matches_autograd_of_plain_version(cuda, n_rows, activation,
+                                              use_norm):
+    """Activations with a continuous derivative; relu and selu, whose
+    derivatives jump at 0, are held to the plain version in
+    test_torch_mlp_kernel.py away from the jump."""
+    model, gen = _seeded_dnn(FULL, 136, n_rows, cuda)
+    x = torch.randn(n_rows, 136, generator=gen).to(cuda)
+    g = torch.randn(n_rows, generator=gen).to(cuda)
+    before = mlp.mlp_backward.launches
+    dx, grads = mlp.mlp_backward(model.layers, x, g, activation, use_norm)
+    ref_dx, ref_grads = mlp.mlp_backward_reference(model.layers, x, g,
+                                                   activation, use_norm)
+    torch.cuda.synchronize()
+    assert mlp.mlp_backward.launches == before + 1
+    _close(dx, ref_dx, 2e-4)
+    for got, ref in zip(grads, ref_grads):
+        assert got.shape == ref.shape
+        _close(got, ref, 2e-4)
+
+
+def test_k2_odd_widths(cuda):
+    """Widths that are no multiple of 4 (the scalar k loop), wider than one
+    256-column pass, over a ragged last tile."""
+    model, gen = _seeded_dnn("hidden_layer_sizes=[300, 70, 5]", 37, 5, cuda)
+    x = torch.randn(77, 37, generator=gen).to(cuda)
+    g = torch.randn(77, generator=gen).to(cuda)
+    dx, grads = mlp.mlp_backward(model.layers, x, g, "elu", True)
+    ref_dx, ref_grads = mlp.mlp_backward_reference(model.layers, x, g,
+                                                   "elu", True)
+    torch.cuda.synchronize()
+    for got, ref in zip([dx] + grads, [ref_dx] + ref_grads):
+        assert got.shape == ref.shape
+        _close(got, ref, 2e-4)
+
+
+def test_k2_is_deterministic_and_trains_through_autograd(cuda):
+    model, gen = _seeded_dnn(FULL, 136, 7, cuda)
+    x = torch.randn(4, 640, 136, generator=gen).to(cuda)
+    first = mlp.mlp_backward(model.layers, x.reshape(-1, 136),
+                             torch.ones(2560, device=cuda), "elu", True)
+    again = mlp.mlp_backward(model.layers, x.reshape(-1, 136),
+                             torch.ones(2560, device=cuda), "elu", True)
+    for a, b in zip([first[0]] + first[1], [again[0]] + again[1]):
+        assert torch.equal(a, b)
+    k1, k2 = mlp.fused_mlp_score.launches, mlp.mlp_backward.launches
+    (mlp.fused_mlp_score(model.layers, x) ** 2).sum().backward()
+    assert (mlp.fused_mlp_score.launches, mlp.mlp_backward.launches) == (
+        k1 + 1, k2 + 1)
+    got = [p.grad.clone() for p in model.parameters()]
+    model.zero_grad()
+    (mlp.fused_mlp_score_reference(model.layers, x) ** 2).sum().backward()
+    for a, p in zip(got, model.parameters()):
+        _close(a, p.grad, 2e-4)
+
+
+def _loss_inputs(batch, length, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    s = torch.randn(batch, length, generator=gen)
+    y = (torch.rand(batch, length, generator=gen) < 0.3).float()
+    w = torch.rand(batch, length, generator=gen) + 0.5
+    m = (torch.rand(batch, length, generator=gen) < 0.9).float()
+    m[0] = 0.0            # a list with every position masked
+    w[1] = 0.0            # a list whose denominator is 0
+    y[2], m[2, length // 2:] = 0.0, 0.0
+    return [t.to(device) for t in (s, y, w, m)]
+
+
+@pytest.mark.parametrize("batch,length", [(256, 10), (1024, 200), (3, 1)])
+def test_k3_k4_match_softmax_loss(cuda, batch, length):
+    s, y, w, m = _loss_inputs(batch, length, cuda, batch + length)
+    sr = s.clone().requires_grad_(True)
+    ref = losses.softmax_loss(sr, y, w, m)
+    (ref_ds,) = torch.autograd.grad(2.5 * ref, sr)
+    k3, k4 = (listwise_loss.listwise_loss_forward.launches,
+              listwise_loss.listwise_loss_backward.launches)
+    sk = s.clone().requires_grad_(True)
+    got = listwise_loss.fused_softmax_loss(sk, y, w, m)
+    (ds,) = torch.autograd.grad(2.5 * got, sk)
+    torch.cuda.synchronize()
+    assert (listwise_loss.listwise_loss_forward.launches,
+            listwise_loss.listwise_loss_backward.launches) == (k3 + 1, k4 + 1)
+    torch.testing.assert_close(got, ref.detach(), rtol=1e-5, atol=1e-6)
+    _close(ds, ref_ds, 1e-5)
+    assert torch.equal(ds[0], torch.zeros_like(ds[0]))
+
+
+def test_k3_all_lists_masked(cuda):
+    s, y, w, _ = _loss_inputs(8, 10, cuda, 1)
+    m = torch.zeros_like(s)
+    assert listwise_loss.listwise_loss_forward(s, y, w, m).item() == 0.0
+    g = torch.ones((), device=cuda)
+    assert torch.equal(listwise_loss.listwise_loss_backward(s, y, w, m, g),
+                       torch.zeros_like(s))
+
+
+@pytest.mark.parametrize("shape", [(1,), (7, 10), (2304, 10), (50, 512, 10)])
+def test_k5_equals_its_plain_version(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    probs = torch.rand(shape, generator=gen, device=cuda)
+    mask = (torch.rand(shape, generator=gen, device=cuda) < 0.9).float()
+    key = click_sim.draw_key(gen)
+    before = click_sim.pbm_clicks.launches
+    got = click_sim.pbm_clicks(probs, mask, key)
+    ref = click_sim.pbm_clicks_reference(probs, mask, key)
+    torch.cuda.synchronize()
+    assert click_sim.pbm_clicks.launches == before + 1
+    assert torch.equal(got, ref)
+
+
+def test_k5_position_rates(cuda):
+    from ultra_pytorch_tpu_torch.sim.click_models import (
+        click_probs, make_click_model)
+
+    model = make_click_model("pbm", 0.1, 1.0, 4, 1.0).to(cuda)
+    n = 200_000
+    labels = torch.full((n, 10), 4.0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    clicks = click_sim.sample_pbm_clicks(model, gen, labels)
+    p = click_probs(model, labels[:1])[0]
+    rate = clicks.mean(0)
+    sigma = (p * (1 - p) / n).sqrt()
+    assert bool(((rate - p).abs() <= 4 * sigma).all()), (rate, p)

@@ -2,8 +2,9 @@
 
 On the CPU the port's ``fused_mlp_score`` runs its plain PyTorch version
 (CPU tensors only); it is held to the JAX Pallas kernel run in interpret
-mode, the way tests/test_pallas_kernels.py runs it. The CUDA kernel itself
-is held to the plain version on the card by the ``gpu`` test below and by
+mode, the way tests/test_pallas_kernels.py runs it. The CUDA kernels
+themselves (K1, and K2 when the call is differentiated) are held to the
+plain version on the card by the ``gpu`` tests below and by
 ``chip_smoke.py``.
 """
 
@@ -123,6 +124,30 @@ def test_packed_params_follow_parameter_updates():
     assert not torch.equal(again, first)
 
 
+def kink_free_rows(model, x, activation, use_norm, eps=1e-5):
+    """1.0 for the rows none of whose hidden pre-activations lies within
+    `eps` of 0, else 0.0; all ones for activations whose derivative is
+    continuous. relu's and selu's derivatives jump at 0, so at a
+    pre-activation within float32 rounding of 0 the two versions may take
+    different sides and both be right; those rows get a zero cotangent."""
+    keep = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+    if activation not in ("relu", "selu"):
+        return keep
+    act = {"relu": torch.relu, "selu": torch.selu}[activation]
+    h = x.double()
+    for j, layer in enumerate(model.layers[:-1]):
+        if use_norm:
+            mean = h.mean(-1, keepdim=True)
+            var = (h * h).mean(-1, keepdim=True) - mean * mean
+            h = ((h - mean) * torch.rsqrt(var.clamp_min(0.0) + 1e-5)
+                 * layer.norm.weight.double() + layer.norm.bias.double())
+        z = h @ layer.linear.weight.double().t() + layer.linear.bias.double()
+        keep = keep * (z.abs() > eps).all(dim=1)
+        h = act(z)
+    assert keep.mean().item() >= 0.9
+    return keep
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_rows", [1, 31, 1000, 4096])
 @pytest.mark.parametrize("activation,use_norm", [("elu", True),
@@ -147,8 +172,28 @@ def test_kernel_matches_plain_version_on_card(n_rows, activation, use_norm):
     assert mlp.fused_mlp_score.launches == before + 1
     # Sums over K <= 512 taken in another order than cuBLAS's.
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
-    with pytest.raises(NotImplementedError, match="K2"):
-        mlp.fused_mlp_score(model.layers, x, activation, use_norm)
+    # With gradients on, the same call trains through K2; its gradients
+    # are held to autograd of the plain version (sums over rows in
+    # another order, so relative to the largest gradient).
+    g = torch.randn(n_rows, generator=gen).cuda() * kink_free_rows(
+        model, x, activation, use_norm)
+    k2 = mlp.mlp_backward.launches
+    xg = x.clone().requires_grad_(True)
+    mlp.fused_mlp_score(model.layers, xg, activation, use_norm).backward(g)
+    assert mlp.mlp_backward.launches == k2 + 1
+    got_grads = [xg.grad] + [p.grad for p in model.parameters()]
+    model.zero_grad()
+    xr = x.clone().requires_grad_(True)
+    mlp.fused_mlp_score_reference(model.layers, xr, activation,
+                                  use_norm).backward(g)
+    for a, b in zip(got_grads, [xr.grad] + [p.grad for p in
+                                            model.parameters()]):
+        if b is None:  # a LayerNorm affine without use_norm: K2 gives 0
+            assert not a.any()
+            continue
+        scale = max(b.abs().max().item(), 1e-6)
+        err = (a - b).abs().max().item()
+        assert err <= 2e-4 * scale, (tuple(b.shape), err, scale)
 
 
 @pytest.mark.gpu

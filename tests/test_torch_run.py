@@ -1,0 +1,203 @@
+"""The port's training entry points: ``Experiment``, its checkpoints read
+in both directions with the JAX package's ``Experiment``, and the CLI
+(``python -m ultra_pytorch_tpu_torch.run --device cpu``) on the toy data.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")  # the JAX package is the reference here
+pytest.importorskip("flax")  # its click models and algorithms need it
+
+from ultra_pytorch_tpu.run.experiment import Experiment as JaxExperiment
+from ultra_pytorch_tpu_torch.run import __main__ as cli
+from ultra_pytorch_tpu_torch.run.experiment import Experiment
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _settings(click_model_json, kernels=False):
+    ranker = "hidden_layer_sizes=[16]"
+    algo = ""
+    feed = f"click_model_json={click_model_json}"
+    if kernels:
+        ranker += ",use_pallas=true"
+        algo = "loss_func=fused_softmax_loss"
+        feed += ",use_pallas_click=true"
+    return {
+        "train_input_feed": "ClickSimulationFeed",
+        "train_input_hparams": feed,
+        "valid_input_feed": "DirectLabelFeed", "valid_input_hparams": "",
+        "test_input_feed": "DirectLabelFeed", "test_input_hparams": "",
+        "ranking_model": "DNN", "ranking_model_hparams": ranker,
+        "learning_algorithm": "DLA", "learning_algorithm_hparams": algo,
+        "metrics": ["ndcg", "mrr"], "metrics_topn": [3, 5],
+        "objective_metric": "ndcg_5", "selection_bias_cutoff": 5,
+    }
+
+
+def _port(settings, data_dir, model_dir, splits=("train", "valid")):
+    exp = Experiment(dict(settings), data_dir, model_dir, batch_size=8,
+                     device="cpu").setup(splits)
+    exp.init_state()
+    return exp
+
+
+def _jax(settings, data_dir, model_dir, splits=("train", "valid")):
+    exp = JaxExperiment(dict(settings), data_dir, model_dir, batch_size=8,
+                        dp="off").setup(splits)
+    exp.init_state()
+    return exp
+
+
+def _jax_leaves(exp):
+    return [np.asarray(x) for x in jax.tree_util.tree_leaves(
+        (exp.state, exp._data_rng))]
+
+
+def _port_leaves(exp):
+    return exp.algorithm.state_leaves(exp.state) + [exp._data_key]
+
+
+def test_jax_checkpoint_loads_into_the_port(toy_data_dir, click_model_json,
+                                            tmp_path):
+    settings = _settings(click_model_json)
+    jexp = _jax(settings, toy_data_dir, str(tmp_path))
+    jexp.train_steps(3)
+    jexp.save({"step": 3})
+    exp = _port(settings, toy_data_dir, str(tmp_path))
+    assert exp.restore()
+    mine, theirs = _port_leaves(exp), _jax_leaves(jexp)
+    assert len(mine) == len(theirs)
+    for a, b in zip(mine, theirs):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    assert exp.state.step == 3
+    # On the same weights, validation (tie-free scores) and test scores
+    # agree with the JAX package's.
+    want = jexp.validate("valid")
+    got = exp.validate("valid")
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6)
+
+
+def test_port_checkpoint_loads_into_jax(toy_data_dir, click_model_json,
+                                        tmp_path):
+    settings = _settings(click_model_json)
+    exp = _port(settings, toy_data_dir, str(tmp_path))
+    exp.train_steps(3)
+    exp.save({"step": 3})
+    jexp = _jax(settings, toy_data_dir, str(tmp_path))
+    assert jexp.restore()
+    for a, b in zip(_jax_leaves(jexp), _port_leaves(exp)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    scores = exp.test_scores("valid")
+    np.testing.assert_allclose(scores, jexp.test_scores("valid"), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_restore_continues_the_same_run(toy_data_dir, click_model_json,
+                                        tmp_path):
+    """Two windows straight through equal one window, a checkpoint, a
+    fresh Experiment restoring it and the second window: the data key is
+    part of the state."""
+    settings = _settings(click_model_json, kernels=True)
+    straight = _port(settings, toy_data_dir, str(tmp_path / "a"))
+    straight.train_steps(2)
+    straight.train_steps(2)
+    first = _port(settings, toy_data_dir, str(tmp_path / "b"))
+    first.train_steps(2)
+    first.save()
+    resumed = _port(settings, toy_data_dir, str(tmp_path / "b"))
+    assert resumed.restore()
+    resumed.train_steps(2)
+    for a, b in zip(_port_leaves(straight), _port_leaves(resumed)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_restore_params_only_and_guards(toy_data_dir, click_model_json,
+                                        tmp_path):
+    settings = _settings(click_model_json)
+    exp = _port(settings, toy_data_dir, str(tmp_path))
+    exp.train_steps(2)
+    exp.save({"state_format": "opt-per-leaf-r3"})
+    fresh = _port(settings, toy_data_dir, str(tmp_path))
+    with pytest.raises(ValueError, match="restore_params_only"):
+        fresh.restore()
+    assert fresh.restore(params_only=True)
+    for a, b in zip(exp.algorithm.state_leaves(exp.state)[:4],
+                    fresh.algorithm.state_leaves(fresh.state)[:4]):
+        np.testing.assert_array_equal(a, b)
+    assert fresh.state.step == 0
+    with pytest.raises(FileNotFoundError):
+        fresh.restore(str(tmp_path / "missing.ckpt"))
+
+
+def test_entry_points_default_to_cuda(toy_data_dir, click_model_json,
+                                      monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Experiment(_settings(click_model_json), toy_data_dir, "unused")
+    assert cli.parse_args([]).device == "cuda"
+
+
+@pytest.mark.parametrize("kwargs", [{"dp": 2}, {"dp": "4"},
+                                    {"shard_data": True}])
+def test_unported_parallelism_raises(click_model_json, kwargs):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        Experiment(_settings(click_model_json), "unused", "unused",
+                   device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("flags", [["--prng", "rbg"],
+                                   ["--profile_steps", "3"]])
+def test_unported_cli_flags_raise(tmp_path, flags):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cli.main(["--model_dir", str(tmp_path), "--device", "cpu"] + flags)
+
+
+def _run(args, cwd):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "ultra_pytorch_tpu_torch.run"] + args,
+        cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, (
+        f"CLI failed:\nSTDOUT:\n{proc.stdout}\nSTDERR:\n{proc.stderr}")
+    return proc.stdout
+
+
+def test_cli_train_then_test_only(toy_data_dir, click_model_json, tmp_path):
+    setting_file = tmp_path / "settings.json"
+    setting_file.write_text(json.dumps(_settings(click_model_json,
+                                                 kernels=True)))
+    model_dir, out_dir = tmp_path / "model", tmp_path / "out"
+    common = ["--device", "cpu", "--data_dir", toy_data_dir,
+              "--setting_file", str(setting_file),
+              "--model_dir", str(model_dir)]
+    stdout = _run(common + ["--batch_size", "8", "--max_train_iteration",
+                            "10", "--steps_per_checkpoint", "4",
+                            "--test_while_train"], cwd=str(tmp_path))
+    assert "Training done at step 10" in stdout
+    assert "saved checkpoint" in stdout and "test:" in stdout
+    assert (model_dir / "DLA.ckpt.npz").is_file()
+    logged = [json.loads(line) for line in
+              (model_dir / "logs" / "metrics.jsonl").read_text().splitlines()]
+    assert {r["split"] for r in logged} == {"train", "valid", "test"}
+
+    stdout = _run(common + ["--output_dir", str(out_dir), "--test_only"],
+                  cwd=str(tmp_path))
+    assert "ndcg_5:" in stdout and "WARNING: no checkpoint" not in stdout
+    lines = (out_dir / "test.ranklist").read_text().splitlines()
+    first = lines[0].split()
+    assert len(first) == 6 and first[1] == "Q0" and first[3] == "1"
+    assert first[5] == "Model"

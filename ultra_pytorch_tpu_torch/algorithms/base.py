@@ -1,0 +1,213 @@
+"""Learning-algorithm protocol: ``init_state``, ``train_step``, ``score``.
+
+The port's counterpart of the JAX package's ``algorithms/base.py``. An
+algorithm owns the ranker (an ``nn.Module``) and works on a
+:class:`TrainState` that holds the ranker, the optimizer state, the
+algorithm's auxiliary state (DLA's propensity tower and its optimizer)
+and the step count. ``train_step`` updates the tensors in place with
+autograd and returns the state and the step's metrics as 0-dim device
+tensors (no host round trip per step).
+
+The optimizers follow ``make_optimizer`` of the JAX package exactly: a
+clip by global norm written to optax's rule (``g / norm * max_norm`` when
+``norm >= max_norm``, no 1e-6 added, unlike
+``torch.nn.utils.clip_grad_norm_``), then ``ada`` (Adagrad with torch's
+``g / (sqrt(acc) + eps)``), ``ada_reset`` (the accumulator reset every
+step) or ``sgd``, all over ONE flat vector in JAX's ravel order
+(``optax.flatten``): the leaves in JAX's tree order, each raveled in C
+order, a Linear's ``w`` as ``[in, out]``. So the Adagrad accumulator is
+the same vector, element for element, as the JAX checkpoint's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ultra_pytorch_tpu_torch.metrics import ranking as metrics_lib
+from ultra_pytorch_tpu_torch.ops import losses
+from ultra_pytorch_tpu_torch.utils.hparams import HParams
+
+PADDING_SCORE = metrics_lib.PADDING_SCORE
+ADAGRAD_EPS = 1e-10
+
+# A tensor in JAX's leaf order, and whether JAX stores it transposed (a
+# Linear's w is [in, out] in JAX, [out, in] in nn.Linear).
+Leaf = Tuple[torch.Tensor, bool]
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: torch.nn.Module      # the ranker
+    opt_state: Dict[str, torch.Tensor]
+    aux: Any                     # algorithm-specific state (or None)
+    step: int
+
+
+def flatten_leaves(leaves: Sequence[Leaf]) -> torch.Tensor:
+    """One flat float32 vector in JAX's ravel order."""
+    return torch.cat([(t.t() if transposed else t).reshape(-1).float()
+                      for t, transposed in leaves])
+
+
+def add_flat_(leaves: Sequence[Leaf], flat: torch.Tensor) -> None:
+    """``leaf += flat[its slice]`` for every leaf, in place."""
+    off = 0
+    with torch.no_grad():
+        for t, transposed in leaves:
+            n = t.numel()
+            piece = flat[off: off + n]
+            if transposed:
+                piece = piece.view(t.shape[1], t.shape[0]).t()
+            t.add_(piece.view(t.shape))
+            off += n
+
+
+def clip_by_global_norm(g: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """optax's ``clip_by_global_norm`` on one flat vector."""
+    norm = torch.sqrt(torch.sum(g * g))
+    return torch.where(norm < max_norm, g, (g / norm) * max_norm)
+
+
+def adagrad_torch(g: torch.Tensor, sum_of_squares: torch.Tensor,
+                  learning_rate: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Adagrad with torch's ``g / (sqrt(acc) + eps)``: (update, new acc)."""
+    acc = sum_of_squares + g * g
+    return -learning_rate * g / (torch.sqrt(acc) + ADAGRAD_EPS), acc
+
+
+def adagrad_reset(g: torch.Tensor, learning_rate: float) -> torch.Tensor:
+    """Adagrad whose accumulator restarts every step (the reference DLA's
+    per-step optimizer re-creation): ``-lr * g / (|g| + eps)``."""
+    return -learning_rate * g / (torch.sqrt(g * g) + ADAGRAD_EPS)
+
+
+class FlatOptimizer:
+    """``make_optimizer`` of the JAX package on one flat vector:
+    clip-by-global-norm (when ``max_gradient_norm > 0``) then ``ada``,
+    ``ada_reset`` or ``sgd``."""
+
+    def __init__(self, grad_strategy: str, learning_rate: float,
+                 max_gradient_norm: float):
+        self.strategy = grad_strategy
+        self.lr = float(learning_rate)
+        self.max_norm = float(max_gradient_norm)
+
+    def init(self, n: int, device) -> Dict[str, torch.Tensor]:
+        if self.strategy in ("sgd", "ada_reset"):
+            return {}
+        return {"sum_of_squares": torch.zeros(n, dtype=torch.float32,
+                                              device=device)}
+
+    def update(self, g: torch.Tensor, state: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        if self.max_norm > 0:
+            g = clip_by_global_norm(g, self.max_norm)
+        if self.strategy == "sgd":
+            return -self.lr * g, state
+        if self.strategy == "ada_reset":
+            return adagrad_reset(g, self.lr), state
+        update, acc = adagrad_torch(g, state["sum_of_squares"], self.lr)
+        return update, {"sum_of_squares": acc}
+
+    def step(self, leaves: Sequence[Leaf], grads: Sequence[torch.Tensor],
+             state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Apply one update to `leaves` in place; returns the new state."""
+        g = flatten_leaves([(gr, tr) for gr, (_, tr) in zip(grads, leaves)])
+        update, state = self.update(g, state)
+        add_flat_(leaves, update)
+        return state
+
+
+def make_optimizer(grad_strategy: str, learning_rate: float,
+                   max_gradient_norm: float) -> FlatOptimizer:
+    return FlatOptimizer(grad_strategy, learning_rate, max_gradient_norm)
+
+
+class BaseAlgorithm:
+    """Shared construction and evaluation logic for learning algorithms."""
+
+    name = "base"
+
+    def __init__(self, ranker, exp_settings: Dict[str, Any],
+                 max_label: float = 1.0):
+        self.ranker = ranker
+        self.exp_settings = exp_settings
+        self.max_label = max_label
+        self.max_candidate_num = exp_settings["max_candidate_num"]
+        self.rank_list_size = exp_settings.get(
+            "selection_bias_cutoff", self.max_candidate_num)
+        self.hparams = HParams(**self.default_hparams())
+        self.hparams.parse(exp_settings.get("learning_algorithm_hparams", ""))
+        self.loss_fn = losses.LOSS_FUNCTIONS.get(
+            self.hparams.get("loss_func", "softmax_loss"),
+            losses.softmax_loss)
+
+    def default_hparams(self) -> Dict[str, Any]:
+        return {
+            "learning_rate": 0.05,
+            "max_gradient_norm": 5.0,
+            "loss_func": "softmax_loss",
+            "l2_loss": 0.0,
+            "grad_strategy": "ada",
+        }
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.ranker.parameters()).device
+
+    def init_state(self, generator: torch.Generator) -> TrainState:
+        raise NotImplementedError
+
+    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        raise NotImplementedError
+
+    def state_leaves(self, state: TrainState) -> List[Any]:
+        """The state as a list of tensors/arrays in the JAX TrainState's
+        leaf order (checkpoint layout)."""
+        raise NotImplementedError
+
+    def load_state_leaves(self, state: TrainState, leaves: List[Any]
+                          ) -> TrainState:
+        raise NotImplementedError
+
+    # -- shared helpers ---------------------------------------------------
+    @torch.no_grad()
+    def score(self, state: TrainState, batch: Dict[str, torch.Tensor]
+              ) -> torch.Tensor:
+        """Eval-mode scoring of a full candidate list."""
+        return state.params(batch["features"], batch.get("mask"))
+
+    def validation_metrics(self, state: TrainState,
+                           batch: Dict[str, torch.Tensor],
+                           generator: Optional[torch.Generator] = None
+                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Scores and the experiment's ``metrics x metrics_topn`` summary;
+        with a `generator`, tied scores are ordered at random."""
+        output = self.score(state, batch)
+        summary = metrics_lib.evaluate(
+            batch["labels"], output,
+            self.exp_settings.get("metrics", ["mrr", "ndcg"]),
+            self.exp_settings.get("metrics_topn", [3, 5, 10]),
+            max_label=self.max_label, mask=batch.get("mask"),
+            generator=generator)
+        return output, summary
+
+    def l2_penalty(self, params: Sequence[torch.Tensor]) -> torch.Tensor:
+        l2 = float(self.hparams.get("l2_loss", 0.0))
+        if l2 > 0:
+            return l2 * losses.l2_loss(params)
+        return torch.zeros((), device=self.device)
+
+    def train_slice(self, batch: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """Cut a batch to the top-``rank_list_size`` training list."""
+        L = self.rank_list_size
+        if batch["labels"].shape[1] <= L:
+            return batch
+        return {k: (v[:, :L] if v.dim() >= 2 else v)
+                for k, v in batch.items()}

@@ -52,11 +52,15 @@ class BaseRanker(nn.Module):
 def linear_init_(linear: nn.Linear,
                  generator: Optional[torch.Generator] = None) -> None:
     """torch's default ``nn.Linear`` init, U(-1/sqrt(fan_in), +), on
-    `generator` (the global one when None)."""
+    `generator` (the global one when None). The values are drawn on the
+    generator's device and copied, so a CPU generator gives the same
+    weights to a ranker on any device."""
     bound = 1.0 / math.sqrt(linear.in_features)
+    device = generator.device if generator is not None else None
     with torch.no_grad():
-        linear.weight.uniform_(-bound, bound, generator=generator)
-        linear.bias.uniform_(-bound, bound, generator=generator)
+        for param in (linear.weight, linear.bias):
+            param.copy_(torch.empty(param.shape, device=device).uniform_(
+                -bound, bound, generator=generator))
 
 
 def resolve_compute_dtype(name: str) -> Optional[torch.dtype]:

@@ -6,9 +6,10 @@ output layer, LayerNorm in front of every Linear, the activation (default
 elu) on all but the last layer, ``fold_norm_affine``, ``compute_dtype``
 (LayerNorm statistics stay in float32) and ``use_pallas``. The hparam
 keeps its name so existing settings strings and checkpoints load
-unchanged; here it selects the hand-written CUDA kernel
-(``ops/kernels/mlp.py``), which serves the same forward as the TPU's
-Pallas kernel did.
+unchanged; here it selects the hand-written CUDA kernels
+(``ops/kernels/mlp.py``): K1 for the forward and, when autograd needs
+gradients, K2 for the backward, as the TPU's Pallas kernels did. Without
+it the DNN trains through autograd of its plain path.
 
 Weights cross from JAX through :func:`params_from_jax`: JAX stores a
 Linear's ``w`` as ``[in, out]`` and ``nn.Linear`` as ``[out, in]``.
@@ -67,8 +68,23 @@ class DNN(base.BaseRanker):
         sizes = [feature_size] + list(self.hparams.hidden_layer_sizes) + [1]
         self.layers = nn.ModuleList(
             NormLinear(sizes[j], sizes[j + 1]) for j in range(len(sizes) - 1))
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None
+                         ) -> None:
+        """torch-default Linear init on `generator`, LayerNorm ones/zeros."""
         for layer in self.layers:
             base.linear_init_(layer.linear, generator)
+            with torch.no_grad():
+                layer.norm.weight.fill_(1.0)
+                layer.norm.bias.zero_()
+
+    def jax_leaves(self):
+        """``(tensor, transposed)`` in the JAX params tree's leaf order (per
+        layer: linear b, linear w [in, out], norm bias, norm scale)."""
+        return [leaf for layer in self.layers for leaf in (
+            (layer.linear.bias, False), (layer.linear.weight, True),
+            (layer.norm.bias, False), (layer.norm.weight, False))]
 
     def forward(self, features: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:

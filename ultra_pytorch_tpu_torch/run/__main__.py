@@ -1,0 +1,183 @@
+"""The port's training CLI, flag-compatible with the JAX package's
+``main.py``, plus ``--device`` (default ``cuda``; without a card that is an
+error, not the CPU):
+
+    python -m ultra_pytorch_tpu_torch.run --data_dir=./tests/data/ \\
+        --setting_file=configs/dla.json --model_dir=./model/ \\
+        --max_train_iteration=1000 [--device cpu]
+    python -m ultra_pytorch_tpu_torch.run ... --test_only
+
+Training runs windows of ``--steps_per_checkpoint`` steps; after each it
+validates, logs, and checkpoints the full state when the objective
+improves. A window whose mean loss is inf or nan stops the run before its
+checkpoint decision, so it never overwrites the best checkpoint; a run that
+diverged saves nothing at its end either. ``--test_only`` restores the
+checkpoint, prints the test metrics and writes a TREC ranklist.
+
+Not yet ported: ``--prng`` other than the default, ``--profile_steps``,
+``--dp`` above one device and ``--shard_data`` (each raises).
+``--sync_readback`` is accepted and changes nothing: every window is read
+back before the next starts.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import time
+
+from ultra_pytorch_tpu_torch.run.experiment import PRNG_IMPL, Experiment
+from ultra_pytorch_tpu_torch.utils.logging_utils import MetricLogger
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="ULTRA-TPU PyTorch/CUDA port")
+    p.add_argument("--data_dir", type=str, default="./tests/data/")
+    p.add_argument("--train_data_prefix", type=str, default="train")
+    p.add_argument("--valid_data_prefix", type=str, default="valid")
+    p.add_argument("--test_data_prefix", type=str, default="test")
+    p.add_argument("--model_dir", type=str, default="./tmp_model/")
+    p.add_argument("--output_dir", type=str, default="./tmp_output/")
+    p.add_argument("--setting_file", type=str,
+                   default="./example/offline_setting/dla_exp_settings.json")
+    p.add_argument("--batch_size", type=int, default=256)
+    p.add_argument("--data_format", type=str, default="ULTRA",
+                   choices=["ULTRA", "ULTRE"])
+    p.add_argument("--click_model_dir", type=str, default=None)
+    p.add_argument("--max_list_cutoff", type=int, default=0,
+                   help="0 = no cutoff on candidate lists")
+    p.add_argument("--selection_bias_cutoff", type=int, default=10)
+    p.add_argument("--max_train_iteration", type=int, default=10000)
+    p.add_argument("--start_saving_iteration", type=int, default=0)
+    p.add_argument("--start_checkpoint", type=str, default="")
+    p.add_argument("--steps_per_checkpoint", type=int, default=50)
+    p.add_argument("--test_while_train", action="store_true")
+    p.add_argument("--test_only", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dp", type=str, default="auto",
+                   help="'auto', 'off' or 1: the port runs on one device")
+    p.add_argument("--shard_data", action="store_true")
+    p.add_argument("--log_dir", type=str, default="",
+                   help="JSONL metric log (default <model_dir>/logs)")
+    p.add_argument("--profile_steps", type=int, default=0)
+    p.add_argument("--restore_params_only", action="store_true")
+    p.add_argument("--sync_readback", action="store_true")
+    p.add_argument("--prng", type=str, default=PRNG_IMPL,
+                   choices=[PRNG_IMPL, "rbg", "unsafe_rbg"])
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; 'cpu' runs the kernels' plain "
+                        "versions")
+    return p.parse_args(argv)
+
+
+def build_experiment(args, splits) -> Experiment:
+    with open(args.setting_file) as fin:
+        exp_settings = json.load(fin)
+    if args.selection_bias_cutoff > 0:
+        exp_settings.setdefault("selection_bias_cutoff",
+                                args.selection_bias_cutoff)
+    if args.click_model_dir:
+        exp_settings["click_model_dir"] = args.click_model_dir
+    exp = Experiment(
+        exp_settings, args.data_dir, args.model_dir,
+        batch_size=args.batch_size, data_format=args.data_format,
+        seed=args.seed,
+        rank_cut=args.max_list_cutoff if args.max_list_cutoff > 0 else None,
+        dp=args.dp, shard_data=args.shard_data,
+        split_prefixes={"train": args.train_data_prefix,
+                        "valid": args.valid_data_prefix,
+                        "test": args.test_data_prefix},
+        device=args.device)
+    return exp.setup(splits=splits)
+
+
+def _restore(exp: Experiment, args) -> bool:
+    restored = exp.restore(args.start_checkpoint or None,
+                           params_only=args.restore_params_only)
+    if restored:
+        what = "ranker params" if args.restore_params_only else "checkpoint"
+        print(f"Restored {what} from "
+              f"{args.start_checkpoint or exp.ckpt_path}")
+    return restored
+
+
+def _line(summary) -> str:
+    return ", ".join(f"{k}={v:.5f}" for k, v in sorted(summary.items()))
+
+
+def train(args) -> None:
+    splits = ("train", "valid", "test") if args.test_while_train else (
+        "train", "valid")
+    exp = build_experiment(args, splits)
+    exp.init_state()
+    _restore(exp, args)
+    logger = MetricLogger(args.log_dir or os.path.join(args.model_dir, "logs"))
+    objective = exp.exp_settings.get("objective_metric", "ndcg_10")
+    best, step, diverged = None, 0, False
+    while step < args.max_train_iteration:
+        window = min(args.steps_per_checkpoint,
+                     args.max_train_iteration - step)
+        t0 = time.perf_counter()
+        metrics = exp.train_steps(window)
+        qps = window * args.batch_size / (time.perf_counter() - t0)
+        step += window
+        summary = exp.validate("valid")
+        print(f"step {step} loss {metrics.get('loss', float('nan')):.5f} "
+              f"({qps:.0f} queries/s) | {_line(summary)}", flush=True)
+        logger.log("train", step, dict(metrics, queries_per_sec=qps))
+        logger.log("valid", step, summary)
+        if args.test_while_train:
+            test_summary = exp.validate("test")
+            logger.log("test", step, test_summary)
+            print("  test: " + _line(test_summary))
+        # The divergence check comes before the checkpoint decision: a
+        # window whose loss went inf/nan never overwrites the best one.
+        diverged = not math.isfinite(metrics.get("loss", 0.0))
+        obj = summary.get(objective)
+        if (not diverged and obj is not None and obj == obj
+                and (best is None or obj > best)
+                and step >= args.start_saving_iteration):
+            best = obj
+            exp.save({"step": step, objective: obj})
+            print(f"  saved checkpoint ({objective}={obj:.5f})")
+        if diverged:
+            print("Divergence detected (loss inf/nan); stopping.")
+            break
+    if best is None and not diverged:
+        exp.save({"step": step})
+    logger.close()
+    print(f"Training done at step {step}; best {objective}={best}")
+
+
+def test(args) -> None:
+    exp = build_experiment(args, splits=("test",))
+    exp.init_state()
+    if not _restore(exp, args):
+        print("WARNING: no checkpoint found; testing from random init")
+    summary = exp.validate("test")
+    for k in sorted(summary):
+        print(f"{k}: {summary[k]:.5f}")
+    os.makedirs(args.output_dir, exist_ok=True)
+    path, _ = exp.write_ranklist("test", args.output_dir)
+    print(f"Wrote {path}")
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    if args.prng != PRNG_IMPL:
+        raise NotImplementedError(
+            f"--prng {args.prng} is not yet ported to ultra_pytorch_tpu_torch")
+    if args.profile_steps > 0:
+        raise NotImplementedError(
+            "--profile_steps is not yet ported to ultra_pytorch_tpu_torch")
+    os.makedirs(args.model_dir, exist_ok=True)
+    if args.test_only:
+        test(args)
+    else:
+        train(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,291 @@
+"""Experiment assembly and the train / validation loops.
+
+The port's counterpart of the JAX package's ``run/experiment.py``, on one
+device. It reads the same experiment-JSON schema (``train/valid/
+test_input_feed`` with their hparam strings, ``ranking_model``,
+``learning_algorithm``, ``metrics``/``metrics_topn``/``objective_metric``),
+resolves components through the registry and runs
+
+* a training window as a Python loop over steps, with the window's
+  query, click and validity draws planned once (one batched pass, so K5
+  runs once per window with ``use_pallas_click=true``);
+* validation in one pass over the split with the count-weighted merge,
+  ties ordered at random from (seed, step);
+* checkpoints of the full train state in the JAX package's leaf order and
+  format (``STATE_FORMAT``), readable by either package.
+
+Randomness: the ranker and the propensity tower are drawn from a CPU
+``torch.Generator`` seeded with ``seed``, so they are the same on every
+device. The data stream is keyed by two 32-bit words (the JAX trainer's
+``uint32[2]`` data key, which the checkpoint stores in the same place):
+each window seeds a generator on the device from them and draws the next
+two words, so a restored run continues the same stream.
+
+Data parallelism (``dp`` > 1) and ``shard_data`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ultra_pytorch_tpu_torch.data import dataset as data_lib
+from ultra_pytorch_tpu_torch.data.trec import output_ranklist
+from ultra_pytorch_tpu_torch.models.dnn import params_from_jax, params_to_jax
+from ultra_pytorch_tpu_torch.utils import checkpoint as ckpt_lib
+from ultra_pytorch_tpu_torch.utils.device import resolve_device
+from ultra_pytorch_tpu_torch.utils.registry import find_class
+
+# Checkpoint state-layout version, the JAX package's (optimizer state as
+# one flat vector per tower).
+STATE_FORMAT = "opt-flat-r4"
+# The JAX PRNG whose key layout (uint32[2]) the checkpoints carry.
+PRNG_IMPL = "threefry2x32"
+_DATA_KEY_TAG = 0xDA7A   # the initial data key's seed offset
+_NEXT_KEY_TAG = 0x4E58   # the next window key's seed offset
+_EVAL_TAG = 0x7EB7       # the validation tie-break seed offset
+_MASK32 = 0xFFFFFFFF
+
+
+def create_algorithm(exp_settings: Dict[str, Any], feature_size: int,
+                     max_label: float, device=None):
+    """Build the ranker on `device` (default CUDA) and the algorithm."""
+    ranker_cls = find_class(exp_settings["ranking_model"], kind="ranker")
+    ranker = ranker_cls(exp_settings.get("ranking_model_hparams", ""),
+                        feature_size).to(resolve_device(device))
+    algo_cls = find_class(exp_settings["learning_algorithm"],
+                          kind="algorithm")
+    return algo_cls(ranker, exp_settings, max_label=max_label)
+
+
+def _key_seed(key: np.ndarray) -> int:
+    """The 64-bit generator seed of a two-word key."""
+    return (int(key[0]) << 32) | int(key[1])
+
+
+def _words(seed: int) -> np.ndarray:
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 1 << 32, (2,), generator=gen).numpy().astype(
+        np.uint32)
+
+
+class Experiment:
+    """One configured experiment over a dataset directory, on one device."""
+
+    def __init__(self, exp_settings: Dict[str, Any], data_dir: str,
+                 model_dir: str, batch_size: int = 256,
+                 data_format: str = "ULTRA", seed: int = 0,
+                 rank_cut: Optional[int] = None, dp=None,
+                 split_prefixes: Optional[Dict[str, str]] = None,
+                 shard_data: bool = False, device=None):
+        """`dp` takes the JAX trainer's policy values; only one device
+        ("auto", "off", 0 or 1) is ported. `device` defaults to CUDA."""
+        if isinstance(dp, str):
+            dp = None if dp == "auto" else 0 if dp == "off" else int(dp)
+        if dp not in (None, 0, 1):
+            raise NotImplementedError(
+                f"dp={dp}: data parallelism is not yet ported to "
+                "ultra_pytorch_tpu_torch (one device only)")
+        if shard_data:
+            raise NotImplementedError(
+                "shard_data is not yet ported to ultra_pytorch_tpu_torch")
+        self.exp_settings = exp_settings
+        self.data_dir = data_dir
+        self.model_dir = model_dir
+        self.batch_size = batch_size
+        self.data_format = data_format
+        self.seed = seed
+        self.rank_cut = rank_cut
+        self.split_prefixes = split_prefixes or {}
+        self.device = resolve_device(device)
+
+    # -- data -------------------------------------------------------------
+    def load_split(self, split: str) -> data_lib.RankingDataset:
+        click_model_dir = (self.exp_settings.get("click_model_dir")
+                           if self.data_format == "ULTRE" else None)
+        prefix = self.split_prefixes.get(split, split)
+        return data_lib.read_data(self.data_dir, prefix, self.rank_cut,
+                                  click_model_dir)
+
+    def setup(self, splits=("train", "valid"),
+              datasets: Optional[Dict[str, data_lib.RankingDataset]] = None):
+        """Read the splits (or take them from `datasets`), resolve
+        ``max_candidate_num`` / ``selection_bias_cutoff``, pad, put the
+        data on the device and build the algorithm and the feeds."""
+        given = datasets or {}
+        self.datasets = {s: given[s] if s in given else self.load_split(s)
+                         for s in splits}
+        max_candidate_num = max(
+            d.rank_list_size for d in self.datasets.values())
+        self.exp_settings["max_candidate_num"] = max_candidate_num
+        cutoff = self.exp_settings.get("selection_bias_cutoff",
+                                       max_candidate_num)
+        self.exp_settings["selection_bias_cutoff"] = min(
+            cutoff, max_candidate_num) if cutoff > 0 else max_candidate_num
+        for d in self.datasets.values():
+            d.pad(max_candidate_num)
+
+        train_like = self.datasets.get("train") or next(
+            iter(self.datasets.values()))
+        self.max_label = max(d.max_label for d in self.datasets.values())
+        self.algorithm = create_algorithm(
+            self.exp_settings, train_like.feature_size, self.max_label,
+            self.device)
+        self.device_data = {s: d.to_device(self.device)
+                            for s, d in self.datasets.items()}
+        self.feeds = {}
+        for split in ("train", "valid", "test"):
+            if split not in self.datasets:
+                continue
+            feed_cls = find_class(
+                self.exp_settings[f"{split}_input_feed"], kind="feed")
+            self.feeds[split] = feed_cls(
+                self.algorithm, self.batch_size,
+                self.exp_settings.get(f"{split}_input_hparams", ""),
+                self.device_data[split],
+                list_size=self.datasets[split].rank_list_size)
+        return self
+
+    # -- state ------------------------------------------------------------
+    def init_state(self):
+        self.state = self.algorithm.init_state(
+            torch.Generator().manual_seed(self.seed))
+        self._data_key = _words(self.seed ^ _DATA_KEY_TAG)
+        return self.state
+
+    def _window_generator(self) -> torch.Generator:
+        """A generator on the device for the next window; advances the
+        data key."""
+        seed = _key_seed(self._data_key)
+        self._data_key = _words(seed ^ _NEXT_KEY_TAG)
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    @property
+    def ckpt_path(self) -> str:
+        algo_name = self.exp_settings["learning_algorithm"].rsplit(".", 1)[-1]
+        return os.path.join(self.model_dir, f"{algo_name}.ckpt")
+
+    def save(self, extra: Dict[str, Any] = None) -> None:
+        """Checkpoint the full train state and the data key."""
+        meta = dict(extra or {})
+        meta.setdefault("prng_impl", PRNG_IMPL)
+        meta.setdefault("state_format", STATE_FORMAT)
+        serializable = {}
+        for k, v in self.exp_settings.items():
+            try:
+                json.dumps(v)
+                serializable[k] = v
+            except TypeError:
+                pass
+        meta.setdefault("serve", {
+            "exp_settings": serializable,
+            "feature_size": int(self.datasets[next(
+                iter(self.datasets))].feature_size),
+            "max_label": float(self.max_label),
+        })
+        ckpt_lib.save_checkpoint(
+            self.ckpt_path,
+            (self.algorithm.state_leaves(self.state), self._data_key), meta)
+
+    def restore(self, path: Optional[str] = None,
+                params_only: bool = False) -> bool:
+        """Restore the full train state (or, with `params_only`, the
+        ranker's weights alone) from `path` or ``<model_dir>/<algo>.ckpt``;
+        False when there is none at the default path."""
+        ckpt = path or self.ckpt_path
+        if ckpt.endswith(".npz"):
+            ckpt = ckpt[: -len(".npz")]
+        if not ckpt_lib.checkpoint_exists(ckpt):
+            if path:
+                raise FileNotFoundError(
+                    f"--start_checkpoint {path}: no checkpoint there")
+            return False
+        if not hasattr(self, "state"):
+            self.init_state()
+        if params_only:
+            params_from_jax(self.state.params, ckpt_lib.load_params_prefix(
+                ckpt, params_to_jax(self.state.params)))
+            return True
+        meta = ckpt_lib.read_metadata(ckpt)
+        saved_prng = meta.get("prng_impl")
+        if saved_prng and saved_prng != PRNG_IMPL:
+            raise ValueError(
+                f"checkpoint {ckpt} was written with --prng {saved_prng}; "
+                f"the port reads {PRNG_IMPL} checkpoints only")
+        saved_fmt = meta.get("state_format", "opt-per-leaf-r3")
+        if saved_fmt != STATE_FORMAT:
+            raise ValueError(
+                f"checkpoint {ckpt} uses state layout '{saved_fmt}' but "
+                f"this build reads '{STATE_FORMAT}'. Pass "
+                "--restore_params_only to carry the ranker weights into a "
+                "fresh optimizer state")
+        (leaves, key), _ = ckpt_lib.load_checkpoint(
+            ckpt, (self.algorithm.state_leaves(self.state), self._data_key))
+        self.state = self.algorithm.load_state_leaves(self.state, leaves)
+        self._data_key = np.asarray(key, np.uint32)
+        return True
+
+    # -- train ------------------------------------------------------------
+    def train_steps(self, num_steps: int) -> Dict[str, float]:
+        """Run `num_steps` steps, their draws planned in one pass; returns
+        the window's mean metrics as host floats (one transfer)."""
+        feed = self.feeds["train"]
+        plan = feed.train_batch_plan(self._window_generator(),
+                                     self.state.step, num_steps)
+        total, keys = None, None
+        for i in range(num_steps):
+            self.state, metrics = self.algorithm.train_step(
+                self.state, feed.batch_from_plan(plan, i))
+            keys = keys or sorted(metrics)
+            values = torch.stack([metrics[k] for k in keys])
+            total = values if total is None else total + values
+        return dict(zip(keys, (total / num_steps).tolist()))
+
+    # -- eval -------------------------------------------------------------
+    def _metric_keys(self):
+        return sorted(
+            f"{m}_{n}"
+            for m in self.exp_settings.get("metrics", ["mrr", "ndcg"])
+            for n in self.exp_settings.get("metrics_topn", [3, 5, 10]))
+
+    def _eval_generator(self) -> Optional[torch.Generator]:
+        """Tie-break generator for this validation pass, from (seed, step);
+        None when ``eval_shuffle_ties`` is off."""
+        if not self.exp_settings.get("eval_shuffle_ties", True):
+            return None
+        seed = ((self.seed ^ _EVAL_TAG) << 32) | (self.state.step & _MASK32)
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def validate(self, split: str = "valid") -> Dict[str, float]:
+        """Metrics over the whole split: batches of ``batch_size`` queries
+        and the tail, merged weighted by their query counts."""
+        data = self.device_data[split]
+        keys = self._metric_keys()
+        gen = self._eval_generator()
+        q, total = data.num_queries, None
+        for start in range(0, q, self.batch_size):
+            count = min(self.batch_size, q - start)
+            batch = data.gather(torch.arange(start, start + count,
+                                             device=self.device))
+            _, summary = self.algorithm.validation_metrics(
+                self.state, batch, generator=gen)
+            part = torch.stack([summary[k] for k in keys]) * (count / q)
+            total = part if total is None else total + part
+        return dict(zip(keys, total.tolist()))
+
+    def test_scores(self, split: str = "test") -> np.ndarray:
+        """Scores over the full split in initial-list order ``[Q, L]``."""
+        chunks = []
+        for batch, _, count in self.feeds[split].eval_batches():
+            scores = self.algorithm.score(self.state, batch)
+            chunks.append(scores[:count].cpu().numpy())
+        return np.concatenate(chunks, axis=0)
+
+    def write_ranklist(self, split: str = "test", output_dir: str = None):
+        scores = self.test_scores(split)
+        return output_ranklist(self.datasets[split], scores,
+                               output_dir or self.model_dir, split), scores

@@ -30,6 +30,7 @@ import torch
 
 from ultra_pytorch_tpu_torch.models.dnn import params_from_jax, params_to_jax
 from ultra_pytorch_tpu_torch.utils import checkpoint as ckpt_lib
+from ultra_pytorch_tpu_torch.utils.device import resolve_device
 from ultra_pytorch_tpu_torch.utils.registry import find_class
 
 _NEG_INF = -1e30
@@ -56,15 +57,6 @@ def _find_ckpt(path: str) -> str:
         raise ValueError(
             f"multiple checkpoints under {path}: {hits}; pass the .ckpt")
     return hits[0][: -len(".npz")]
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means CUDA; without a card that is an error, not the CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to serve on the CPU")
-    return device
 
 
 class Scorer:

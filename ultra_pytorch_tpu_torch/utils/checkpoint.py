@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, List
+from typing import Any, List, Tuple
 
 import numpy as np
 
@@ -72,6 +72,34 @@ def save_checkpoint(path: str, tree: Any, metadata: dict = None) -> None:
     tmp = path + ".npz.tmp.npz"  # np.savez appends .npz if missing
     np.savez(tmp, **arrays)
     os.replace(tmp, path + ".npz")
+
+
+def load_checkpoint(path: str, template: Any) -> Tuple[Any, dict]:
+    """Load every leaf of ``<path>.npz`` into `template`'s structure,
+    shape-checked leaf by leaf; returns (tree, metadata)."""
+    with np.load(path + ".npz") as data:
+        if _META_KEY not in data.files:
+            raise ValueError(f"{path}.npz is not a framework checkpoint")
+        meta = json.loads(str(data[_META_KEY]))
+        tpl_leaves = tree_leaves(template)
+        if meta["n"] != len(tpl_leaves):
+            raise ValueError(
+                f"checkpoint {path}.npz has {meta['n']} leaves but the "
+                f"template has {len(tpl_leaves)} — saved structure: "
+                f"{meta['structure']}")
+        leaves = []
+        for i, tpl in enumerate(tpl_leaves):
+            saved = data[f"leaf_{i}"]
+            if tuple(saved.shape) != tuple(np.shape(tpl)):
+                raise ValueError(
+                    f"checkpoint leaf_{i} shape {tuple(saved.shape)} != "
+                    f"template shape {tuple(np.shape(tpl))}")
+            leaves.append(saved)
+    return _tree_unflatten(template, leaves), meta.get("metadata", {})
+
+
+def checkpoint_exists(path: str) -> bool:
+    return os.path.isfile(path + ".npz")
 
 
 def load_params_prefix(path: str, params_template: Any) -> Any:

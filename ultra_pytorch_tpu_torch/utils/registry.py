@@ -20,11 +20,17 @@ _ALIASES: Dict[str, str] = {}  # reference-style dotted name -> "kind:name"
 # Modules whose import populates the registry for each component kind.
 _KIND_MODULES = {
     "ranker": "ultra_pytorch_tpu_torch.models",
+    "algorithm": "ultra_pytorch_tpu_torch.algorithms",
+    "feed": "ultra_pytorch_tpu_torch.input_layer",
 }
 
 # Components of the JAX package that the port does not have yet.
 _NOT_YET_PORTED = {
     "ranker": ("Linear", "SetRank", "DLCM", "GSF"),
+    "algorithm": ("NaiveAlgorithm", "IPWrank", "RegressionEM", "PairDebias",
+                  "PDGD", "LambdaRank", "PRSrank", "DBGD", "MGD", "NSGD"),
+    "feed": ("DeterministicOnlineSimulationFeed",
+             "StochasticOnlineSimulationFeed"),
 }
 
 
