@@ -9,9 +9,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Device: the card's name and power limit (nvidia-smi); TF32 off.
 2. Build: K1-K5 (``ops/kernels/csrc/*.cu``), one nvcc per source, all
-   started together, and ptxas's register / shared-memory / spill report.
+   started together, and ptxas's register / shared-memory / spill report;
+   K1 and K2 must spill nothing and must hold tensor-core instructions
+   (``HMMA``/``HGMMA`` in ``cuobjdump --dump-sass`` of their libraries).
 3. Kernel parity, each kernel against its plain PyTorch version on the
-   card: K1 at the full serving width (F = 136, hidden [512, 256, 128]);
+   card: K1 at the full serving width (F = 136, hidden [512, 256, 128])
+   at 32,768 rows (64-row tiles), 2,560 (a training step, 32-row tiles)
+   and 1,000 (a ragged tile);
    K2 at N = 2,560 (a training step), 1,000 (a ragged tile) and 32,768
    (many blocks), bit-for-bit deterministic; K3/K4 at [256, 10] and
    [1024, 200] with masked lists and zero-denominator lists; K5 exactly
@@ -22,8 +26,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a ``MicroBatcher``; every reply checked against the plain version, and
    the K1 launch count of that run must be positive.
 5. Serving timing: K1, plain version and a chain of library calls at the
-   serving buckets, with the least time the card could take; one
-   ``Scorer`` call per bucket, with K1 and with the plain DNN path.
+   serving buckets and a training step's rows, as device time a call
+   (CUDA graph replay) and back to back, with the least time the card
+   could take at 3xTF32 (K1's products run so: the ``bound_ms`` of the
+   kernels line) and at float32 on CUDA cores (``bound_f32_ms``); K1 held
+   to the library chain; one ``Scorer`` call per bucket, with K1 and with
+   the plain DNN path.
 6. One DLA step at full width on a fixed batch, kernels on against the
    plain path: the losses and both towers' gradients.
 7. Training at full width (the bench protocol of ``tools/bench_common.py``:
@@ -40,7 +48,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernels on and keeps the best checkpoint, ``--test_only`` writes a
    ranklist, and a ``Scorer`` loads that checkpoint and serves it.
 9. Kernel timing at the training shapes: K2-K5, their plain versions and
-   (K5) the library call, with the least time the card could take.
+   the library calls (K2: forward and backward of the library chain by
+   autograd; K5: ``torch.bernoulli``), with the least time the card could
+   take (K2 at 3xTF32, K3-K5 at float32 on CUDA cores).
 10. Kernels: one JSON line listing K1-K5, then the result line.
 
 The last line of standard output is
@@ -53,6 +63,7 @@ import argparse
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -84,6 +95,7 @@ LOSS_TOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_F32 = 67e12
 PEAK_TF32 = 495e12
+PEAK_3XTF32 = PEAK_TF32 / 3   # float32 products as three TF32 ones
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
@@ -265,13 +277,26 @@ def phase_device():
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
 
+def tensor_core_instructions(lib_path) -> int:
+    """Tensor-core instructions (``HMMA``, ``HGMMA``) in a library's SASS,
+    from ``cuobjdump --dump-sass`` beside the nvcc that built it."""
+    from ultra_pytorch_tpu_torch.ops.kernels import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    proc = subprocess.run([cuobjdump, "--dump-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr[-500:]}")
+    return sum(1 for line in proc.stdout.splitlines()
+               if " HMMA." in line or " HGMMA." in line)
+
+
 def phase_build():
     from ultra_pytorch_tpu_torch.ops.kernels import click_sim, listwise_loss
     from ultra_pytorch_tpu_torch.ops.kernels import mlp
 
     builds = {"K1": mlp.build_kernel, "K2": mlp.build_backward_kernel,
-                "K3/K4": listwise_loss.build_kernel,
-                "K5": click_sim.build_kernel}
+              "K3/K4": listwise_loss.build_kernel,
+              "K5": click_sim.build_kernel}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {name: pool.submit(fn) for name, fn in builds.items()}
@@ -285,11 +310,20 @@ def phase_build():
             if any(w in line for w in ("Compiling", "registers", "spill",
                                        "smem")):
                 print(f"[build] {name} ptxas: {line.strip()}", flush=True)
+    for name in ("K1", "K2"):
+        spills = [int(v) for v in re.findall(r"(\d+) bytes spill",
+                                             built[name].log)]
+        check(spills and not any(spills), f"{name} spills registers")
+        count = tensor_core_instructions(built[name].path)
+        print(f"[build] {name}: {count} tensor-core instructions "
+              "(HMMA/HGMMA) in its SASS; no spills", flush=True)
+        check(count > 0, f"{name} has no tensor-core instruction")
 
 
 def phase_parity(mlp, gen, dev):
     """K1 against its plain version; then K2 against autograd of it."""
     cases = (("elu/norm", HIDDEN, 32768), ("elu/norm ragged", HIDDEN, 1000),
+             ("elu/norm training step", HIDDEN, BATCH * LIST),
              ("relu/no-norm", HIDDEN + ",activation_func=relu,norm=none",
               32768))
     worst = 0.0
@@ -336,15 +370,16 @@ def phase_k2_parity(mlp, gen, dev):
         check(all(torch.equal(a, b) for a, b in
                   zip([dx] + grads, [again[0]] + again[1])),
               f"K2 {name}: two runs differ")
-        rel_worst = 0.0
+        abs_worst = rel_worst = 0.0
         for got, ref in zip([dx] + grads, [ref_dx] + ref_grads):
             check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
                   f"K2 {name}: misshapen or non-finite gradient")
             err, rel = max_rel_err(got, ref)
-            worst, rel_worst = max(worst, err), max(rel_worst, rel)
+            abs_worst, rel_worst = max(abs_worst, err), max(rel_worst, rel)
             check(rel <= GRAD_TOL, f"K2 {name}: gradient {tuple(ref.shape)} "
                   f"off by {rel:.3e} of its largest magnitude")
-        print(f"[parity] K2 {name} N={n}: max abs {worst:.3e}, max "
+        worst = max(worst, abs_worst)
+        print(f"[parity] K2 {name} N={n}: max abs {abs_worst:.3e}, max "
               f"{rel_worst:.3e} of the largest magnitude (limit "
               f"{GRAD_TOL}); deterministic", flush=True)
     return worst
@@ -536,29 +571,40 @@ def phase_timing(mlp, gen, dev, model_dir):
         for q, docs in BUCKETS + ((BATCH, LIST),):
             n = q * docs
             x = torch.randn(n, FEATURES, generator=gen).to(dev)
+            calls = 50 if n <= 4096 else 10
+            ms = graph_ms(lambda: mlp.fused_mlp_score(layers, x), calls)
+            plain_ms = graph_ms(
+                lambda: mlp.fused_mlp_score_reference(layers, x), calls)
+            lib_ms = graph_ms(lambda: library_chain(model, x), calls)
             iters = 200 if n <= 4096 else 50
-            ms = time_ms(lambda: mlp.fused_mlp_score(layers, x), iters)
-            plain_ms = time_ms(
-                lambda: mlp.fused_mlp_score_reference(layers, x), iters)
-            lib_ms = time_ms(lambda: library_chain(model, x), iters)
-            lib_diff = (library_chain(model, x)
-                        - mlp.fused_mlp_score(layers, x)).abs().max().item()
+            call_ms = time_ms(lambda: mlp.fused_mlp_score(layers, x), iters)
+            lib_call_ms = time_ms(lambda: library_chain(model, x), iters)
+            lib_out = library_chain(model, x)
+            k1_out = mlp.fused_mlp_score(layers, x)
+            lib_diff = (lib_out - k1_out).abs().max().item()
+            check(torch.allclose(k1_out, lib_out, rtol=TOL, atol=TOL),
+                  f"K1 at {q}x{docs} disagrees with the library chain")
             ops, nbytes = mlp_work(model, n)
+            # K1 multiplies as 3xTF32 on the tensor cores: its bound is at
+            # that peak; the float32 CUDA-core bound is kept beside it.
+            bound_ms, by = bound(ops, nbytes, PEAK_3XTF32)
+            f32_ms = bound(ops, nbytes)[0]
             bounds = {name: bound(ops, nbytes, peak)[0]
-                      for name, peak in (("f32", PEAK_F32),
-                                         ("tf32", PEAK_TF32),
+                      for name, peak in (("tf32", PEAK_TF32),
                                          ("bf16", PEAK_BF16))}
-            bound_ms, by = bound(ops, nbytes)
             rows[(q, docs)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                   bound_ms=bound_ms, bound_by=by)
+                                   bound_ms=bound_ms, bound_by=by,
+                                   bound_f32_ms=f32_ms)
             print(f"[timing] K1 {q}x{docs} ({n} rows): K1 {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms | "
-                  f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB | bound "
-                  f"f32 {bounds['f32']:.4f} ms ({by}), tf32 "
+                  f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (device time "
+                  f"a call) | back to back: K1 {call_ms:.4f} ms, library "
+                  f"{lib_call_ms:.4f} ms | {ops / 1e9:.3f} GFLOP, "
+                  f"{nbytes / 1e6:.3f} MB | bound 3xtf32 {bound_ms:.4f} ms "
+                  f"({by}, K1 at {100 * bound_ms / ms:.1f}%), f32 "
+                  f"{f32_ms:.4f} ms ({100 * f32_ms / ms:.1f}%), tf32 "
                   f"{bounds['tf32']:.4f} ms, bf16 {bounds['bf16']:.4f} ms | "
-                  f"K1 at {100 * bound_ms / ms:.1f}% of the f32 bound, "
                   f"{ops / ms / 1e9:.2f} TFLOP/s | library vs K1 max abs "
-                  f"{lib_diff:.2e}", flush=True)
+                  f"{lib_diff:.2e} (limit rtol=atol={TOL})", flush=True)
             if (q, docs) not in BUCKETS:
                 continue
             feats = rng.normal(size=(q, docs, FEATURES)).astype(np.float32)
@@ -569,6 +615,17 @@ def phase_timing(mlp, gen, dev, model_dir):
                   f"plain DNN path {plain_call:.3f} ms "
                   f"({1e3 * q / plain_call:.0f} queries/s)", flush=True)
     return rows
+
+
+def library_fwd_bwd(model, x, g):
+    """K2's yardstick: the library chain's forward and its backward by
+    autograd, for the same gradients K2 computes (it recomputes the
+    forward too)."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_(True)
+        params = list(model.parameters())
+        out = library_chain(model, xr)
+        return torch.autograd.grad(out, [xr] + params, g)
 
 
 def dla_settings(kernels: bool, click_json: str):
@@ -920,7 +977,10 @@ def phase_kernel_timing(mlp, gen, dev, pool):
     clicks = probs.numel()
     print(f"[timing] K5 window {list(shape)} = {clicks} elements", flush=True)
 
-    # (kernel call, plain version, library call, operations, bytes). K3: per element wl (add, 2 multiplies), the
+    # (kernel call, plain version, library call, operations, bytes, peak
+    # of the units that do the operations). K2 multiplies as 3xTF32 on the
+    # tensor cores; K3-K5 run on CUDA cores. K3: per element wl (add, 2
+    # multiplies), the
     # masked score, max, subtract, exp, sum, the label share (divide), its
     # log-softmax term (2 subtracts, multiply, add) and the list's weight:
     # ~15; K4 adds the softmax (exp), the difference and three multiplies:
@@ -932,33 +992,39 @@ def phase_kernel_timing(mlp, gen, dev, pool):
     cases = {
         "K2": (lambda: mlp.mlp_backward(model.layers, x, g, "elu", True),
                lambda: mlp.mlp_backward_reference(
-                   model.layers, x, g, "elu", True), None, k2_ops, k2_bytes),
+                   model.layers, x, g, "elu", True),
+               lambda: library_fwd_bwd(model, x, g), k2_ops, k2_bytes,
+               PEAK_3XTF32),
         "K3": (lambda: ll.listwise_loss_forward(s, y, w, m),
                lambda: losses.softmax_loss(s, y, w, m), None, 15 * elems,
-               16 * elems + 4),
+               16 * elems + 4, PEAK_F32),
         "K4": (lambda: ll.listwise_loss_backward(s, y, w, m, one),
                lambda: softmax_grad(losses, s, y, w, m), None, 20 * elems,
-               20 * elems + 4),
+               20 * elems + 4, PEAK_F32),
         "K5": (lambda: click_sim.pbm_clicks(probs, mask, key),
                lambda: click_sim.pbm_clicks_reference(probs, mask, key),
                lambda: torch.bernoulli(probs), 30 * clicks,
-               12 * clicks + 16),
+               12 * clicks + 16, PEAK_F32),
     }
     rows = {}
-    for name, (fn, plain, lib, n_ops, n_bytes) in cases.items():
-        b_ms, by = bound(n_ops, n_bytes)
+    for name, (fn, plain, lib, n_ops, n_bytes, peak) in cases.items():
+        b_ms, by = bound(n_ops, n_bytes, peak)
         rows[name] = dict(
             ms=graph_ms(fn, 50), plain_ms=graph_ms(plain, 10),
             library_ms=None if lib is None else graph_ms(lib, 50),
-            bound_ms=b_ms, bound_by=by)
+            bound_ms=b_ms, bound_by=by,
+            bound_f32_ms=bound(n_ops, n_bytes)[0])
         r = rows[name]
         lib_text = "none" if lib is None else f"{r['library_ms']:.4f} ms"
+        unit = "3xtf32" if peak == PEAK_3XTF32 else "f32"
         print(f"[timing] {name}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {lib_text} (device time a "
               f"call) | wrapper call {time_ms(fn, 100):.4f} ms, plain call "
               f"{time_ms(plain, 20):.4f} ms (back to back) | bound "
-              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), kernel at "
-              f"{100 * r['bound_ms'] / r['ms']:.2f}% of it", flush=True)
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}, at {unit}), kernel "
+              f"at {100 * r['bound_ms'] / r['ms']:.2f}% of it; f32 bound "
+              f"{r['bound_f32_ms']:.5f} ms "
+              f"({100 * r['bound_f32_ms'] / r['ms']:.2f}%)", flush=True)
     return rows
 
 

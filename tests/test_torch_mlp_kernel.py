@@ -107,21 +107,246 @@ def test_cpu_path_never_launches(pair):
 
 
 def test_packed_params_follow_parameter_updates():
+    """The kernels read the parameters in place: the pointer table holds
+    each layer's LayerNorm scale, bias, nn.Linear weight [out, in] and bias,
+    so an optimizer step's in-place update needs no repacking, and a
+    replaced tensor shows up on the next call."""
     model = DNN(HIDDEN, F, generator=torch.Generator().manual_seed(0))
-    first = mlp._packed(model.layers)
-    assert mlp._packed(model.layers) is first  # cached
-    # Layer 0 takes [scale 24, bias 24, W 24x32, b 32]; layer 1's W
-    # follows its own scale and bias, in JAX's [in, out] layout.
-    w1 = 2 * F + F * 32 + 32 + 2 * 32
-    np.testing.assert_array_equal(
-        first[w1: w1 + 32 * 16].reshape(32, 16).numpy(),
-        model.layers[1].linear.weight.detach().t().numpy())
-    assert first.numel() == sum(p.numel() for p in model.parameters())
+    cpu = torch.device("cpu")
+    first = mlp._param_pointers(model.layers, cpu)
+    want = [t.data_ptr() for layer in model.layers
+            for t in (layer.norm.weight, layer.norm.bias,
+                      layer.linear.weight, layer.linear.bias)]
+    assert first == want
+    assert len(first) == 4 * len(model.layers)
+    assert tuple(model.layers[1].linear.weight.shape) == (16, 32)  # [out, in]
     with torch.no_grad():
         model.layers[0].linear.weight.mul_(2.0)
-    again = mlp._packed(model.layers)
-    assert again is not first
-    assert not torch.equal(again, first)
+    assert mlp._param_pointers(model.layers, cpu) == first
+    model.layers[0].linear.weight = torch.nn.Parameter(
+        model.layers[0].linear.weight.detach().clone())
+    again = mlp._param_pointers(model.layers, cpu)
+    assert again[2] != first[2] and again[:2] + again[3:] == \
+        first[:2] + first[3:]
+
+
+def test_param_pointers_refuse_what_the_kernels_cannot_read():
+    model = DNN(HIDDEN, F, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="contiguous float32"):
+        mlp._param_pointers(model.layers, torch.device("meta"))
+    model.layers[0].linear.weight = torch.nn.Parameter(
+        model.layers[0].linear.weight.detach().double())
+    with pytest.raises(ValueError, match="contiguous float32"):
+        mlp._param_pointers(model.layers, torch.device("cpu"))
+    model.layers[0].linear.weight = torch.nn.Parameter(
+        torch.zeros(F, 32).t())  # [32, F] but not contiguous
+    with pytest.raises(ValueError, match="contiguous float32"):
+        mlp._param_pointers(model.layers, torch.device("cpu"))
+
+
+def _smem(limit_rows):
+    """A shared-memory query under which tiles above `limit_rows` rows do
+    not fit."""
+    return lambda rows: 1000 if rows <= limit_rows else mlp.SMEM_LIMIT + 1
+
+
+@pytest.mark.parametrize("n_rows,rows", [
+    (1, 16), (1000, 16), (2112, 16), (2113, 32), (2560, 32), (4224, 32),
+    (8448, 64), (32768, 64)])
+def test_rows_per_block_balances_the_card(n_rows, rows):
+    """The tile that leaves the busiest of 132 SMs the fewest rows, the
+    larger on a tie: 2,560 rows (a training step) run 80 32-row blocks,
+    not 160 16-row ones of which 28 SMs would take two; 32,768 rows (the
+    256x128 serving bucket) 512 64-row blocks."""
+    assert mlp.rows_per_block(n_rows, 132, _smem(64)) == rows
+
+
+def test_rows_per_block_skips_tiles_that_do_not_fit():
+    assert mlp.rows_per_block(32768, 132, _smem(32)) == 32
+    assert mlp.rows_per_block(32768, 132, _smem(16)) == 16
+    assert mlp.rows_per_block(8448, 132, lambda rows: 0 if rows == 64
+                              else 1000) == 32
+    with pytest.raises(ValueError, match="shared memory"):
+        mlp.rows_per_block(32768, 132, _smem(8))
+
+
+def test_dw_tiles_and_chunks():
+    """K2's dW phase: 64x64 tiles of every layer's [out, in] gradient, and
+    row chunks enough for four blocks per SM, none shorter than a stage."""
+    widths = (136, 512, 256, 128, 1)
+    assert mlp.dw_tiles(widths) == 8 * 3 + 4 * 8 + 2 * 4 + 1 * 2 == 66
+    assert mlp.dw_chunks(2560, widths, 132) == 8     # 528 blocks
+    assert mlp.dw_chunks(32768, widths, 132) == 8
+    assert mlp.dw_chunks(100, widths, 132) == 4      # 32-row stages
+    assert mlp.dw_chunks(1, widths, 132) == 1
+    assert mlp.dw_chunks(2560, widths, 132, per_sm=2) == 4   # 264 blocks
+    assert mlp.dw_tiles((37, 300, 70, 5, 1)) == 5 * 1 + 2 * 5 + 1 * 2 + 1
+
+
+def test_grad_views_follow_the_kernel_layout():
+    """K2 writes per layer [dscale, dbias, dW [out, in], db] into one
+    buffer; the views are nn.Linear-shaped and cover it exactly."""
+    widths = (3, 4, 1)
+    dparams = torch.arange(3 + 3 + 12 + 4 + 4 + 4 + 4 + 1, dtype=torch.float32)
+    grads = mlp.grad_views(dparams, widths)
+    assert [tuple(g.shape) for g in grads] == [(3,), (3,), (4, 3), (4,),
+                                               (4,), (4,), (1, 4), (1,)]
+    assert grads[2].is_contiguous()
+    assert grads[2][1, 0].item() == 6 + 3     # row o = 1 starts after 3 ins
+    assert grads[3][0].item() == 18
+    assert grads[-1].item() == dparams[-1].item()
+
+
+def test_build_hash_follows_included_headers(tmp_path):
+    """A header that a kernel includes is part of its build's name, so an
+    edited shared header never loads a stale library."""
+    from ultra_pytorch_tpu_torch.ops.kernels import build
+
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    (tmp_path / "inner.cuh").write_text("#include \"common.cuh\"\n")
+    src = tmp_path / "k.cu"
+    src.write_text('#include <cuda_runtime.h>\n#include "inner.cuh"\n')
+    assert build.with_headers([src]) == [src, tmp_path / "inner.cuh",
+                                         tmp_path / "common.cuh"]
+    before = build.library_path("k", [src])
+    assert build.library_path("k", [src]) == before
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    assert build.library_path("k", [src]) != before
+    assert build.library_path("k", [src]).parent == build.BUILD_DIR
+
+
+def test_k1_and_k2_share_their_header():
+    from ultra_pytorch_tpu_torch.ops.kernels import build
+
+    for source in (mlp.SOURCE, mlp.BWD_SOURCE):
+        assert build.CSRC_DIR / "mlp_common.cuh" in build.with_headers(
+            [source])
+
+
+def seeded_dnn(hparams, features, seed, device="cpu"):
+    """A DNN with torch-default init from `seed`, a LayerNorm affine away
+    from its init, and the generator to draw inputs from."""
+    gen = torch.Generator().manual_seed(seed)
+    model = DNN(hparams, features, generator=gen)
+    with torch.no_grad():
+        for layer in model.layers:
+            n = layer.norm.weight.shape[0]
+            layer.norm.weight.add_(0.1 * torch.randn(n, generator=gen))
+            layer.norm.bias.add_(0.1 * torch.randn(n, generator=gen))
+    return model.to(device), gen
+
+
+def float64_grads(layers, x, g, activation, use_norm, matmul=torch.matmul):
+    """Scores, then dx and the parameter gradients (``_flat_params``
+    order), of the fused MLP by autograd in float64 with the same clamped
+    one-pass variance: the exact answer that K1/K2 and their float32 plain
+    versions both approximate. `matmul(a, b)` takes every product."""
+    from ultra_pytorch_tpu_torch.models.base import ACTIVATIONS
+
+    params = [p.detach().double().requires_grad_(True)
+              for p in mlp._flat_params(layers)]
+    xr = x.detach().double().requires_grad_(True)
+    with torch.enable_grad():
+        h = xr
+        for j in range(len(layers)):
+            scale, bias, w, b = params[4 * j: 4 * j + 4]
+            if use_norm:
+                mean = h.mean(-1, keepdim=True)
+                var = (h * h).mean(-1, keepdim=True) - mean * mean
+                h = ((h - mean) * torch.rsqrt(var.clamp_min(0.0) + 1e-5)
+                     * scale + bias)
+            h = matmul(h, w.t()) + b
+            if j != len(layers) - 1:
+                h = ACTIVATIONS[activation](h)
+        grads = torch.autograd.grad(h[:, 0], [xr] + params, g.double(),
+                                    allow_unused=True)
+    return h[:, 0].detach(), [torch.zeros_like(t) if d is None else d
+                              for t, d in zip([xr] + params, grads)]
+
+
+def off_float64(got, exact):
+    """Worst over the tensors of max abs error / the float64 tensor's
+    largest magnitude."""
+    return max((a.double() - b).abs().max().item()
+               / max(b.abs().max().item(), 1e-12) for a, b in zip(got, exact))
+
+
+# The odd widths with sigmoid and LayerNorm: the LayerNorm over 5 sigmoid
+# outputs near 0.5 amplifies float32 rounding (the K1/K2 witness case).
+WITNESS = ("hidden_layer_sizes=[300, 70, 5]", 37, "sigmoid", True)
+
+
+def _rna_tf32(x):
+    """mlp_common.cuh ``rna_tf32`` on float32 values: add half of the 13
+    dropped bits' range to the magnitude, then clear them."""
+    bits = x.float().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    """mlp_common.cuh ``split_tf32``: x = hi + lo, both TF32 (as float64)."""
+    x32 = x.float()
+    hi = _rna_tf32(x32)
+    return hi.double(), _rna_tf32(x32 - hi).double()
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernels take it: float32 operands split into TF32 parts
+    and three of the four part products (a_lo*b_lo dropped), each exact and
+    summed in float64, so only the split's error is left."""
+    ah, al = _split_tf32(a)
+    bh, bl = _split_tf32(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+class _Matmul3xTF32(torch.autograd.Function):
+    """The forward's h @ W^T and K2's two backward products (dz @ W and
+    dz^T @ post), all through ``_mm_3xtf32``."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_3xtf32(a, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        return _mm_3xtf32(grad, b.t()), _mm_3xtf32(a.t(), grad)
+
+
+@pytest.mark.parametrize("hparams,features,activation,use_norm,n_rows", [
+    WITNESS + (1000,), WITNESS + (2559,), WITNESS + (2560,),
+    ("hidden_layer_sizes=[512, 256, 128]", 136, "elu", True, 512)])
+def test_3xtf32_split_keeps_float32_accuracy(hparams, features, activation,
+                                             use_norm, n_rows):
+    """The 3xTF32 split of every product that K1 and K2 take, emulated
+    exactly (the kernels' integer rounding), moves the gradients from
+    float64 by under 1e-5 of their largest magnitude, 20 times below the
+    2e-4 that K2 is held to. So where K2 and the float32 plain version
+    differ by more (the witness case, in test_torch_kernels_gpu.py), the
+    rest of float32 arithmetic, not the split, is what moved them."""
+    model, gen = seeded_dnn(hparams, features, n_rows)
+    x = torch.randn(n_rows, features, generator=gen)
+    g = torch.randn(n_rows, generator=gen)
+    _, exact = float64_grads(model.layers, x, g, activation, use_norm)
+    _, split = float64_grads(model.layers, x, g, activation, use_norm,
+                             _Matmul3xTF32.apply)
+    assert off_float64(split, exact) <= 1e-5
+
+
+def test_split_tf32_rounds_as_the_kernel():
+    """hi keeps 10 mantissa bits, rounded to nearest with ties away from
+    zero; hi + lo carries x to 2^-22 of its magnitude."""
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12, -3.0e-7,
+                      123.456, -0.1])
+    hi, lo = _split_tf32(x)
+    assert hi[0] == 1.0 and lo[0] == 0.0
+    assert hi[1] == 1.0 + 2.0 ** -10      # a tie rounds away from zero
+    assert hi[2] == 1.0
+    assert torch.all(_rna_tf32(hi.float()) == hi.float())
+    assert torch.all(_rna_tf32(lo.float()) == lo.float())
+    assert torch.all((hi + lo - x.double()).abs()
+                     <= 2.0 ** -22 * x.double().abs())
 
 
 def kink_free_rows(model, x, activation, use_norm, eps=1e-5):
@@ -149,7 +374,8 @@ def kink_free_rows(model, x, activation, use_norm, eps=1e-5):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_rows", [1, 31, 1000, 4096])
+@pytest.mark.parametrize("n_rows", [1, 15, 17, 31, 63, 65, 1000, 2559, 2560,
+                                    4096, 32768])
 @pytest.mark.parametrize("activation,use_norm", [("elu", True),
                                                  ("relu", False),
                                                  ("selu", True),
@@ -211,3 +437,49 @@ def test_kernel_odd_widths_on_card():
         ref = mlp.fused_mlp_score_reference(model.layers, x, "elu", True)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rows", [2560, 32768])
+def test_kernel_is_deterministic_on_card(n_rows):
+    """Two runs of K1 on the same inputs give the same bits (every sum is
+    taken in a fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 has no CPU mode)")
+    gen = torch.Generator().manual_seed(3)
+    model = DNN("hidden_layer_sizes=[512, 256, 128]", 136,
+                generator=gen).cuda()
+    x = torch.randn(n_rows, 136, generator=gen).cuda()
+    with torch.inference_mode():
+        first = mlp.fused_mlp_score(model.layers, x)
+        again = mlp.fused_mlp_score(model.layers, x)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.gpu
+def test_kernel_tiles_fit_the_card():
+    """At the full widths the caller picks 32-row tiles for a training
+    step and 64-row tiles for the serving bucket, and every tile fits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 has no CPU mode)")
+    lib, _ = mlp._library()
+    widths = mlp._c_ints((136, 512, 256, 128, 1))
+    sms = mlp._sm_count(torch.device("cuda"))
+    smem = lambda rows: lib.ultra_mlp_fwd_smem_bytes(widths, 4, rows)
+    assert mlp.rows_per_block(2560, sms, smem) == 32
+    assert mlp.rows_per_block(32768, sms, smem) == 64
+    assert all(0 < smem(r) <= mlp.SMEM_LIMIT for r in mlp.ROWS_PER_BLOCK)
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_other_dtypes_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 has no CPU mode)")
+    model = DNN("hidden_layer_sizes=[32, 16]", F).cuda()
+    with pytest.raises(ValueError, match="float32"):
+        mlp.mlp_forward(model.layers, torch.zeros(3, F, device="cuda",
+                                                  dtype=torch.float64),
+                        "elu", True)
+    with pytest.raises(ValueError, match="contiguous"):
+        mlp.mlp_forward(model.layers, torch.zeros(F, 3, device="cuda").t(),
+                        "elu", True)

@@ -3,8 +3,8 @@
 Each kernel's ``.cu`` file under ``csrc/`` is compiled at first use with
 ``nvcc`` for ``sm_90a`` into ``build/ultra_pytorch_tpu_torch/`` at the
 root of the checkout, and loaded with ``ctypes``. The library's file name
-carries a hash of its sources and flags, so a stale build is never
-loaded. Nothing includes PyTorch's headers, which keeps a build to
+carries a hash of its flags, its sources and every header they include
+(``#include "..."``, recursively), so a stale build is never loaded. Nothing includes PyTorch's headers, which keeps a build to
 seconds. ``nvcc`` is found through ``CUDA_HOME``, then
 ``torch.utils.cpp_extension.CUDA_HOME``, then ``PATH``.
 """
@@ -14,15 +14,17 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Sequence
+from typing import List, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "ultra_pytorch_tpu_torch"
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,12 +48,36 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build_library(name: str, sources: Sequence[Path]) -> BuiltLibrary:
-    """Compile `sources` into ``lib<name>-<hash>.so`` unless it exists."""
+def with_headers(sources: Sequence[Path]) -> List[Path]:
+    """`sources` followed by every header they include by a quoted path,
+    found beside the including file, each once."""
+    files, todo = [], [Path(s) for s in sources]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            header = path.parent / name
+            if header.is_file():
+                todo.append(header)
+    return files
+
+
+def library_path(name: str, sources: Sequence[Path]) -> Path:
+    """``lib<name>-<hash>.so`` under BUILD_DIR, the hash taken over the
+    flags, the sources and the headers they include."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(Path(src).read_bytes())
-    path = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    for src in with_headers(sources):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_library(name: str, sources: Sequence[Path]) -> BuiltLibrary:
+    """Compile `sources` into ``library_path(name, sources)`` unless it
+    exists."""
+    path = library_path(name, sources)
     log_path = path.with_suffix(".log")
     if path.is_file():
         log = log_path.read_text() if log_path.is_file() else ""

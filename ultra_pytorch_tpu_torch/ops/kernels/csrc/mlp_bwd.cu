@@ -5,285 +5,204 @@
 // `_fused_bwd` :267). Given x [N, F] and the scores' cotangent g [N], it
 // recomputes the forward of K1 (csrc/mlp_fwd.cu) and backpropagates through
 // every layer's activation, Linear and LayerNorm. It writes dx [N, F] and
-// one gradient per parameter, in the packed layout of K1's parameters
-// (per layer [dscale (in), dbias (in), dW (in x out), db (out)]).
+// one gradient per parameter into one buffer, per layer [dscale (in),
+// dbias (in), dW (out x in, nn.Linear's layout), db (out)].
 //
 // The LayerNorm backward is the TPU kernel's formula (:196-203) on the
 // clamped one-pass variance:
 //   dh = rstd * (dnhat - mean(dnhat) - nhat * mean(dnhat * nhat)),
 //   dnhat = dpost * scale.
-// Activation derivatives are taken from the activation's output h = act(z),
-// which phase 1 keeps in shared memory: elu h > 0 ? 1 : h + 1 (= exp(z)),
-// relu h > 0, selu h > 0 ? s : h + s*alpha, tanh 1 - h^2, sigmoid h(1 - h).
+// Activation derivatives are taken from the activation's output h = act(z)
+// (mlp_common.cuh `act_grad`).
 //
-// The trap: the TPU grid runs in order and adds every tile's parameter
-// gradients into one block (:211-219). Hopper's blocks run concurrently, so
-// K2 is two kernels with no float atomics, and two runs give the same bits:
-//   Phase 1 (one block per 16-row tile): recompute the forward with each
-//     layer's input h_j in shared memory, then backprop. Each layer's
-//     LayerNorm output `post` [N, in] and Linear cotangent dz [N, out] go to
-//     a scratch buffer; the tile's column sums for dscale, dbias and db go
-//     to a per-block partials buffer; dx is written directly.
-//   Phase 2: dW_j = post_j^T dz_j, tiled over (in, out) in 64 x 64 tiles,
-//     each summing the rows in order; and the per-block partials summed in
-//     block order.
-// Scratch at the training shape (N = 2,560 rows; widths 136, 512, 256, 128,
-// 1): N x (1,032 + 897) floats = 19.8 MB, which stays in the 50 MB L2;
-// partials 160 blocks x 2,961 floats = 1.9 MB.
+// The TPU grid runs in order and adds every tile's parameter gradients into
+// one block (:211-219). Hopper's blocks run concurrently, so K2 is three
+// kernels with no float atomics, and two runs give the same bits:
+//   Phase 1 (one block per row tile of 16, 32 or 64 rows): the forward
+//     recompute and dpost = dz @ W on the tensor cores (3xTF32, as K1),
+//     LayerNorm backward and activation derivatives on CUDA cores. Each
+//     layer's LayerNorm output post_j [N, in], its input h_j [N, in] and the
+//     Linear cotangent dz_j [N, out] go to a scratch buffer (in L2: 29 MB
+//     at the training shape); the tile's column sums for dscale, dbias and
+//     db go to a per-block partials buffer; dx is written directly. The
+//     backward rereads h_j from scratch instead of keeping every layer's
+//     input in shared memory (the previous kernel's 8.2 KB a row), so a
+//     tile holds only K1's two activation buffers, and tiles of 32 rows on
+//     16 warps (a training step: 80 blocks) or 64 rows fit, where the
+//     previous kernel was held to 16 rows on 8 warps.
+//   Phase 2: dW_j = dz_j^T post_j on the tensor cores (3xTF32), in 64 x 64
+//     tiles of [out, in], with the rows split into fixed chunks (chosen by
+//     the caller) so that tiles x chunks give four blocks per SM (the
+//     previous kernel ran 66 tiles, each summing all rows on CUDA cores, on
+//     half the SMs).
+//   Phase 3: the chunk partials of dW summed in chunk order, and the
+//     per-block partials of dscale, dbias and db in block order.
 //
-// What bounds it: the forward recompute (233,600 multiply-adds a row), the
-// dpost products (as many) and dW (as many) make ~3 x 2 x 233,600 = 1.4
-// MFLOP a row, 3.6 GFLOP at N = 2,560: 54 us at 67 TFLOP/s of float32
-// on CUDA cores, against ~3 MB of compulsory traffic (x, dx, weights,
-// gradients), 1 us. So it is bound by operations. All float32 on CUDA
-// cores (simple first; tensor cores are later work).
+// What bounds it: the forward recompute, dpost and dW make about
+// 3 x 2 x 233,600 = 1.4 MFLOP a row at the training widths (136, 512, 256,
+// 128, 1): 3.64 GFLOP at N = 2,560 rows. Bound at 3xTF32 (165 TFLOP/s
+// effective): 0.022 ms; at float32 on CUDA cores (67 TFLOP/s): 0.054 ms.
+// Compulsory traffic (x, dx, weights, gradients) is 4.7 MB, 1.4 us. So it
+// is bound by operations; the 29 MB of scratch stays in the 50 MB L2.
 
-#include <cuda_runtime.h>
+#include "mlp_common.cuh"
 
 namespace {
 
-constexpr int kRows = 16;                                // rows per block
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerThread = 4;                        // micro-tile rows
-constexpr int kColsPerThread = 4;                        // micro-tile cols
-constexpr int kRowGroups = kRows / kRowsPerThread;       // 4
-constexpr int kColLanes = kThreads / kRowGroups;         // 64
-constexpr int kColsPerPass = kColLanes * kColsPerThread; // 256
-constexpr int kMaxLayers = 16;
-constexpr float kEps = 1e-5f;
-constexpr float kSeluScale = 1.0507009873554805f;
-constexpr float kSeluAlpha = 1.6732632423543772f;
-constexpr int kTile = 64;   // phase 2: dW tile (in x out)
-constexpr int kChunk = 32;  // phase 2: rows per shared-memory stage
+using namespace mlp;
 
-struct Dims {
-  int n_layers;
+constexpr int kTo = 64;    // phase 2: dW tile, rows of [out, in]
+constexpr int kTi = 64;    // phase 2: dW tile, columns
+constexpr int kKr = 32;    // phase 2: rows of N a stage
+constexpr int kP2Threads = 128;
+constexpr int kReduceThreads = 256;
+constexpr int kAs = kTo + 8;   // stage strides = 8 (mod 32): conflict-free
+constexpr int kBs = kTi + 8;
+constexpr int kP2Stage = kKr * (kAs + kBs);
+
+struct Plan {
   int n_rows;
-  int width[kMaxLayers + 1];
-  int stride[kMaxLayers + 1];      // width rounded up to a multiple of 4
-  int h_off[kMaxLayers];           // shared-memory float offset of h_j
-  int stats_off;                   // [n_layers][2][kRows]: mean, rstd
-  int work_off;                    // two work buffers [kRows x work_stride]
-  int work_stride;
-  int small_off[kMaxLayers + 1];   // per-block partials: dscale, dbias, db
-  int tile_start[kMaxLayers + 1];  // phase-2 dW tiles, prefix sums
-  long long param_off[kMaxLayers]; // [scale, bias, W (in x out), b]
-  long long wt_off[kMaxLayers];    // W^T (out x in)
-  long long post_off[kMaxLayers];  // scratch: post_j [N, in]
-  long long dz_off[kMaxLayers];    // scratch: dz_j [N, out]
+  int n_blocks;                        // phase 1 row blocks
+  int chunks, chunk_rows;              // phase 2 row chunks
+  int small;                           // partial floats per row block
+  long long dw_total;                  // dW floats of one chunk
+  long long post_off[kMaxLayers];      // scratch: post_j [N, in]
+  long long dz_off[kMaxLayers];        // scratch: dz_j [N, out]
+  long long h_off[kMaxLayers];         // scratch: h_j [N, in], j >= 1
+  long long scratch;                   // scratch floats
+  int small_off[kMaxLayers + 1];       // per block: dscale, dbias, db
+  long long dw_off[kMaxLayers + 1];    // a chunk's dW_j [out, in]
+  long long grad_off[kMaxLayers + 1];  // dparams: dscale, dbias, dW, db
+  int tile_start[kMaxLayers + 1];      // phase 2 tiles, prefix sums
 };
 
-// Activation codes: 0 elu, 1 relu, 2 selu, 3 tanh, 4 sigmoid (as K1).
-__device__ __forceinline__ float activate(float v, int act) {
-  switch (act) {
-    case 0: return v > 0.f ? v : expm1f(v);
-    case 1: return fmaxf(v, 0.f);
-    case 2: return kSeluScale * (v > 0.f ? v : kSeluAlpha * expm1f(v));
-    case 3: return tanhf(v);
-    default: return 1.f / (1.f + expf(-v));
+long long round4(long long v) { return (v + 3) / 4 * 4; }
+
+Plan make_plan(const Net& net, int n_rows, int rows, int chunks) {
+  Plan p;
+  const int n_layers = net.n_layers;
+  p.n_rows = n_rows;
+  p.n_blocks = (n_rows + rows - 1) / rows;
+  const int per_chunk = (n_rows + chunks - 1) / chunks;
+  p.chunk_rows = round_up(per_chunk > 0 ? per_chunk : 1, kKr);
+  p.chunks = n_rows > 0 ? (n_rows + p.chunk_rows - 1) / p.chunk_rows : 1;
+  long long s = 0, dw = 0, grad = 0;
+  int small = 0, tiles = 0;
+  for (int j = 0; j < n_layers; ++j) {
+    const long long in = net.width[j], out = net.width[j + 1];
+    p.post_off[j] = s;
+    s += round4(n_rows * in);
+    p.dz_off[j] = s;
+    s += round4(n_rows * out);
+    p.h_off[j] = s;
+    if (j) s += round4(n_rows * in);
+    p.small_off[j] = small;
+    small += static_cast<int>(2 * in + out);
+    p.dw_off[j] = dw;
+    dw += out * in;
+    p.grad_off[j] = grad;
+    grad += 2 * in + out * in + out;
+    p.tile_start[j] = tiles;
+    tiles += static_cast<int>(((out + kTo - 1) / kTo) * ((in + kTi - 1) / kTi));
   }
+  p.scratch = s;
+  p.small = small;
+  p.small_off[n_layers] = small;
+  p.dw_total = dw;
+  p.dw_off[n_layers] = dw;
+  p.grad_off[n_layers] = grad;
+  p.tile_start[n_layers] = tiles;
+  return p;
 }
 
-// d act / dz, from the activation's output h.
-__device__ __forceinline__ float act_grad(float h, int act) {
-  switch (act) {
-    case 0: return h > 0.f ? 1.f : h + 1.f;
-    case 1: return h > 0.f ? 1.f : 0.f;
-    case 2: return h > 0.f ? kSeluScale : h + kSeluScale * kSeluAlpha;
-    case 3: return 1.f - h * h;
-    default: return h * (1.f - h);
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float component(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// out[r, col] = sum_k in[r, k] * m[k, col] for the tile's kRows rows and
-// col < n_cols; `in` is shared [kRows x in_stride] (in_stride % 4 == 0),
-// m is global row-major [depth x n_cols]. epi(r, col, acc) stores a value.
-template <class Epi>
-__device__ __forceinline__ void tile_gemm(const float* in, int in_stride,
-                                          int depth,
-                                          const float* __restrict__ m,
-                                          int n_cols, Epi epi) {
-  const int tid = threadIdx.x, rg = tid / kColLanes, cl = tid % kColLanes;
-  const float* hrow = in + rg * kRowsPerThread * in_stride;
-  for (int c0 = 0; c0 < n_cols; c0 += kColsPerPass) {
-    int col[kColsPerThread];
-#pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) col[c] = c0 + cl + c * kColLanes;
-    float acc[kRowsPerThread][kColsPerThread] = {};
-    int k = 0;
-    for (; k + 4 <= depth; k += 4) {
-      float4 hv[kRowsPerThread];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        hv[i] = *reinterpret_cast<const float4*>(hrow + i * in_stride + k);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float* mk = m + static_cast<size_t>(k + kk) * n_cols;
-        float mv[kColsPerThread];
-#pragma unroll
-        for (int c = 0; c < kColsPerThread; ++c)
-          mv[c] = col[c] < n_cols ? __ldg(mk + col[c]) : 0.f;
-#pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) {
-          const float hk = component(hv[i], kk);
-#pragma unroll
-          for (int c = 0; c < kColsPerThread; ++c)
-            acc[i][c] = fmaf(hk, mv[c], acc[i][c]);
-        }
-      }
-    }
-    for (; k < depth; ++k) {
-      const float* mk = m + static_cast<size_t>(k) * n_cols;
-      float mv[kColsPerThread];
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c)
-        mv[c] = col[c] < n_cols ? __ldg(mk + col[c]) : 0.f;
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const float hk = hrow[i * in_stride + k];
-#pragma unroll
-        for (int c = 0; c < kColsPerThread; ++c)
-          acc[i][c] = fmaf(hk, mv[c], acc[i][c]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) {
-      if (col[c] >= n_cols) continue;
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        epi(rg * kRowsPerThread + i, col[c], acc[i][c]);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
+template <int R>
+__global__ void __launch_bounds__(Tile<R>::kThreads, R == 16 ? 2 : 1)
 mlp_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                    const float* __restrict__ params,
-                    const float* __restrict__ wt, float* __restrict__ dx,
-                    float* __restrict__ scratch, float* __restrict__ partials,
-                    Dims d, int act, int use_norm) {
+                    float* __restrict__ dx, float* __restrict__ scratch,
+                    float* __restrict__ partials, Net net, Smem sm, Plan plan,
+                    int act, int use_norm) {
+  constexpr int kT = Tile<R>::kThreads;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* stats = smem + d.stats_off;
-  float* cur = smem + d.work_off;                 // post, then dpost / dh
-  float* other = cur + kRows * d.work_stride;     // dz
-  const int ws = d.work_stride;
+  float* stage = smem + sm.stage_off;
+  float* stats = smem + sm.stats_off;   // [n_layers][2][R]: mean, rstd
+  constexpr int kCap = kStages * Tile<R>::kStage;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
-  const int n_rows = d.n_rows;
-  const int valid = n_rows - row0 < kRows ? static_cast<int>(n_rows - row0)
-                                          : kRows;
-  float* part = partials + static_cast<long long>(blockIdx.x) *
-                               d.small_off[d.n_layers];
-  const int f = d.width[0];
-  const int n_layers = d.n_layers;
+  const long long row0 = static_cast<long long>(blockIdx.x) * R;
+  const int valid = plan.n_rows - row0 < R
+                        ? static_cast<int>(plan.n_rows - row0) : R;
+  const int f = net.width[0], n_layers = net.n_layers;
+  float* part = partials + static_cast<long long>(blockIdx.x) * plan.small;
 
-  // The row tile into h_0; rows past n_rows are zeros (and have g = 0).
-  {
-    float* h0 = smem + d.h_off[0];
-    for (int i = tid; i < kRows * f; i += kThreads) {
-      const int r = i / f, k = i - r * f;
-      h0[r * d.stride[0] + k] = r < valid ? x[(row0 + r) * f + k] : 0.f;
-    }
-  }
+  // ---- forward recompute: h_{j+1} = act(post_j @ W_j^T + b_j)
+  load_rows<R>(x + row0 * f, f, valid, smem + sm.buf_off[0], sm.stride[0]);
   __syncthreads();
-
-  // ---- forward recompute: h_{j+1} = act(post_j @ W_j + b_j)
   for (int j = 0; j < n_layers; ++j) {
-    const int in = d.width[j], out = d.width[j + 1], s_in = d.stride[j];
-    const float* scale = params + d.param_off[j];
-    const float* bias = scale + in;
-    const float* w = bias + in;
-    const float* b = w + static_cast<size_t>(in) * out;
-    const float* h = smem + d.h_off[j];
-    float* mean = stats + (2 * j) * kRows;
-    float* rstd = mean + kRows;
+    const Layer& L = net.layer[j];
+    const int in = net.width[j];
+    float* cur = smem + sm.buf_off[j % 2];
+    const int s = sm.stride[j % 2];
+    float* post = scratch + plan.post_off[j] + row0 * in;
     if (use_norm) {
-      for (int r = warp; r < kRows; r += kWarps) {
-        float s = 0.f, ss = 0.f;
-        for (int k = lane; k < in; k += 32) {
-          const float v = h[r * s_in + k];
-          s += v;
-          ss += v * v;
-        }
-        s = warp_sum(s);
-        ss = warp_sum(ss);
-        const float mu = s / in;
-        const float rs = rsqrtf(fmaxf(ss / in - mu * mu, 0.f) + kEps);
-        for (int k = lane; k < in; k += 32)
-          cur[r * ws + k] = (h[r * s_in + k] - mu) * rs * scale[k] + bias[k];
-        if (lane == 0) {
-          mean[r] = mu;
-          rstd[r] = rs;
-        }
-      }
+      layer_norm_rows<R>(cur, s, in, L.scale, L.bias, stats + 2 * j * R,
+                         stats + (2 * j + 1) * R,
+                         j ? scratch + plan.h_off[j] + row0 * in : nullptr,
+                         post, valid, stage, kCap);
     } else {
-      for (int i = tid; i < kRows * in; i += kThreads) {
+      for (int i = tid; i < valid * in; i += kT) {
         const int r = i / in, k = i - r * in;
-        cur[r * ws + k] = h[r * s_in + k];
+        post[i] = cur[r * s + k];
       }
     }
     __syncthreads();
-    float* post = scratch + d.post_off[j];
-    for (int i = tid; i < valid * in; i += kThreads) {
-      const int r = i / in, k = i - r * in;
-      post[(row0 + r) * in + k] = cur[r * ws + k];
+    if (j + 1 < n_layers) {  // the scores themselves are not needed
+      block_gemm<R, false>(cur, s, in, L.w, in, net.width[j + 1], stage,
+                           smem + sm.buf_off[(j + 1) % 2],
+                           sm.stride[(j + 1) % 2], L.b, act);
+      __syncthreads();
     }
-    if (j + 1 < n_layers) {
-      float* hn = smem + d.h_off[j + 1];
-      const int s_out = d.stride[j + 1];
-      tile_gemm(cur, ws, in, w, out, [&](int r, int c, float acc) {
-        hn[r * s_out + c] = activate(acc + b[c], act);
-      });
+  }
+
+  // ---- the width-1 output layer: dz = g, dpost = g * w
+  {
+    const int j = n_layers - 1, in = net.width[j], s = sm.stride[j % 2];
+    float* p = smem + sm.buf_off[j % 2];
+    const float* w = net.layer[j].w;
+    float* dzs = scratch + plan.dz_off[j] + row0;
+    for (int r = tid; r < valid; r += kT) dzs[r] = g[row0 + r];
+    if (tid == 0) {
+      float db = 0.f;
+      for (int r = 0; r < valid; ++r) db += g[row0 + r];
+      part[plan.small_off[j] + 2 * in] = db;
+    }
+    for (int i = tid; i < R * in; i += kT) {
+      const int r = i / in, k = i - r * in;
+      p[r * s + k] = r < valid ? g[row0 + r] * w[k] : 0.f;
     }
     __syncthreads();
   }
 
-  // ---- backward, from the scores' cotangent down to dx
-  for (int r = tid; r < kRows; r += kThreads)
-    other[r * ws] = r < valid ? g[row0 + r] : 0.f;
+  // ---- backward, from dpost_j (in buffer j % 2) down to dx. Rows past
+  // n_rows have g = 0, so their dpost and dz stay 0 and are skipped.
   for (int j = n_layers - 1; j >= 0; --j) {
-    __syncthreads();
-    const int in = d.width[j], out = d.width[j + 1], s_in = d.stride[j];
-    const float* scale = params + d.param_off[j];
-    const float* wtj = wt + d.wt_off[j];
-    const float* h = smem + d.h_off[j];
-    const float* mean = stats + (2 * j) * kRows;
-    const float* rstd = mean + kRows;
-    float* pj = part + d.small_off[j];
-    const float* dz = other;
-
-    float* dzs = scratch + d.dz_off[j];
-    for (int i = tid; i < valid * out; i += kThreads) {
-      const int r = i / out, c = i - r * out;
-      dzs[(row0 + r) * out + c] = dz[r * ws + c];
-    }
-    for (int c = tid; c < out; c += kThreads) {
-      float s = 0.f;
-      for (int r = 0; r < kRows; ++r) s += dz[r * ws + c];
-      pj[2 * in + c] = s;  // db
-    }
-    // dpost = dz @ W^T
-    tile_gemm(dz, ws, out, wtj, in,
-              [&](int r, int c, float acc) { cur[r * ws + c] = acc; });
-    __syncthreads();
+    const int in = net.width[j], s = sm.stride[j % 2];
+    float* p = smem + sm.buf_off[j % 2];
+    const float* h = j == 0 ? x + row0 * f
+                            : scratch + (use_norm ? plan.h_off[j]
+                                                  : plan.post_off[j]) +
+                                  row0 * in;
+    float* pj = part + plan.small_off[j];
     if (use_norm) {
-      for (int k = tid; k < in; k += kThreads) {
+      const float* mean = stats + 2 * j * R;
+      const float* rstd = mean + R;
+      const float* scale =
+          stage_vector<R>(net.layer[j].scale, in, stage, kCap);
+      for (int k = tid; k < in; k += kT) {
         float sd = 0.f, sb = 0.f;
-        for (int r = 0; r < kRows; ++r) {
-          const float nhat = (h[r * s_in + k] - mean[r]) * rstd[r];
-          const float dp = cur[r * ws + k];
+#pragma unroll 8
+        for (int r = 0; r < valid; ++r) {
+          const float nhat = (h[r * in + k] - mean[r]) * rstd[r];
+          const float dp = p[r * s + k];
           sd += dp * nhat;
           sb += dp;
         }
@@ -291,174 +210,235 @@ mlp_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
         pj[in + k] = sb;  // dbias
       }
       __syncthreads();
-      for (int r = warp; r < kRows; r += kWarps) {
-        const float mu = mean[r], rs = rstd[r];
-        float m1 = 0.f, m2 = 0.f;
-        for (int k = lane; k < in; k += 32) {
-          const float nhat = (h[r * s_in + k] - mu) * rs;
-          const float dn = cur[r * ws + k] * scale[k];
-          m1 += dn;
-          m2 += dn * nhat;
+      const float inv_in = 1.f / in;
+      with_act(j ? act : -1, [&](auto A) {
+        for (int r = warp; r < valid; r += kT / 32) {
+          float* pr = p + r * s;
+          const float* hr = h + static_cast<long long>(r) * in;
+          const float mu = mean[r], rs = rstd[r];
+          float m1 = 0.f, m2 = 0.f;
+#pragma unroll 4
+          for (int k = lane; k < in; k += 32) {
+            const float nhat = (hr[k] - mu) * rs;
+            const float dn = pr[k] * scale[k];
+            m1 += dn;
+            m2 += dn * nhat;
+          }
+          m1 = warp_sum(m1) * inv_in;
+          m2 = warp_sum(m2) * inv_in;
+#pragma unroll 4
+          for (int k = lane; k < in; k += 32) {
+            const float hv = hr[k];
+            const float nhat = (hv - mu) * rs;
+            const float dh = rs * (pr[k] * scale[k] - m1 - nhat * m2);
+            if constexpr (decltype(A)::value >= 0)
+              pr[k] = dh * act_grad<decltype(A)::value>(hv);  // dz_{j-1}
+            else
+              dx[(row0 + r) * f + k] = dh;
+          }
         }
-        m1 = warp_sum(m1) / in;
-        m2 = warp_sum(m2) / in;
-        for (int k = lane; k < in; k += 32) {
-          const float nhat = (h[r * s_in + k] - mu) * rs;
-          const float dn = cur[r * ws + k] * scale[k];
-          cur[r * ws + k] = rs * (dn - m1 - nhat * m2);
-        }
-      }
+      });
     } else {
-      for (int k = tid; k < in; k += kThreads) {
+      for (int k = tid; k < in; k += kT) {
         pj[k] = 0.f;
         pj[in + k] = 0.f;
       }
+      with_act(j ? act : -1, [&](auto A) {
+        for (int i = tid; i < valid * in; i += kT) {
+          const int r = i / in, k = i - r * in;
+          if constexpr (decltype(A)::value >= 0)
+            p[r * s + k] *= act_grad<decltype(A)::value>(h[i]);
+          else
+            dx[row0 * f + i] = p[r * s + k];
+        }
+      });
     }
     __syncthreads();
-    if (j > 0) {
-      // dz_{j-1} = dh * act'(z_{j-1}), with h_j = act(z_{j-1}).
-      for (int i = tid; i < kRows * in; i += kThreads) {
-        const int r = i / in, k = i - r * in;
-        cur[r * ws + k] *= act_grad(h[r * s_in + k], act);
-      }
-      float* t = cur;
-      cur = other;
-      other = t;
-    } else {
-      for (int i = tid; i < valid * in; i += kThreads) {
-        const int r = i / in, k = i - r * in;
-        dx[(row0 + r) * in + k] = cur[r * ws + k];
-      }
+    if (j == 0) break;
+
+    // p holds dz_{j-1} [R, in]: to scratch, its column sums (db_{j-1}),
+    // then dpost_{j-1} = dz_{j-1} @ W_{j-1} into the other buffer.
+    const int prev = net.width[j - 1];
+    float* dzs = scratch + plan.dz_off[j - 1] + row0 * in;
+    for (int i = tid; i < valid * in; i += kT) {
+      const int r = i / in, k = i - r * in;
+      dzs[i] = p[r * s + k];
     }
+    float* db = part + plan.small_off[j - 1] + 2 * prev;
+    for (int c = tid; c < in; c += kT) {
+      float sum = 0.f;
+      for (int r = 0; r < valid; ++r) sum += p[r * s + c];
+      db[c] = sum;
+    }
+    block_gemm<R, true>(p, s, in, net.layer[j - 1].w, prev, prev, stage,
+                        smem + sm.buf_off[(j - 1) % 2],
+                        sm.stride[(j - 1) % 2], nullptr, -1);
+    __syncthreads();
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-mlp_bwd_reduce_kernel(const float* __restrict__ scratch,
-                      const float* __restrict__ partials,
-                      float* __restrict__ dparams, int n_row_blocks, Dims d) {
-  const int tid = threadIdx.x;
-  const int n_layers = d.n_layers;
-  const int n_tiles = d.tile_start[n_layers];
-  const int bid = blockIdx.x;
-  if (bid < n_tiles) {
-    // dW_j tile: rows i0.. of `in`, columns c0.. of `out`.
-    __shared__ float as[kChunk][kTile];
-    __shared__ float bs[kChunk][kTile];
-    int j = 0;
-    while (bid >= d.tile_start[j + 1]) ++j;
-    const int in = d.width[j], out = d.width[j + 1];
-    const int tiles_out = (out + kTile - 1) / kTile;
-    const int local = bid - d.tile_start[j];
-    const int i0 = (local / tiles_out) * kTile, c0 = (local % tiles_out) * kTile;
-    const float* post = scratch + d.post_off[j];
-    const float* dz = scratch + d.dz_off[j];
-    const int tx = tid % 16, ty = tid / 16;
-    float acc[4][4] = {};
-    for (int n0 = 0; n0 < d.n_rows; n0 += kChunk) {
-      for (int e = tid; e < kChunk * kTile; e += kThreads) {
-        const int r = e / kTile, c = e % kTile;
-        const long long n = n0 + r;
-        const bool row_ok = n < d.n_rows;
-        as[r][c] = row_ok && i0 + c < in ? post[n * in + i0 + c] : 0.f;
-        bs[r][c] = row_ok && c0 + c < out ? dz[n * out + c0 + c] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int r = 0; r < kChunk; ++r) {
-        float a[4], bv[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          a[q] = as[r][ty + 16 * q];
-          bv[q] = bs[r][tx + 16 * q];
-        }
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(a[p], bv[q], acc[p][q]);
-      }
-      __syncthreads();
-    }
-    float* dw = dparams + d.param_off[j] + 2 * in;
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const int i = i0 + ty + 16 * p;
-      if (i >= in) continue;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = c0 + tx + 16 * q;
-        if (c < out) dw[static_cast<long long>(i) * out + c] = acc[p][q];
-      }
-    }
-    return;
-  }
-  // dscale, dbias, db: the per-block partials summed in block order.
-  const int total = d.small_off[n_layers];
-  const int e = (bid - n_tiles) * kThreads + tid;
-  if (e >= total) return;
-  float s = 0.f;
-  for (int blk = 0; blk < n_row_blocks; ++blk)
-    s += partials[static_cast<long long>(blk) * total + e];
+// dW_j tile [o0 .. o0+64) x [i0 .. i0+64) over one chunk of rows:
+// sum_n dz_j[n, o] * post_j[n, i], into that chunk's partial.
+__global__ void __launch_bounds__(kP2Threads)
+mlp_bwd_dw_kernel(const float* __restrict__ scratch,
+                  float* __restrict__ dw_part, Net net, Plan plan) {
+  extern __shared__ float4 smem4[];
+  float* st = reinterpret_cast<float*>(smem4);  // kStages x kP2Stage
+  const int tile = blockIdx.x, chunk = blockIdx.y;
   int j = 0;
-  while (e >= d.small_off[j + 1]) ++j;
-  const int in = d.width[j], out = d.width[j + 1];
-  const int local = e - d.small_off[j];
-  const long long dst = local < 2 * in
-      ? d.param_off[j] + local
-      : d.param_off[j] + 2 * in + static_cast<long long>(in) * out +
-            (local - 2 * in);
-  dparams[dst] = s;
+  while (tile >= plan.tile_start[j + 1]) ++j;
+  const int in = net.width[j], out = net.width[j + 1];
+  const int tiles_i = (in + kTi - 1) / kTi;
+  const int local = tile - plan.tile_start[j];
+  const int o0 = (local / tiles_i) * kTo, i0 = (local % tiles_i) * kTi;
+  const long long r0 = static_cast<long long>(chunk) * plan.chunk_rows;
+  const int n_here = plan.n_rows - r0 < plan.chunk_rows
+                         ? static_cast<int>(plan.n_rows - r0)
+                         : plan.chunk_rows;
+  const float* dz = scratch + plan.dz_off[j] + r0 * out + o0;
+  const float* post = scratch + plan.post_off[j] + r0 * in + i0;
+  const bool vec_a = out % 4 == 0, vec_b = in % 4 == 0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wo = (warp / 2) * 32, wi = (warp % 2) * 32;
+  const int n_k = (n_here + kKr - 1) / kKr;
+
+  auto load = [&](int c) {
+    float* a = st + (c % kStages) * kP2Stage;
+    const int rows_ok = n_here - c * kKr;
+    stage_tile<kP2Threads>(a, kAs, dz + static_cast<long long>(c) * kKr * out,
+                           out, kKr, kTo, rows_ok, out - o0, vec_a, scratch);
+    stage_tile<kP2Threads>(a + kKr * kAs, kBs,
+                           post + static_cast<long long>(c) * kKr * in, in,
+                           kKr, kTi, rows_ok, in - i0, vec_b, scratch);
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  load(0);
+  cp_async_commit();
+  if (n_k > 1) load(1);
+  cp_async_commit();
+  for (int c = 0; c < n_k; ++c) {
+    cp_async_wait<1>();
+    __syncthreads();
+    if (c + 2 < n_k) load(c + 2);
+    cp_async_commit();
+    const float* A = st + (c % kStages) * kP2Stage;  // dz rows as [n][o]
+    const float* B = A + kKr * kAs;                  // post rows as [n][i]
+#pragma unroll
+    for (int kk = 0; kk < kKr; kk += 8) {
+      unsigned ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* ap = A + (kk + t) * kAs + wo + mt * 16 + g;
+        split_tf32(ap[0], ah[mt][0], al[mt][0]);
+        split_tf32(ap[8], ah[mt][1], al[mt][1]);
+        split_tf32(ap[4 * kAs], ah[mt][2], al[mt][2]);
+        split_tf32(ap[4 * kAs + 8], ah[mt][3], al[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float* bp = B + (kk + t) * kBs + wi + nt * 8 + g;
+        split_tf32(bp[0], bh[nt][0], bl[nt][0]);
+        split_tf32(bp[4 * kBs], bh[nt][1], bl[nt][1]);
+      }
+      // Tiles past `out` or `in` multiply the zeros staged there.
+#pragma unroll
+      for (int term = 0; term < 3; ++term)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            mma_tf32(acc[mt][nt], term == 0 ? al[mt] : ah[mt],
+                     term == 1 ? bl[nt] : bh[nt]);
+    }
+  }
+  float* dw = dw_part + chunk * plan.dw_total + plan.dw_off[j];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = o0 + wo + mt * 16 + g + 8 * (e / 2);
+        const int i = i0 + wi + nt * 8 + 2 * t + (e % 2);
+        if (o < out && i < in)
+          dw[static_cast<long long>(o) * in + i] = acc[mt][nt][e];
+      }
 }
 
-bool make_dims(const int* widths, int n_layers, int n_rows, Dims* d) {
-  if (n_layers < 1 || n_layers > kMaxLayers || n_rows < 0) return false;
-  d->n_layers = n_layers;
-  d->n_rows = n_rows;
-  int max_width = 0;
-  for (int j = 0; j <= n_layers; ++j) {
-    if (widths[j] < 1) return false;
-    d->width[j] = widths[j];
-    d->stride[j] = (widths[j] + 3) & ~3;
-    max_width = widths[j] > max_width ? widths[j] : max_width;
+// Every gradient element: dW summed over the chunks in chunk order,
+// dscale, dbias and db over the row blocks in block order.
+__global__ void __launch_bounds__(kReduceThreads)
+mlp_bwd_reduce_kernel(const float* __restrict__ partials,
+                      const float* __restrict__ dw_part,
+                      float* __restrict__ dparams, Net net, Plan plan) {
+  const long long e =
+      static_cast<long long>(blockIdx.x) * kReduceThreads + threadIdx.x;
+  if (e >= plan.grad_off[net.n_layers]) return;
+  int j = 0;
+  while (e >= plan.grad_off[j + 1]) ++j;
+  const long long in = net.width[j], out = net.width[j + 1];
+  const long long local = e - plan.grad_off[j];
+  float s = 0.f;
+  if (local < 2 * in || local >= 2 * in + in * out) {
+    const long long idx =
+        plan.small_off[j] + (local < 2 * in ? local : local - in * out);
+#pragma unroll 8
+    for (int b = 0; b < plan.n_blocks; ++b)
+      s += partials[static_cast<long long>(b) * plan.small + idx];
+  } else {
+    const long long idx = plan.dw_off[j] + local - 2 * in;
+#pragma unroll 4
+    for (int c = 0; c < plan.chunks; ++c) s += dw_part[c * plan.dw_total + idx];
   }
-  if (widths[n_layers] != 1) return false;
-  d->work_stride = (max_width + 3) & ~3;
-  d->stats_off = 0;
-  int off = 2 * n_layers * kRows;  // a multiple of 4
-  for (int j = 0; j < n_layers; ++j) {
-    d->h_off[j] = off;
-    off += kRows * d->stride[j];
-  }
-  d->work_off = off;
-  long long p = 0, t = 0, s = 0;
-  int small = 0, tiles = 0;
-  for (int j = 0; j < n_layers; ++j) {
-    const long long in = widths[j], out = widths[j + 1];
-    d->param_off[j] = p;
-    p += 2 * in + in * out + out;
-    d->wt_off[j] = t;
-    t += in * out;
-    d->post_off[j] = s;
-    s += static_cast<long long>(n_rows) * in;
-    d->dz_off[j] = s;
-    s += static_cast<long long>(n_rows) * out;
-    d->small_off[j] = small;
-    small += static_cast<int>(2 * in + out);
-    d->tile_start[j] = tiles;
-    tiles += static_cast<int>(((in + kTile - 1) / kTile) *
-                              ((out + kTile - 1) / kTile));
-  }
-  d->small_off[n_layers] = small;
-  d->tile_start[n_layers] = tiles;
-  return true;
+  dparams[e] = s;
 }
 
-size_t smem_bytes(const Dims& d) {
-  return (static_cast<size_t>(d.work_off) + 2ull * kRows * d.work_stride) *
-         sizeof(float);
+template <int R>
+int launch(const float* x, const float* g, float* dx, float* dparams,
+           float* scratch, float* partials, float* dw_part, const Net& net,
+           const Plan& plan, int act, int use_norm, cudaStream_t stream) {
+  const Smem sm = smem_layout<R>(net, true);
+  const size_t bytes = static_cast<size_t>(sm.total) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_bwd_rows_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  mlp_bwd_rows_kernel<R><<<plan.n_blocks, Tile<R>::kThreads, bytes, stream>>>(
+      x, g, dx, scratch, partials, net, sm, plan, act, use_norm);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int dw_smem = kStages * kP2Stage * sizeof(float);
+  err = cudaFuncSetAttribute(mlp_bwd_dw_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dw_smem);
+  if (err != cudaSuccess) return err;
+  const dim3 tiles(plan.tile_start[net.n_layers], plan.chunks);
+  mlp_bwd_dw_kernel<<<tiles, kP2Threads, dw_smem, stream>>>(scratch, dw_part,
+                                                            net, plan);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long total = plan.grad_off[net.n_layers];
+  mlp_bwd_reduce_kernel<<<static_cast<unsigned>((total + kReduceThreads - 1) /
+                                                kReduceThreads),
+                          kReduceThreads, 0, stream>>>(partials, dw_part, dparams,
+                                                 net, plan);
+  return cudaGetLastError();
 }
 
-long long row_blocks(int n_rows) { return (n_rows + kRows - 1) / kRows; }
+long long smem_bytes(const Net& net, int rows) {
+  switch (rows) {
+    case 16: return smem_layout<16>(net, true).total * 4LL;
+    case 32: return smem_layout<32>(net, true).total * 4LL;
+    case 64: return smem_layout<64>(net, true).total * 4LL;
+    default: return 0;
+  }
+}
 
 }  // namespace
 
@@ -471,49 +451,50 @@ const char* ultra_cuda_error_string(int err) {
 int ultra_mlp_bwd_max_layers() { return kMaxLayers; }
 
 // Sizes (in floats, and bytes of dynamic shared memory) that the caller
-// allocates for n_rows rows; returns 0, or -1 if the widths are invalid.
+// allocates for n_rows rows, `rows` rows a block (16, 32 or 64) and dW over
+// `chunks` row chunks; returns 0, or -1 if an argument is invalid.
 int ultra_mlp_bwd_workspace(const int* widths, int n_layers, int n_rows,
-                            long long* scratch_floats,
-                            long long* partial_floats, long long* smem) {
-  Dims d;
-  if (!make_dims(widths, n_layers, n_rows, &d)) return -1;
-  long long s = 0;
-  for (int j = 0; j < n_layers; ++j)
-    s += static_cast<long long>(n_rows) * (widths[j] + widths[j + 1]);
-  *scratch_floats = s;
-  *partial_floats = row_blocks(n_rows) * d.small_off[n_layers];
-  *smem = static_cast<long long>(smem_bytes(d));
+                            int rows, int chunks, long long* scratch_floats,
+                            long long* partial_floats, long long* dw_floats,
+                            long long* smem) {
+  Net net;
+  const void* none[4 * kMaxLayers] = {};
+  if (n_rows < 0 || chunks < 1 || !make_net(widths, n_layers, none, &net))
+    return -1;
+  const long long bytes = smem_bytes(net, rows);
+  if (bytes == 0) return -1;
+  const Plan plan = make_plan(net, n_rows, rows, chunks);
+  *scratch_floats = plan.scratch;
+  *partial_floats = static_cast<long long>(plan.n_blocks) * plan.small;
+  *dw_floats = plan.chunks * plan.dw_total;
+  *smem = bytes;
   return 0;
 }
 
-// dx [n_rows, widths[0]] and dparams (K1's packed layout) from x, g [n_rows],
-// params (K1's packed layout) and wt (each layer's W as [out, in], one after
-// the other), on `stream`. scratch and partials are sized by
-// ultra_mlp_bwd_workspace. Returns cudaGetLastError() after the launches.
-int ultra_mlp_bwd(const float* x, const float* g, const float* params,
-                  const float* wt, float* dx, float* dparams, float* scratch,
-                  float* partials, int n_rows, const int* widths,
-                  int n_layers, int act, int use_norm, void* stream) {
-  Dims d;
-  if (n_rows < 1 || !make_dims(widths, n_layers, n_rows, &d))
+// dx [n_rows, widths[0]] and dparams (per layer dscale, dbias, dW [out, in],
+// db) from x, g [n_rows] and the parameters (params: 4 * n_layers device
+// pointers in host memory, per layer LayerNorm scale, bias, W [out, in],
+// b), on `stream`. scratch, partials and dw_part are sized by
+// ultra_mlp_bwd_workspace for the same rows and chunks. Returns
+// cudaGetLastError() after the launches.
+int ultra_mlp_bwd(const float* x, const float* g, const void* const* params,
+                  float* dx, float* dparams, float* scratch, float* partials,
+                  float* dw_part, int n_rows, const int* widths, int n_layers,
+                  int rows, int chunks, int act, int use_norm, void* stream) {
+  Net net;
+  if (n_rows < 1 || chunks < 1 || !make_net(widths, n_layers, params, &net))
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  const Plan plan = make_plan(net, n_rows, rows, chunks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long blocks = row_blocks(n_rows);
-  mlp_bwd_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
-      x, g, params, wt, dx, scratch, partials, d, act, use_norm);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int small = d.small_off[n_layers];
-  const unsigned grid = static_cast<unsigned>(
-      d.tile_start[n_layers] + (small + kThreads - 1) / kThreads);
-  mlp_bwd_reduce_kernel<<<grid, kThreads, 0, s>>>(
-      scratch, partials, dparams, static_cast<int>(blocks), d);
-  return cudaGetLastError();
+  switch (rows) {
+    case 16: return launch<16>(x, g, dx, dparams, scratch, partials, dw_part,
+                               net, plan, act, use_norm, s);
+    case 32: return launch<32>(x, g, dx, dparams, scratch, partials, dw_part,
+                               net, plan, act, use_norm, s);
+    case 64: return launch<64>(x, g, dx, dparams, scratch, partials, dw_part,
+                               net, plan, act, use_norm, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -4,233 +4,138 @@
 // (launched by `_forward_pallas`, pallas_call at :118). It computes, for
 // every row of x [N, F], the DNN's whole layer chain: per layer LayerNorm
 // (clamped one-pass variance E[x^2]-E[x]^2, eps 1e-5) with its affine,
-// then h @ W + b, then the activation on every layer but the last. The
+// then h @ W^T + b, then the activation on every layer but the last. The
 // last layer has width 1 and yields the row's score.
 //
 // What bounds it: at the serving shape F = 136, widths 512/256/128/1 the
-// chain is 233,600 multiply-adds per row. At N = 32,768 rows that is
-// 2 * N * 233,600 = 15.3 GFLOP, about 0.23 ms at the H100's 67 TFLOP/s of
-// float32 on CUDA cores, against about 19 MB of traffic (features in,
-// weights, scores out), about 6 us at 3.35 TB/s. So it is compute-bound.
+// chain is 233,600 multiply-adds per row: 15.57 GFLOP at N = 32,768 rows
+// and 1.22 GFLOP at a training step's 2,560. Bound at 3xTF32 (165 TFLOP/s
+// effective): 0.094 ms and 0.0074 ms; at float32 on CUDA cores (67
+// TFLOP/s): 0.232 and 0.018 ms. Traffic is 19 MB (features in, 0.93 MB of
+// weights, scores out), 6 us at 3.35 TB/s, so it is bound by operations.
 //
-// Design (simple and right first; a TF32/bf16 tensor-core `wgmma` redesign
-// is later work):
-//   * One block owns a tile of kRows rows. The tile's activations live in
-//     two ping-pong buffers in dynamic shared memory, so no intermediate
-//     goes back to device memory: only x is read and the scores written.
-//   * LayerNorm: one warp per row reduces sum and sum of squares with
-//     shuffles, then normalises in place and applies the affine.
-//   * Linear: each thread owns an 8-row x 4-column micro-tile of the
-//     output in registers and walks k, reading the row tile from shared
-//     memory (a broadcast: the warp's threads share their rows) and W from
-//     device memory. W keeps JAX's [in, out] layout, so neighbouring
-//     threads read neighbouring W[k, j]. All weights together are 0.93 MB
-//     at the serving widths and stay in the 50 MB L2.
-//   * The TPU kernel held every weight in VMEM; 227 KB of shared memory is
-//     less than the weights, so here only the activations are on chip.
-//   * The ragged last tile is masked here (JAX padded N to 256 rows): rows
-//     past N load as zeros and are never written.
-//   * ELU and SELU use expm1f (Mosaic had no expm1; CUDA does).
+// Design (mlp_common.cuh holds the shared pieces):
+//   * Products on the tensor cores at float32 accuracy (3xTF32 through
+//     mma.sync m16n8k8). LayerNorm statistics, the affine, the activation
+//     and the width-1 output layer stay float32 on CUDA cores, fused around
+//     the products. The previous kernel did every FMA on CUDA cores, so 67
+//     TFLOP/s was its ceiling.
+//   * Weights are staged in shared memory, 16 or 32 deep, in a ring of
+//     three stages loaded with cp.async two chunks ahead, and every row of
+//     the tile reuses each staged weight. The previous kernel issued an
+//     __ldg of W from L2 for every 32 FMAs of a thread and shared nothing
+//     between warps. W is read as nn.Linear's [out, in] tensor itself: the
+//     TF32 `col` B operand is K-major.
+//   * Rows per block R = 16, 32 or 64 (one template instance each), chosen
+//     by the caller from N so that the busiest SM gets the fewest rows:
+//     2,560 rows run 80 32-row blocks of 16 warps (160 16-row blocks of 8
+//     warps would put two on 28 SMs, which measured slower), and 32,768
+//     rows run 512 64-row blocks of 16 warps, which read the weights from
+//     L2 half as often as 32-row tiles (0.48 GB instead of 0.95 GB). The
+//     previous kernel ran 32 rows on 8 warps, one block an SM.
+//   * The tile's activations live in two buffers sized per layer (buffer p
+//     holds the inputs of the layers j with j % 2 == p): 776 floats a row at
+//     the serving widths, 194 KB for 64 rows, instead of two max-width
+//     buffers. No intermediate goes back to device memory.
+//   * Bias values are read when a pass starts, the LayerNorm affine and the
+//     output layer's weights are staged in shared memory, and the
+//     activation is chosen once per loop, not per element: a global load
+//     per element, or a switch (an indirect jump) per element, left the
+//     tile's warps waiting in the epilogue and the LayerNorm.
+//   * Widths that are no multiple of 8 are zero-padded in shared memory (k
+//     and n of the MMA); the ragged last tile loads zero rows that are never
+//     written out.
 //
-// Parameters arrive packed in one buffer, per layer
-// [scale (in), bias (in), W (in x out, row-major), b (out)].
+// Parameters arrive as 4 * n_layers device pointers, per layer
+// [LayerNorm scale (in), LayerNorm bias (in), W (out x in), b (out)].
 
-#include <cuda_runtime.h>
+#include "mlp_common.cuh"
 
 namespace {
 
-constexpr int kRows = 32;                       // rows per block
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerThread = 8;               // micro-tile rows
-constexpr int kColsPerThread = 4;               // micro-tile columns
-constexpr int kRowGroups = kRows / kRowsPerThread;       // 4
-constexpr int kColLanes = kThreads / kRowGroups;         // 64
-constexpr int kColsPerPass = kColLanes * kColsPerThread; // 256
-constexpr int kMaxLayers = 16;
-constexpr float kEps = 1e-5f;
+using namespace mlp;
 
-struct Dims {
-  int n_layers;
-  int stride;  // floats per row of a shared-memory buffer (multiple of 4)
-  int width[kMaxLayers + 1];
-};
-
-// Activation codes: 0 elu, 1 relu, 2 selu, 3 tanh, 4 sigmoid.
-__device__ __forceinline__ float activate(float v, int act) {
-  switch (act) {
-    case 0: return v > 0.f ? v : expm1f(v);
-    case 1: return fmaxf(v, 0.f);
-    case 2: return 1.0507009873554805f *
-                   (v > 0.f ? v : 1.6732632423543772f * expm1f(v));
-    case 3: return tanhf(v);
-    default: return 1.f / (1.f + expf(-v));
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float component(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ params,
-               float* __restrict__ out, int n_rows, Dims d, int act,
-               int use_norm) {
+template <int R>
+__global__ void __launch_bounds__(Tile<R>::kThreads, R == 16 ? 2 : 1)
+mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
+               int n_rows, Net net, Smem sm, int act, int use_norm) {
   extern __shared__ float4 smem4[];
-  float* cur = reinterpret_cast<float*>(smem4);
-  float* nxt = cur + kRows * d.stride;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
-  const int f = d.width[0];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* stage = smem + sm.stage_off;
+  constexpr int kCap = kStages * Tile<R>::kStage;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long row0 = static_cast<long long>(blockIdx.x) * R;
+  const int valid = n_rows - row0 < R ? static_cast<int>(n_rows - row0) : R;
+  const int f = net.width[0];
 
-  // The row tile; rows past n_rows are zeros and are never written out.
-  for (int i = tid; i < kRows * f; i += kThreads) {
-    const int r = i / f, k = i - r * f;
-    const long long row = row0 + r;
-    cur[r * d.stride + k] = row < n_rows ? x[row * f + k] : 0.f;
-  }
+  load_rows<R>(x + row0 * f, f, valid, smem + sm.buf_off[0], sm.stride[0]);
   __syncthreads();
 
-  const float* p = params;
-  for (int j = 0; j < d.n_layers; ++j) {
-    const int in = d.width[j], width = d.width[j + 1];
-    const float* scale = p;
-    const float* bias = p + in;
-    const float* w = p + 2 * in;
-    const float* b = w + static_cast<size_t>(in) * width;
-    p = b + width;
-
+  for (int j = 0; j < net.n_layers; ++j) {
+    const Layer& L = net.layer[j];
+    const int in = net.width[j], width = net.width[j + 1];
+    float* cur = smem + sm.buf_off[j % 2];
+    const int s = sm.stride[j % 2];
     if (use_norm) {
-      for (int r = warp; r < kRows; r += kWarps) {
-        float* h = cur + r * d.stride;
-        float s = 0.f, ss = 0.f;
-        for (int k = lane; k < in; k += 32) {
-          const float v = h[k];
-          s += v;
-          ss += v * v;
-        }
-        s = warp_sum(s);
-        ss = warp_sum(ss);
-        const float mean = s / in;
-        const float var = fmaxf(ss / in - mean * mean, 0.f);
-        const float rstd = rsqrtf(var + kEps);
-        for (int k = lane; k < in; k += 32)
-          h[k] = (h[k] - mean) * rstd * scale[k] + bias[k];
-      }
+      layer_norm_rows<R>(cur, s, in, L.scale, L.bias, nullptr, nullptr,
+                         nullptr, nullptr, 0, stage, kCap);
       __syncthreads();
     }
-
-    if (j == d.n_layers - 1) {
+    if (j == net.n_layers - 1) {
       // Width-1 output layer: one warp per row, a dot product.
-      for (int r = warp; r < kRows; r += kWarps) {
-        const float* h = cur + r * d.stride;
-        float s = 0.f;
-        for (int k = lane; k < in; k += 32) s += h[k] * w[k];
-        s = warp_sum(s);
-        const long long row = row0 + r;
-        if (lane == 0 && row < n_rows) out[row] = s + b[0];
+      const float* w = stage_vector<R>(L.w, in, stage, kCap);
+      for (int r = warp; r < R; r += Tile<R>::kWarps) {
+        const float* h = cur + r * s;
+        float acc = 0.f;
+#pragma unroll 4
+        for (int k = lane; k < in; k += 32) acc += h[k] * w[k];
+        acc = warp_sum(acc);
+        if (lane == 0 && r < valid) out[row0 + r] = acc + L.b[0];
       }
       return;
     }
-
-    // Hidden layer: thread (rg, cl) owns rows rg*8 .. rg*8+7 and columns
-    // c0 + cl + 64*c, c = 0..3, of each 256-column pass.
-    const int rg = tid / kColLanes, cl = tid % kColLanes;
-    const float* hrow = cur + rg * kRowsPerThread * d.stride;
-    for (int c0 = 0; c0 < width; c0 += kColsPerPass) {
-      int col[kColsPerThread];
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c)
-        col[c] = c0 + cl + c * kColLanes;
-      float acc[kRowsPerThread][kColsPerThread] = {};
-      int k = 0;
-      if ((in & 3) == 0) {
-        // Rows are 16-byte aligned (stride % 4 == 0): read h four k at a time.
-        for (; k < in; k += 4) {
-          float4 hv[kRowsPerThread];
-#pragma unroll
-          for (int i = 0; i < kRowsPerThread; ++i)
-            hv[i] = *reinterpret_cast<const float4*>(hrow + i * d.stride + k);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const float* wk = w + static_cast<size_t>(k + kk) * width;
-            float wv[kColsPerThread];
-#pragma unroll
-            for (int c = 0; c < kColsPerThread; ++c)
-              wv[c] = col[c] < width ? __ldg(wk + col[c]) : 0.f;
-#pragma unroll
-            for (int i = 0; i < kRowsPerThread; ++i) {
-              const float hk = component(hv[i], kk);
-#pragma unroll
-              for (int c = 0; c < kColsPerThread; ++c)
-                acc[i][c] = fmaf(hk, wv[c], acc[i][c]);
-            }
-          }
-        }
-      }
-      for (; k < in; ++k) {
-        const float* wk = w + static_cast<size_t>(k) * width;
-        float wv[kColsPerThread];
-#pragma unroll
-        for (int c = 0; c < kColsPerThread; ++c)
-          wv[c] = col[c] < width ? __ldg(wk + col[c]) : 0.f;
-#pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) {
-          const float hk = hrow[i * d.stride + k];
-#pragma unroll
-          for (int c = 0; c < kColsPerThread; ++c)
-            acc[i][c] = fmaf(hk, wv[c], acc[i][c]);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c) {
-        if (col[c] >= width) continue;
-        const float bc = b[col[c]];
-#pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i)
-          nxt[(rg * kRowsPerThread + i) * d.stride + col[c]] =
-              activate(acc[i][c] + bc, act);
-      }
-    }
+    block_gemm<R, false>(cur, s, in, L.w, in, width, stage,
+                         smem + sm.buf_off[(j + 1) % 2],
+                         sm.stride[(j + 1) % 2], L.b, act);
     __syncthreads();
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
   }
 }
 
-bool make_dims(const int* widths, int n_layers, Dims* d) {
-  if (n_layers < 1 || n_layers > kMaxLayers) return false;
-  d->n_layers = n_layers;
-  int max_width = 0;
-  for (int j = 0; j <= n_layers; ++j) {
-    if (widths[j] < 1) return false;
-    d->width[j] = widths[j];
-    max_width = widths[j] > max_width ? widths[j] : max_width;
-  }
-  d->stride = (max_width + 3) & ~3;
-  return true;
+template <int R>
+int launch(const float* x, float* out, int n_rows, const Net& net, int act,
+           int use_norm, cudaStream_t stream) {
+  const Smem sm = smem_layout<R>(net, false);
+  const size_t bytes = static_cast<size_t>(sm.total) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_fwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>((n_rows + R - 1) / R);
+  mlp_fwd_kernel<R><<<grid, Tile<R>::kThreads, bytes, stream>>>(x, out, n_rows, net,
+                                                       sm, act, use_norm);
+  return cudaGetLastError();
 }
 
-size_t smem_bytes(const Dims& d) {
-  return 2ull * kRows * d.stride * sizeof(float);
+long long smem_bytes(const Net& net, int rows) {
+  switch (rows) {
+    case 16: return smem_layout<16>(net, false).total * 4LL;
+    case 32: return smem_layout<32>(net, false).total * 4LL;
+    case 64: return smem_layout<64>(net, false).total * 4LL;
+    default: return 0;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory the kernel needs for these widths (0 if invalid).
-long long ultra_mlp_fwd_smem_bytes(const int* widths, int n_layers) {
-  Dims d;
-  return make_dims(widths, n_layers, &d) ? static_cast<long long>(smem_bytes(d))
-                                         : 0;
+// Dynamic shared memory a block of `rows` rows (16, 32 or 64) needs for
+// these widths; 0 if the widths or rows are invalid.
+long long ultra_mlp_fwd_smem_bytes(const int* widths, int n_layers,
+                                   int rows) {
+  Net net;
+  const void* none[4 * kMaxLayers] = {};
+  return make_net(widths, n_layers, none, &net) ? smem_bytes(net, rows) : 0;
 }
 
 int ultra_mlp_fwd_max_layers() { return kMaxLayers; }
@@ -240,24 +145,22 @@ const char* ultra_cuda_error_string(int err) {
 }
 
 // Scores n_rows rows of x [n_rows, widths[0]] into out [n_rows] on
-// `stream`. widths (host memory) holds n_layers + 1 entries, the last 1.
-// Returns cudaGetLastError() after the launch.
-int ultra_mlp_fwd(const float* x, const float* params, float* out,
-                  int n_rows, const int* widths, int n_layers, int act,
-                  int use_norm, void* stream) {
-  Dims d;
-  if (!make_dims(widths, n_layers, &d) || widths[n_layers] != 1 ||
-      n_rows < 1)
+// `stream`, `rows` rows a block. widths (host memory) holds n_layers + 1
+// entries, the last 1; params (host memory) the 4 * n_layers device
+// pointers. Returns cudaGetLastError() after the launch.
+int ultra_mlp_fwd(const float* x, const void* const* params, float* out,
+                  int n_rows, const int* widths, int n_layers, int rows,
+                  int act, int use_norm, void* stream) {
+  Net net;
+  if (!make_net(widths, n_layers, params, &net) || n_rows < 1)
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const unsigned grid = static_cast<unsigned>((n_rows + kRows - 1) / kRows);
-  mlp_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, params, out, n_rows, d, act, use_norm);
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rows) {
+    case 16: return launch<16>(x, out, n_rows, net, act, use_norm, s);
+    case 32: return launch<32>(x, out, n_rows, net, act, use_norm, s);
+    case 64: return launch<64>(x, out, n_rows, net, act, use_norm, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -7,7 +7,11 @@ Port of the TPU kernels ``_kernel`` (K1) and ``_bwd_kernel`` (K2) of
 features through the whole layer chain, LayerNorm -> Linear -> activation
 per layer, keeping each row tile's activations in shared memory. K2
 (``csrc/mlp_bwd.cu``) recomputes that forward per row tile and
-backpropagates through it, in two deterministic phases.
+backpropagates through it, in deterministic phases. Both run their
+products on the tensor cores at float32 accuracy (3xTF32,
+``csrc/mlp_common.cuh``) and read the parameters where PyTorch keeps them
+(``nn.Linear``'s ``[out, in]`` weight included), so nothing is repacked
+after an optimizer step.
 
 :func:`fused_mlp_score` keeps the JAX signature and is differentiable: it
 applies :class:`FusedMLP`, a ``torch.autograd.Function`` whose forward is
@@ -23,18 +27,24 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
-from torch import nn
 
 from ultra_pytorch_tpu_torch.models.base import ACTIVATIONS, normalize_f32
 from ultra_pytorch_tpu_torch.ops.kernels import build
 
-# The kernels' activation codes (``activate`` in csrc/mlp_fwd.cu and
-# csrc/mlp_bwd.cu).
+# The kernels' activation codes (``activate`` in csrc/mlp_common.cuh).
 ACTIVATION_CODES = {"elu": 0, "relu": 1, "selu": 2, "tanh": 3, "sigmoid": 4}
 SMEM_LIMIT = 232_448  # dynamic shared memory one Hopper block can have
+ROWS_PER_BLOCK = (64, 32, 16)  # K1/K2 row-tile instances, largest first
+DW_TILE = 64  # K2's dW tile (csrc/mlp_bwd.cu kTo, kTi)
+DW_ROWS = 32  # K2's rows of N a dW stage (csrc/mlp_bwd.cu kKr)
+# dW blocks per SM (four 128-thread blocks of 55 KB fit one): at 2,560
+# rows K2's dW kernel took 0.0382 ms with four, 0.0444 with two and 0.0372
+# with eight (torch_mlp_probe.py on an H100 at 700 W); four keeps
+# the partials that its last kernel sums fewer.
+DW_BLOCKS_PER_SM = 4
 SOURCE = build.CSRC_DIR / "mlp_fwd.cu"
 BWD_SOURCE = build.CSRC_DIR / "mlp_bwd.cu"
 
@@ -103,34 +113,36 @@ def _load(name: str, source):
     return lib, built
 
 
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib, built = _load("mlp_fwd", SOURCE)
     lib.ultra_mlp_fwd.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
-    lib.ultra_mlp_fwd.restype = ctypes.c_int
-    lib.ultra_mlp_fwd_smem_bytes.argtypes = [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-    lib.ultra_mlp_fwd_smem_bytes.restype = ctypes.c_longlong
+        _PTR, ctypes.POINTER(_PTR), _PTR, _I32, ctypes.POINTER(_I32), _I32,
+        _I32, _I32, _I32, _PTR]
+    lib.ultra_mlp_fwd.restype = _I32
+    lib.ultra_mlp_fwd_smem_bytes.argtypes = [ctypes.POINTER(_I32), _I32,
+                                             _I32]
+    lib.ultra_mlp_fwd_smem_bytes.restype = _I64
     lib.ultra_mlp_fwd_max_layers.argtypes = []
-    lib.ultra_mlp_fwd_max_layers.restype = ctypes.c_int
+    lib.ultra_mlp_fwd_max_layers.restype = _I32
     return lib, built
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_library():
     lib, built = _load("mlp_bwd", BWD_SOURCE)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ultra_mlp_bwd.argtypes = [ptr] * 8 + [
-        i32, ctypes.POINTER(i32), i32, i32, i32, ptr]
-    lib.ultra_mlp_bwd.restype = i32
+    lib.ultra_mlp_bwd.argtypes = [
+        _PTR, _PTR, ctypes.POINTER(_PTR)] + [_PTR] * 5 + [
+        _I32, ctypes.POINTER(_I32)] + [_I32] * 5 + [_PTR]
+    lib.ultra_mlp_bwd.restype = _I32
     lib.ultra_mlp_bwd_workspace.argtypes = [
-        ctypes.POINTER(i32), i32, i32] + [ctypes.POINTER(ctypes.c_longlong)] * 3
-    lib.ultra_mlp_bwd_workspace.restype = i32
+        ctypes.POINTER(_I32)] + [_I32] * 4 + [ctypes.POINTER(_I64)] * 4
+    lib.ultra_mlp_bwd_workspace.restype = _I32
     lib.ultra_mlp_bwd_max_layers.argtypes = []
-    lib.ultra_mlp_bwd_max_layers.restype = i32
+    lib.ultra_mlp_bwd_max_layers.restype = _I32
     return lib, built
 
 
@@ -144,40 +156,81 @@ def build_backward_kernel() -> build.BuiltLibrary:
     return _bwd_library()[1]
 
 
-def _cached(layers: nn.ModuleList, attr: str, make) -> torch.Tensor:
-    """`make()` cached on `layers` under `attr` until a parameter changes
-    (another tensor or an in-place update). Inference tensors keep no
-    version counter, so parameters created under ``inference_mode`` are
-    packed anew on every call."""
-    params = _flat_params(layers)
-    cacheable = not any(p.is_inference() for p in params)
-    key = cacheable and tuple((p.data_ptr(), p._version) for p in params)
-    cached = getattr(layers, attr, None)
-    if cacheable and cached is not None and cached[0] == key:
-        return cached[1]
-    with torch.no_grad():
-        buf = make().contiguous()
-    if cacheable:
-        setattr(layers, attr, (key, buf))
-    return buf
+def rows_per_block(n_rows: int, n_sms: int,
+                   smem_of: Callable[[int], int]) -> int:
+    """Rows one K1/K2 block takes (a template instance of the kernels): of
+    the ``ROWS_PER_BLOCK`` whose shared memory ``smem_of(rows)`` fits, the
+    one that leaves the busiest SM the fewest rows (rows times its waves
+    of blocks), the larger on a tie, since a larger tile shares each staged
+    weight among more rows. On an H100 (torch_mlp_probe.py) it picked the
+    fastest tile at 128, 1,000, 2,560 and 32,768 rows: at 128 and 1,000
+    rows 16-row tiles ran K1 3-9% and K2 6-7% faster than 32-row ones."""
+    fitting = [r for r in ROWS_PER_BLOCK if 0 < smem_of(r) <= SMEM_LIMIT]
+    if not fitting:
+        least = ROWS_PER_BLOCK[-1]
+        raise ValueError(f"{least} rows a block need {smem_of(least)} B of "
+                         f"shared memory, more than the {SMEM_LIMIT} B a "
+                         "block has")
+
+    def busiest(rows):
+        return rows * -(-(-(-n_rows // rows)) // n_sms)
+
+    return min(fitting, key=lambda rows: (busiest(rows), -rows))
 
 
-def _packed(layers: nn.ModuleList) -> torch.Tensor:
-    """The parameters as one contiguous buffer, per layer ``[scale, bias,
-    W as [in, out], b]``, the layout K1 and K2 read and K2's gradients
-    are written in."""
-    return _cached(layers, "_k1_packed", lambda: torch.cat([
-        t.detach().float().reshape(-1)
-        for scale, bias, w, b in _layer_params(layers)
-        for t in (scale, bias, w.t(), b)]))
+def dw_tiles(widths: Sequence[int]) -> int:
+    """K2's dW tiles: ``DW_TILE`` x ``DW_TILE`` blocks of every layer's
+    ``[out, in]`` gradient."""
+    return sum(-(-d_out // DW_TILE) * -(-d_in // DW_TILE)
+               for d_in, d_out in zip(widths[:-1], widths[1:]))
 
 
-def _packed_wt(layers: nn.ModuleList) -> torch.Tensor:
-    """Each layer's W as ``[out, in]`` (``nn.Linear``'s own layout), one
-    after the other: K2 reads it for ``dz @ W^T``."""
-    return _cached(layers, "_k2_wt", lambda: torch.cat([
-        layer.linear.weight.detach().float().reshape(-1)
-        for layer in layers]))
+def dw_chunks(n_rows: int, widths: Sequence[int], n_sms: int,
+              per_sm: int = DW_BLOCKS_PER_SM) -> int:
+    """Row chunks of K2's dW phase: enough that tiles x chunks make
+    `per_sm` blocks per SM, and no chunk shorter than one ``DW_ROWS``
+    stage."""
+    want = -(-per_sm * n_sms // dw_tiles(widths))
+    return max(1, min(want, -(-n_rows // DW_ROWS)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _param_pointers(layers, device: torch.device) -> List[int]:
+    """The device addresses the kernels read, per layer ``[LayerNorm scale,
+    LayerNorm bias, W [out, in], b]``: the parameters themselves, never a
+    copy, so an optimizer step needs no repacking."""
+    ptrs = []
+    for p in _flat_params(layers):
+        if (p.device != device or p.dtype != torch.float32
+                or not p.is_contiguous()):
+            raise ValueError(f"parameter {tuple(p.shape)} must be contiguous "
+                             f"float32 on {device}, got {p.dtype} on "
+                             f"{p.device}")
+        ptrs.append(p.data_ptr())
+    return ptrs
+
+
+def grad_views(dparams: torch.Tensor, widths: Sequence[int]
+               ) -> List[torch.Tensor]:
+    """K2's gradient buffer, per layer ``[dscale (in), dbias (in), dW (out x
+    in), db (out)]``, as one tensor per parameter in ``_flat_params`` order
+    and ``nn.Linear``'s layouts."""
+    grads, off = [], 0
+    for d_in, d_out in zip(widths[:-1], widths[1:]):
+        sizes = (d_in, d_in, d_in * d_out, d_out)
+        dscale, dbias, dw, db = torch.split(dparams[off: off + sum(sizes)],
+                                            sizes)
+        grads += [dscale, dbias, dw.view(d_out, d_in), db]
+        off += sum(sizes)
+    return grads
+
+
+def _c_ints(values):
+    return (_I32 * len(values))(*values)
 
 
 def _check_launch(lib, err: int, what: str) -> None:
@@ -187,49 +240,98 @@ def _check_launch(lib, err: int, what: str) -> None:
                            f"(CUDA error {err})")
 
 
-def mlp_forward(layers, x: torch.Tensor, activation: str,
-                use_norm: bool) -> torch.Tensor:
+def _check_layers(lib_max: int, n_layers: int) -> None:
+    if n_layers > lib_max:
+        raise ValueError(f"{n_layers} layers exceed the kernel's {lib_max}")
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_plan(widths: Tuple[int, ...], n: int, n_sms: int,
+              rows: Optional[int] = None):
+    """(rows a block, widths as C ints) of K1 for `n` rows: pure in its
+    arguments, so chosen once per shape and not on every call. `rows`
+    forces a tile instance instead of ``rows_per_block``'s choice."""
+    lib, _ = _library()
+    n_layers = len(widths) - 1
+    _check_layers(lib.ultra_mlp_fwd_max_layers(), n_layers)
+    c_widths = _c_ints(widths)
+    if rows is None:
+        rows = rows_per_block(n, n_sms, lambda r: lib.ultra_mlp_fwd_smem_bytes(
+            c_widths, n_layers, r))
+    elif rows not in ROWS_PER_BLOCK:
+        raise ValueError(f"no K1 instance of {rows} rows a block")
+    return rows, c_widths
+
+
+def mlp_forward(layers, x: torch.Tensor, activation: str, use_norm: bool,
+                _rows: Optional[int] = None) -> torch.Tensor:
     """K1's wrapper: ``[N, F]`` float32 rows -> ``[N]`` scores. A CPU tensor
-    runs the plain version; a CUDA tensor launches K1."""
+    runs the plain version; a CUDA tensor launches K1. `_rows` forces its
+    tile size (for measurements)."""
     if x.device.type == "cpu":
         return _chain(x, _flat_params(layers), activation, use_norm)
     if x.device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("features must be contiguous")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("features must be contiguous float32")
     lib, _ = _library()
-    widths = _widths(layers)
-    n_layers = len(layers)
-    c_widths = (ctypes.c_int * len(widths))(*widths)
-    if n_layers > lib.ultra_mlp_fwd_max_layers():
-        raise ValueError(f"{n_layers} layers exceed the kernel's "
-                         f"{lib.ultra_mlp_fwd_max_layers()}")
-    smem = lib.ultra_mlp_fwd_smem_bytes(c_widths, n_layers)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"widths {list(widths)} need {smem} B of shared "
-                         f"memory, more than the {SMEM_LIMIT} B a block has")
-    params = _packed(layers)
-    if params.device != x.device:
-        raise ValueError(f"parameters on {params.device}, features on "
-                         f"{x.device}")
-    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
-    if x.shape[0]:
+    n = x.shape[0]
+    ptrs = _param_pointers(layers, x.device)
+    out = torch.empty(n, dtype=torch.float32, device=x.device)
+    if n:
+        rows, c_widths = _fwd_plan(_widths(layers), n, _sm_count(x.device),
+                                   _rows)
         with torch.cuda.device(x.device):
             err = lib.ultra_mlp_fwd(
-                x.data_ptr(), params.data_ptr(), out.data_ptr(), x.shape[0],
-                c_widths, n_layers, ACTIVATION_CODES[activation],
+                x.data_ptr(), (_PTR * len(ptrs))(*ptrs), out.data_ptr(), n,
+                c_widths, len(layers), rows, ACTIVATION_CODES[activation],
                 int(use_norm), torch.cuda.current_stream().cuda_stream)
         _check_launch(lib, err, "K1")
         fused_mlp_score.launches += 1
     return out
 
 
+def _bwd_workspace(lib, c_widths, n_layers: int, n: int, rows: int,
+                   chunks: int):
+    """(scratch, partial, dW-partial floats, shared-memory bytes) of K2, or
+    None for rows it has no instance of."""
+    sizes = [_I64() for _ in range(4)]
+    if lib.ultra_mlp_bwd_workspace(c_widths, n_layers, n, rows, chunks,
+                                   *map(ctypes.byref, sizes)) != 0:
+        return None
+    return tuple(s.value for s in sizes)
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan(widths: Tuple[int, ...], n: int, n_sms: int,
+              rows: Optional[int] = None,
+              dw_per_sm: int = DW_BLOCKS_PER_SM):
+    """(rows a block, dW chunks, (scratch, partial, dW-partial floats),
+    widths as C ints) of K2 for `n` rows, chosen once per shape. `rows`
+    forces a tile instance instead of ``rows_per_block``'s choice."""
+    lib, _ = _bwd_library()
+    n_layers = len(widths) - 1
+    _check_layers(lib.ultra_mlp_bwd_max_layers(), n_layers)
+    c_widths = _c_ints(widths)
+    chunks = dw_chunks(n, widths, n_sms, dw_per_sm)
+    if rows is None:
+        rows = rows_per_block(n, n_sms, lambda r: (_bwd_workspace(
+            lib, c_widths, n_layers, n, r, chunks) or (0,) * 4)[3])
+    elif rows not in ROWS_PER_BLOCK:
+        raise ValueError(f"no K2 instance of {rows} rows a block")
+    sizes = _bwd_workspace(lib, c_widths, n_layers, n, rows, chunks)[:3]
+    return rows, chunks, sizes, c_widths
+
+
 def mlp_backward(layers, x: torch.Tensor, g: torch.Tensor, activation: str,
-                 use_norm: bool) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+                 use_norm: bool, _rows: Optional[int] = None,
+                 _dw_per_sm: int = DW_BLOCKS_PER_SM
+                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """K2's wrapper: ``dx [N, F]`` and the parameter gradients (in
     ``_flat_params`` order, ``nn.Linear`` layouts) for the scores'
     cotangent ``g [N]``. A CPU tensor runs the plain version; a CUDA
-    tensor launches K2."""
+    tensor launches K2. `_rows` forces its tile size and `_dw_per_sm` its
+    dW blocks per SM (for measurements)."""
     if x.device.type == "cpu":
         return mlp_backward_reference(layers, x, g, activation, use_norm)
     if x.device.type != "cuda":
@@ -238,50 +340,32 @@ def mlp_backward(layers, x: torch.Tensor, g: torch.Tensor, activation: str,
         raise ValueError("features must be contiguous float32")
     lib, _ = _bwd_library()
     widths = _widths(layers)
-    n_layers, n = len(layers), x.shape[0]
-    if n_layers > lib.ultra_mlp_bwd_max_layers():
-        raise ValueError(f"{n_layers} layers exceed the kernel's "
-                         f"{lib.ultra_mlp_bwd_max_layers()}")
-    c_widths = (ctypes.c_int * len(widths))(*widths)
-    sizes = [ctypes.c_longlong() for _ in range(3)]
-    if lib.ultra_mlp_bwd_workspace(c_widths, n_layers, n,
-                                   *map(ctypes.byref, sizes)) != 0:
-        raise ValueError(f"K2 does not take the widths {list(widths)}")
-    scratch_floats, partial_floats, smem = (s.value for s in sizes)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"widths {list(widths)} need {smem} B of shared "
-                         f"memory, more than the {SMEM_LIMIT} B a block has")
-    params, wt = _packed(layers), _packed_wt(layers)
+    n = x.shape[0]
+    ptrs = _param_pointers(layers, x.device)
     g = g.reshape(-1).float().contiguous()
-    if params.device != x.device or g.device != x.device:
-        raise ValueError(f"parameters on {params.device}, features on "
-                         f"{x.device}, cotangent on {g.device}")
-    dparams = torch.empty_like(params)
+    if g.device != x.device:
+        raise ValueError(f"features on {x.device}, cotangent on {g.device}")
+    dparams = torch.empty(sum(p.numel() for p in _flat_params(layers)),
+                          dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     if n:
-        scratch = torch.empty(scratch_floats, dtype=torch.float32,
-                              device=x.device)
-        partials = torch.empty(partial_floats, dtype=torch.float32,
-                               device=x.device)
+        rows, chunks, sizes, c_widths = _bwd_plan(
+            widths, n, _sm_count(x.device), _rows, _dw_per_sm)
+        scratch, partials, dw_part = (
+            torch.empty(size, dtype=torch.float32, device=x.device)
+            for size in sizes)
         with torch.cuda.device(x.device):
             err = lib.ultra_mlp_bwd(
-                x.data_ptr(), g.data_ptr(), params.data_ptr(), wt.data_ptr(),
+                x.data_ptr(), g.data_ptr(), (_PTR * len(ptrs))(*ptrs),
                 dx.data_ptr(), dparams.data_ptr(), scratch.data_ptr(),
-                partials.data_ptr(), n, c_widths, n_layers,
-                ACTIVATION_CODES[activation], int(use_norm),
-                torch.cuda.current_stream().cuda_stream)
+                partials.data_ptr(), dw_part.data_ptr(), n, c_widths,
+                len(layers), rows, chunks, ACTIVATION_CODES[activation],
+                int(use_norm), torch.cuda.current_stream().cuda_stream)
         _check_launch(lib, err, "K2")
         mlp_backward.launches += 1
     else:
         dparams.zero_()
-    grads, off = [], 0
-    for d_in, d_out in zip(widths[:-1], widths[1:]):
-        sizes = (d_in, d_in, d_in * d_out, d_out)
-        dscale, dbias, dw, db = torch.split(dparams[off: off + sum(sizes)],
-                                            sizes)
-        grads += [dscale, dbias, dw.view(d_in, d_out).t(), db]
-        off += sum(sizes)
-    return dx, grads
+    return dx, grad_views(dparams, widths)
 
 
 mlp_backward.launches = 0  # kernel launches, for run-time evidence
@@ -289,7 +373,7 @@ mlp_backward.launches = 0  # kernel launches, for run-time evidence
 
 class FusedMLP(torch.autograd.Function):
     """K1 forward, K2 backward. Inputs: ``x [N, F]``, the DNN's ``layers``
-    (for the packed-parameter cache), the activation, ``use_norm``, then
+    (whose parameters the kernels read), the activation, ``use_norm``, then
     the flat parameter tensors that autograd differentiates."""
 
     @staticmethod
