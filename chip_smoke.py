@@ -17,10 +17,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at 32,768 rows (64-row tiles), 2,560 (a training step, 32-row tiles)
    and 1,000 (a ragged tile);
    K2 at N = 2,560 (a training step), 1,000 (a ragged tile) and 32,768
-   (many blocks), bit-for-bit deterministic; K3/K4 at [256, 10] and
-   [1024, 200] with masked lists and zero-denominator lists; K5 exactly
-   equal to its plain version, and its per-position click rates within
-   4 sigma of exam * click_prob.
+   (many blocks), bit-for-bit deterministic; K3/K4 at [256, 10] (one
+   block), [1024, 200] and [16384, 10] (many blocks) and [64, 1300]
+   (lists read in chunks) with masked lists and zero-denominator lists,
+   K3's residual against its plain version, the same bits on a rerun, a
+   stride-0 broadcast and column-sliced rows bit-identical to their
+   contiguous copies; K5 exactly equal to its plain version, and its
+   per-position click rates within 4 sigma of exam * click_prob.
 4. Serving: a seeded full-width DNN written as a checkpoint, loaded by
    ``Scorer.from_checkpoint`` (auto mode, so K1), served over HTTP through
    a ``MicroBatcher``; every reply checked against the plain version, and
@@ -50,7 +53,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 9. Kernel timing at the training shapes: K2-K5, their plain versions and
    the library calls (K2: forward and backward of the library chain by
    autograd; K5: ``torch.bernoulli``), with the least time the card could
-   take (K2 at 3xTF32, K3-K5 at float32 on CUDA cores).
+   take (K2 at 3xTF32, K3-K5 at float32 on CUDA cores). K3/K4 also at
+   [16384, 10], beside the launch floor (a one-element ``zero_()``) and,
+   for K3, ``F.cross_entropy`` on precomputed inputs as a yardstick.
 10. Kernels: one JSON line listing K1-K5, then the result line.
 
 The last line of standard output is
@@ -398,38 +403,85 @@ def loss_inputs(batch, length, gen, dev):
     return [t.to(dev) for t in (s, y, w, m)]
 
 
+LOSS_SHAPES = ((BATCH, LIST), (1024, 200), (16384, 10), (64, 1300))
+
+
 def phase_loss_parity(gen, dev):
+    """K3/K4 against softmax_loss and its autograd gradient: one block
+    ([256, 10]), many blocks ([1024, 200], [16384, 10]) and lists read in
+    chunks ([64, 1300]); K3's residual against its plain version; the same
+    bits on a rerun; a stride-0 broadcast and column slices equal to their
+    contiguous copies; an all-masked batch is 0."""
     from ultra_pytorch_tpu_torch.ops import losses
     from ultra_pytorch_tpu_torch.ops.kernels import listwise_loss as ll
 
     worst = 0.0
-    for batch, length in ((BATCH, LIST), (1024, 200)):
+    g = torch.tensor(2.5, device=dev)
+    for batch, length in LOSS_SHAPES:
         s, y, w, m = loss_inputs(batch, length, gen, dev)
         sr = s.clone().requires_grad_(True)
         ref = losses.softmax_loss(sr, y, w, m)
         (ref_ds,) = torch.autograd.grad(2.5 * ref, sr)
-        got = ll.listwise_loss_forward(s, y, w, m)
-        ds = ll.listwise_loss_backward(s, y, w, m,
-                                       torch.tensor(2.5, device=dev))
+        ref_stats = ll.listwise_loss_stats_reference(s, y, w, m)
+        got, stats = ll.listwise_loss_forward(s, y, w, m, return_stats=True)
+        ds = ll.listwise_loss_backward(s, y, w, m, g, stats)
+        again, again_stats = ll.listwise_loss_forward(s, y, w, m,
+                                                      return_stats=True)
+        again_ds = ll.listwise_loss_backward(s, y, w, m, g, again_stats)
         torch.cuda.synchronize()
         loss_err = abs(got.item() - ref.item())
         ds_err, ds_rel = max_rel_err(ds, ref_ds)
+        valid = m.sum(1) > 0   # a fully masked list's log_z is -1e9 + log L
+        stat_rel = max(max_rel_err(stats.denom, ref_stats.denom)[1],
+                       max_rel_err(stats.log_z[valid],
+                                   ref_stats.log_z[valid])[1],
+                       max_rel_err(stats.total, ref_stats.total)[1])
         worst = max(worst, loss_err, ds_err)
-        print(f"[parity] K3 [{batch}, {length}]: loss {got.item():.6f} vs "
-              f"{ref.item():.6f} (abs err {loss_err:.3e}); K4: max abs "
-              f"{ds_err:.3e}, {ds_rel:.3e} of the largest (limit "
-              f"{LOSS_TOL})", flush=True)
+        geo = ll.launch_geometry(batch, length, ll.K3_THREADS)
+        k4_geo = ll.launch_geometry(batch, length, ll.K4_THREADS)
+        print(f"[parity] K3 [{batch}, {length}] ({geo.lanes} lanes a list, "
+              f"{geo.chunks} chunk(s), {geo.blocks} block(s) of "
+              f"{geo.threads}; K4 {k4_geo.blocks} of {k4_geo.threads}): loss {got.item():.6f} vs {ref.item():.6f} "
+              f"(abs err {loss_err:.3e}); residual {stat_rel:.3e} of the "
+              f"largest; K4: max abs {ds_err:.3e}, {ds_rel:.3e} of the "
+              f"largest (limit {LOSS_TOL}); rerun bit-identical", flush=True)
         check(loss_err <= LOSS_TOL * abs(ref.item()) + 1e-6,
               f"K3 [{batch}, {length}] disagrees with softmax_loss")
+        check(stat_rel <= LOSS_TOL, f"K3 [{batch}, {length}]: its residual "
+              "disagrees with listwise_loss_stats_reference")
         check(ds_rel <= LOSS_TOL, f"K4 [{batch}, {length}] disagrees with "
               "the gradient of softmax_loss")
         check(not ds[0].any() and not ds[1].any(),
               "K4: a masked or zero-denominator list took a gradient")
+        check(torch.equal(got, again) and torch.equal(ds, again_ds)
+              and torch.equal(stats.buffer, again_stats.buffer),
+              f"K3/K4 [{batch}, {length}]: a rerun gave other bits")
     zero = torch.zeros_like(s)
-    check(ll.listwise_loss_forward(s, y, w, zero).item() == 0.0
-          and not ll.listwise_loss_backward(
-              s, y, w, zero, torch.tensor(1.0, device=dev)).any(),
-          "K3/K4: an all-masked batch is not 0")
+    loss, stats = ll.listwise_loss_forward(s, y, w, zero, return_stats=True)
+    check(loss.item() == 0.0 and not ll.listwise_loss_backward(
+        s, y, w, zero, torch.tensor(1.0, device=dev), stats).any(),
+        "K3/K4: an all-masked batch is not 0")
+
+    # DLA's propensity logits (one row broadcast with stride 0) and a
+    # train_slice view (the first LIST columns of wider rows) go in as
+    # they lie and give the bits of their contiguous copies.
+    s, y, w, m = loss_inputs(BATCH, 2 * LIST, gen, dev)
+    row = torch.randn(LIST, generator=gen).to(dev)
+    cut = [t[:, :LIST] for t in (s, y, w, m)]
+    for name, args in (("stride-0 scores", [row[None].expand(BATCH, LIST)]
+                        + cut[1:]), ("column-sliced rows", cut)):
+        dense = [a.contiguous() for a in args]
+        got, stats = ll.listwise_loss_forward(*args, return_stats=True)
+        want, want_stats = ll.listwise_loss_forward(*dense, return_stats=True)
+        ds = ll.listwise_loss_backward(*args, g, stats)
+        want_ds = ll.listwise_loss_backward(*dense, g, want_stats)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want) and torch.equal(ds, want_ds)
+              and torch.equal(stats.buffer, want_stats.buffer),
+              f"K3/K4 on {name} differ from their contiguous copy")
+        print(f"[parity] K3/K4 {name} (strides {args[0].stride()}, "
+              f"{args[1].stride()}): bit-identical to contiguous copies",
+              flush=True)
     return worst
 
 
@@ -949,13 +1001,11 @@ def phase_cli(mlp, dev, click_json):
 
 
 def phase_kernel_timing(mlp, gen, dev, pool):
-    """K2-K5 at the training shapes. ``ms``, ``plain_ms`` and
+    """K2 and K5 at the training shapes. ``ms``, ``plain_ms`` and
     ``library_ms`` are device time per call (``graph_ms``); each wrapper's
     back-to-back call time (``time_ms``, which also counts the card waiting
     for the host's next launch) is printed beside them."""
-    from ultra_pytorch_tpu_torch.ops import losses
     from ultra_pytorch_tpu_torch.ops.kernels import click_sim
-    from ultra_pytorch_tpu_torch.ops.kernels import listwise_loss as ll
 
     model = seeded_dnn(HIDDEN, gen, dev)
     n = BATCH * LIST
@@ -964,10 +1014,6 @@ def phase_kernel_timing(mlp, gen, dev, pool):
     k2_ops, k2_bytes = mlp_bwd_work(model, n)
     print(f"[timing] K2 {n} rows: {k2_ops / 1e9:.3f} GFLOP, "
           f"{k2_bytes / 1e6:.3f} MB", flush=True)
-
-    s, y, w, m = loss_inputs(BATCH, LIST, gen, dev)
-    one = torch.tensor(1.0, device=dev)
-    elems = BATCH * LIST
 
     shape = (WINDOW, pool, LIST)
     gen_c = torch.Generator(device=dev).manual_seed(7)
@@ -979,12 +1025,7 @@ def phase_kernel_timing(mlp, gen, dev, pool):
 
     # (kernel call, plain version, library call, operations, bytes, peak
     # of the units that do the operations). K2 multiplies as 3xTF32 on the
-    # tensor cores; K3-K5 run on CUDA cores. K3: per element wl (add, 2
-    # multiplies), the
-    # masked score, max, subtract, exp, sum, the label share (divide), its
-    # log-softmax term (2 subtracts, multiply, add) and the list's weight:
-    # ~15; K4 adds the softmax (exp), the difference and three multiplies:
-    # ~20. K5: Philox4x32-10 is 10 rounds of 2 mul.lo, 2 mul.hi, 4 xor and
+    # tensor cores; K5 runs on CUDA cores. K5: Philox4x32-10 is 10 rounds of 2 mul.lo, 2 mul.hi, 4 xor and
     # 2 key adds per 4 elements (25 an element), then shift, convert,
     # scale, compare and the mask's multiply: ~30 32-bit operations an
     # element, counted at the float32 CUDA-core rate; it reads probs and
@@ -995,12 +1036,6 @@ def phase_kernel_timing(mlp, gen, dev, pool):
                    model.layers, x, g, "elu", True),
                lambda: library_fwd_bwd(model, x, g), k2_ops, k2_bytes,
                PEAK_3XTF32),
-        "K3": (lambda: ll.listwise_loss_forward(s, y, w, m),
-               lambda: losses.softmax_loss(s, y, w, m), None, 15 * elems,
-               16 * elems + 4, PEAK_F32),
-        "K4": (lambda: ll.listwise_loss_backward(s, y, w, m, one),
-               lambda: softmax_grad(losses, s, y, w, m), None, 20 * elems,
-               20 * elems + 4, PEAK_F32),
         "K5": (lambda: click_sim.pbm_clicks(probs, mask, key),
                lambda: click_sim.pbm_clicks_reference(probs, mask, key),
                lambda: torch.bernoulli(probs), 30 * clicks,
@@ -1028,10 +1063,86 @@ def phase_kernel_timing(mlp, gen, dev, pool):
     return rows
 
 
-def softmax_grad(losses, s, y, w, m):
-    """K4's plain version: the gradient of softmax_loss by autograd."""
-    sr = s.detach().requires_grad_(True)
-    return torch.autograd.grad(losses.softmax_loss(sr, y, w, m), sr)[0]
+def loss_work(batch: int, length: int):
+    """(K3 operations, K3 bytes, K4 operations, K4 bytes) at [batch,
+    length]. K3 per element: wl (add, 2 multiplies), the masked score, the
+    running max, exp(s~ - max) (subtract, exp) and its sum, wl * (s~ - max)
+    (fused multiply-add, 2) and the denominator: ~11. K4 per element: wl
+    (3), the masked score, the label share (divide), exp(s~ - log Z)
+    (subtract, exp), the difference and two multiplies: ~10. K3 reads the
+    four inputs and writes the loss and its residual (log Z and denom a
+    list, total); K4 reads the inputs, the residual and g and writes ds."""
+    elems, stats = batch * length, 8 * batch + 4
+    return (11 * elems, 16 * elems + stats + 4, 10 * elems,
+            20 * elems + stats + 4)
+
+
+def phase_loss_timing(gen, dev):
+    """K3 and K4 at the training shape and at [16384, 10] (many blocks):
+    device time a call (``graph_ms``) of the kernel, its plain version and,
+    for K3, ``F.cross_entropy`` on precomputed masked scores and targets
+    wl / total (a yardstick that does less work: the masking, the label
+    weights and the reductions to the residual are done before it);
+    beside them the launch floor, the device time of a one-element
+    ``zero_()``, against which a kernel whose byte bound is nanoseconds is
+    judged."""
+    from ultra_pytorch_tpu_torch.ops import losses
+    from ultra_pytorch_tpu_torch.ops.kernels import listwise_loss as ll
+
+    tiny = torch.empty(1, device=dev)
+    floor_ms = graph_ms(tiny.zero_, 50)
+    print(f"[timing] launch floor: one-element zero_() {floor_ms:.4f} ms "
+          "(device time a call)", flush=True)
+    one = torch.tensor(1.0, device=dev)
+    rows = {}
+    for batch, length in ((BATCH, LIST), (16384, 10)):
+        s, y, w, m = loss_inputs(batch, length, gen, dev)
+        _, stats = ll.listwise_loss_forward(s, y, w, m, return_stats=True)
+        ref_stats = ll.listwise_loss_stats_reference(s, y, w, m)
+        s_masked = torch.where(m > 0, s, torch.full_like(s, -1e9))
+        target = (y + 1e-7) * w * m / ref_stats.total
+        yard = F.cross_entropy(s_masked, target, reduction="sum")
+        check(abs(yard.item() - losses.softmax_loss(s, y, w, m).item())
+              <= 1e-4 * abs(yard.item()), "the K3 yardstick computes "
+              "another loss")
+        k3_ops, k3_bytes, k4_ops, k4_bytes = loss_work(batch, length)
+        cases = {
+            "K3": (lambda: ll.listwise_loss_forward(s, y, w, m,
+                                                    return_stats=True),
+                   lambda: (losses.softmax_loss(s, y, w, m),
+                            ll.listwise_loss_stats_reference(s, y, w, m)),
+                   k3_ops, k3_bytes),
+            "K4": (lambda: ll.listwise_loss_backward(s, y, w, m, one, stats),
+                   lambda: ll.listwise_loss_backward_reference(
+                       s, y, w, m, one, ref_stats), k4_ops, k4_bytes),
+        }
+        calls = 50 if batch == BATCH else 20
+        for name, (fn, plain, n_ops, n_bytes) in cases.items():
+            b_ms, by = bound(n_ops, n_bytes)
+            r = dict(ms=graph_ms(fn, calls), plain_ms=graph_ms(plain, 10),
+                     library_ms=None, bound_ms=b_ms, bound_by=by,
+                     bound_f32_ms=b_ms, floor_ms=floor_ms)
+            if name == "K3":
+                r["yardstick_ms"] = graph_ms(
+                    lambda: F.cross_entropy(s_masked, target,
+                                            reduction="sum"), calls)
+            yard_text = (f", yardstick F.cross_entropy "
+                         f"{r['yardstick_ms']:.4f} ms" if name == "K3"
+                         else "")
+            print(f"[timing] {name} [{batch}, {length}]: kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+                  f"{yard_text} (device time a call) | wrapper call "
+                  f"{time_ms(fn, 100):.4f} ms (back to back) | launch floor "
+                  f"{floor_ms:.4f} ms, kernel {r['ms'] / floor_ms:.2f}x it | "
+                  f"bound {b_ms:.6f} ms ({by}, f32), kernel at "
+                  f"{100 * b_ms / r['ms']:.2f}% of it", flush=True)
+            if batch == BATCH:
+                rows[name] = r
+            else:
+                rows[name]["large"] = dict(shape=[batch, length], **{
+                    k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "yardstick_ms") if k in r})
+    return rows
 
 
 def main() -> int:
@@ -1061,6 +1172,7 @@ def main() -> int:
     counts, pool = phase_training(dev, click_json)
     phase_cli(mlp, dev, click_json)
     timing = phase_kernel_timing(mlp, gen, dev, pool)
+    timing.update(phase_loss_timing(gen, dev))
     timing["K1"] = k1_timing
     counts["K1"] += serving_launches
     sources = {

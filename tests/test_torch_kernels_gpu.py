@@ -170,8 +170,12 @@ def _loss_inputs(batch, length, device, seed):
     return [t.to(device) for t in (s, y, w, m)]
 
 
-@pytest.mark.parametrize("batch,length", [(256, 10), (1024, 200), (3, 1)])
+@pytest.mark.parametrize("batch,length", [(256, 10), (1024, 200), (3, 1),
+                                          (16384, 10), (64, 1300)])
 def test_k3_k4_match_softmax_loss(cuda, batch, length):
+    """One block ([256, 10], [3, 1]), many blocks ([1024, 200], [16384,
+    10]) and lists read in chunks ([64, 1300]); K3's residual against its
+    plain version, and K4 from it against autograd of softmax_loss."""
     s, y, w, m = _loss_inputs(batch, length, cuda, batch + length)
     sr = s.clone().requires_grad_(True)
     ref = losses.softmax_loss(sr, y, w, m)
@@ -181,21 +185,107 @@ def test_k3_k4_match_softmax_loss(cuda, batch, length):
     sk = s.clone().requires_grad_(True)
     got = listwise_loss.fused_softmax_loss(sk, y, w, m)
     (ds,) = torch.autograd.grad(2.5 * got, sk)
+    _, stats = listwise_loss.listwise_loss_forward(s, y, w, m,
+                                                   return_stats=True)
+    ref_stats = listwise_loss.listwise_loss_stats_reference(s, y, w, m)
     torch.cuda.synchronize()
     assert (listwise_loss.listwise_loss_forward.launches,
-            listwise_loss.listwise_loss_backward.launches) == (k3 + 1, k4 + 1)
+            listwise_loss.listwise_loss_backward.launches) == (k3 + 2, k4 + 1)
     torch.testing.assert_close(got, ref.detach(), rtol=1e-5, atol=1e-6)
     _close(ds, ref_ds, 1e-5)
     assert torch.equal(ds[0], torch.zeros_like(ds[0]))
+    assert torch.equal(ds[1], torch.zeros_like(ds[1]))
+    torch.testing.assert_close(stats.total, ref_stats.total, rtol=1e-5,
+                               atol=1e-6)
+    _close(stats.denom, ref_stats.denom, 1e-5)
+    valid = m.sum(1) > 0   # a fully masked list's log_z is -1e9 + log(L)
+    _close(stats.log_z[valid], ref_stats.log_z[valid], 1e-5)
 
 
 def test_k3_all_lists_masked(cuda):
     s, y, w, _ = _loss_inputs(8, 10, cuda, 1)
     m = torch.zeros_like(s)
-    assert listwise_loss.listwise_loss_forward(s, y, w, m).item() == 0.0
+    loss, stats = listwise_loss.listwise_loss_forward(s, y, w, m,
+                                                      return_stats=True)
+    assert loss.item() == 0.0
     g = torch.ones((), device=cuda)
-    assert torch.equal(listwise_loss.listwise_loss_backward(s, y, w, m, g),
-                       torch.zeros_like(s))
+    assert torch.equal(
+        listwise_loss.listwise_loss_backward(s, y, w, m, g, stats),
+        torch.zeros_like(s))
+
+
+@pytest.mark.parametrize("batch,length", [(16384, 10), (64, 1300)])
+def test_k3_k4_rerun_gives_the_same_bits(cuda, batch, length):
+    """Many blocks: the last block adds the partials in block order, so the
+    loss does not depend on which block finishes last."""
+    s, y, w, m = _loss_inputs(batch, length, cuda, 7)
+    g = torch.tensor(1.5, device=cuda)
+    runs = []
+    for _ in range(3):
+        loss, stats = listwise_loss.listwise_loss_forward(s, y, w, m,
+                                                          return_stats=True)
+        ds = listwise_loss.listwise_loss_backward(s, y, w, m, g, stats)
+        runs.append([loss.clone(), stats.buffer.clone(), ds])
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+
+
+def test_k3_k4_take_strided_inputs_as_they_lie(cuda):
+    """A stride-0 broadcast of one row (DLA's propensity logits) and column
+    slices of wider rows (``train_slice``) give the bits of their
+    contiguous copies, with no copy made (the launch reads their own
+    storage)."""
+    batch, length = 300, 10
+    s, y, w, m = _loss_inputs(batch, 2 * length, cuda, 11)
+    row = torch.randn(length, generator=torch.Generator().manual_seed(2))
+    views = {"expanded scores": (row.to(cuda)[None, :].expand(batch, length),
+                                 y[:, :length], w[:, :length],
+                                 m[:, :length]),
+             "sliced rows": (s[:, :length], y[:, :length], w[:, :length],
+                             m[:, :length])}
+    g = torch.tensor(0.7, device=cuda)
+    for name, args in views.items():
+        assert args[0].stride(1) == 1 and not args[1].is_contiguous()
+        dense = [a.contiguous() for a in args]
+        loss, stats = listwise_loss.listwise_loss_forward(*args,
+                                                          return_stats=True)
+        want, want_stats = listwise_loss.listwise_loss_forward(
+            *dense, return_stats=True)
+        ds = listwise_loss.listwise_loss_backward(*args, g, stats)
+        want_ds = listwise_loss.listwise_loss_backward(*dense, g, want_stats)
+        torch.cuda.synchronize()
+        assert torch.equal(loss, want), name
+        assert torch.equal(stats.buffer, want_stats.buffer), name
+        assert torch.equal(ds, want_ds), name
+    for args in views.values():
+        alive, _ = listwise_loss._checked(*args)
+        assert all(a is b for a, b in zip(alive, args))
+
+
+def test_k4_from_the_plain_residual(cuda):
+    """K4 alone: fed its plain version's residual, it matches the plain
+    backward on the same residual."""
+    s, y, w, m = _loss_inputs(1024, 200, cuda, 5)
+    stats = listwise_loss.listwise_loss_stats_reference(s, y, w, m)
+    g = torch.tensor(-1.25, device=cuda)
+    ds = listwise_loss.listwise_loss_backward(s, y, w, m, g, stats)
+    ref = listwise_loss.listwise_loss_backward_reference(s, y, w, m, g, stats)
+    torch.cuda.synchronize()
+    _close(ds, ref, 1e-5)
+
+
+def test_k3_k4_raise_instead_of_falling_back(cuda):
+    s, y, w, m = _loss_inputs(4, 10, cuda, 3)
+    with pytest.raises(ValueError, match="float32"):
+        listwise_loss.listwise_loss_forward(s.double(), y, w, m)
+    with pytest.raises(ValueError, match="labels .* on cpu"):
+        listwise_loss.listwise_loss_forward(s, y.cpu(), w, m)
+    _, stats = listwise_loss.listwise_loss_forward(s, y, w, m,
+                                                   return_stats=True)
+    with pytest.raises(ValueError, match="cotangent"):
+        listwise_loss.listwise_loss_backward(
+            s, y, w, m, torch.ones(2, device=cuda), stats)
 
 
 @pytest.mark.parametrize("shape", [(1,), (7, 10), (2304, 10), (50, 512, 10)])
