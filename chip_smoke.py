@@ -56,7 +56,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    take (K2 at 3xTF32, K3-K5 at float32 on CUDA cores). K3/K4 also at
    [16384, 10], beside the launch floor (a one-element ``zero_()``) and,
    for K3, ``F.cross_entropy`` on precomputed inputs as a yardstick.
-10. Kernels: one JSON line listing K1-K5, then the result line.
+10. The offline debiasing family (Naive, IPW, Regression-EM, PairDebias,
+    LambdaRank, PRS), one step each on phase 6's batch, kernels on against
+    the plain path (Regression-EM with the same uniforms): the loss within
+    LOSS_TOL relative, the ranker gradient within GRAD_TOL of its largest.
+11. The family's training: each algorithm 2 windows x 50 steps on phase
+    7's data and protocol (``fused_softmax_loss`` for Naive and IPW; IPW
+    and PRS read the reference's estimator JSON). Exact launch counts:
+    K1 = steps (2 x steps for Regression-EM: its E-step's no-grad
+    forward) + the validation batches, K2 = steps, K3 = K4 = steps for
+    Naive and IPW and 0 for the others, K5 = windows + 1; losses finite,
+    nDCG@10 in [0, 1], Regression-EM's propensity in [0, 1], t+ and t-
+    finite and positive. The same run plain launches nothing. Queries/s
+    both ways in turns (on, plain, plain, on), and phase 7's step
+    breakdown for PairDebias.
+12. Propensity estimation: the randomized estimator at the reference's
+    10M sessions over phase 7's train split (PBM, eta 1), every weight
+    within 3% of exam[0] / exam[x], sessions/s; then the estimator CLI
+    (``python -m ultra_pytorch_tpu_torch.sim.propensity``) on phase 8's
+    data.
+13. IPWrank through the training CLI on the JSON the estimator CLI wrote,
+    ``--test_only`` and a ``Scorer`` on its checkpoint; Regression-EM and
+    PairDebias ``Experiment`` checkpoints restored bit for bit, aux state
+    included.
+14. Kernels: one JSON line listing K1-K5 (launches summed over the
+    serving, DLA training and offline training runs), then the result
+    line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -728,20 +753,26 @@ def synthetic(num_queries: int, seed: int):
         rank_list_size=LIST, max_label=2.0)
 
 
-def phase_dla_step(dev, click_json):
-    """One DLA step at full width on a fixed batch: the kernels' losses and
-    gradients against the plain path's, from the same initialisation."""
-    from ultra_pytorch_tpu_torch.run.experiment import create_algorithm
-
+def fixed_batch(dev):
+    """Phase 6's fixed training batch: B x L lists of F features, a quarter
+    of them cut to 7 documents, clicks at 0.3 and always on the first."""
     rng = np.random.default_rng(3)
     mask = np.ones((BATCH, LIST), np.float32)
     mask[: BATCH // 4, 7:] = 0.0
     clicks = (rng.random((BATCH, LIST)) < 0.3).astype(np.float32) * mask
     clicks[:, 0] = 1.0
-    batch = {"features": torch.from_numpy(rng.normal(
+    return {"features": torch.from_numpy(rng.normal(
         size=(BATCH, LIST, FEATURES)).astype(np.float32)).to(dev),
         "labels": torch.from_numpy(clicks).to(dev),
         "mask": torch.from_numpy(mask).to(dev)}
+
+
+def phase_dla_step(dev, click_json):
+    """One DLA step at full width on a fixed batch: the kernels' losses and
+    gradients against the plain path's, from the same initialisation."""
+    from ultra_pytorch_tpu_torch.run.experiment import create_algorithm
+
+    batch = fixed_batch(dev)
     out = {}
     for kernels in (True, False):
         settings = dla_settings(kernels, click_json)
@@ -770,19 +801,18 @@ def phase_dla_step(dev, click_json):
           "DLA gradients differ between the kernels and the plain path")
 
 
-def train_run(kernels: bool, dev, click_json, data, seed: int):
-    """A full-width DLA run of WINDOWS x WINDOW steps through the
-    Experiment API; returns the per-window host seconds, losses and
-    validation summaries, and the experiment."""
+def train_run(settings, dev, data, seed: int, windows: int = WINDOWS):
+    """A full-width run of `windows` x WINDOW steps through the Experiment
+    API; returns the per-window host seconds, losses and validation
+    summaries, and the experiment."""
     from ultra_pytorch_tpu_torch.run.experiment import Experiment
 
-    exp = Experiment(dla_settings(kernels, click_json), "unused",
-                     os.path.join(WORK, "train"), batch_size=BATCH,
-                     seed=seed, device=dev)
+    exp = Experiment(settings, "unused", os.path.join(WORK, "train"),
+                     batch_size=BATCH, seed=seed, device=dev)
     exp.setup(datasets=data)
     exp.init_state()
     seconds, losses, summaries = [], [], []
-    for _ in range(WINDOWS):
+    for _ in range(windows):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = exp.train_steps(WINDOW)   # ends with a device read
@@ -798,8 +828,8 @@ def phase_training(dev, click_json):
     # The main path: counts set to 0 before the Experiment is built (its
     # feed launches K5 once for the click-rate estimate) and read after.
     reset_counts()
-    seconds, losses, summaries, exp = train_run(True, dev, click_json, data,
-                                                0)
+    seconds, losses, summaries, exp = train_run(
+        dla_settings(True, click_json), dev, data, 0)
     counts = read_counts()
     print(f"[training] kernels on: {steps} steps in {WINDOWS} windows; "
           f"pool {exp.feeds['train']._pool_size(BATCH)} candidates a step; "
@@ -825,7 +855,8 @@ def phase_training(dev, click_json):
     rates[True].append(WINDOW * BATCH * (WINDOWS - 1) / sum(seconds[1:]))
     for kernels in (False, False, True):
         reset_counts()
-        secs, run_losses, _, _ = train_run(kernels, dev, click_json, data, 0)
+        secs, run_losses, _, _ = train_run(dla_settings(kernels, click_json),
+                                           dev, data, 0)
         if not kernels:
             check(not any(read_counts().values()),
                   "the plain path launched a kernel")
@@ -836,15 +867,18 @@ def phase_training(dev, click_json):
           f"on/off/off/on): kernels on {rates[True]}, plain path "
           f"{rates[False]}", flush=True)
     step_breakdown(exp)
-    return counts, exp.feeds["train"]._pool_size(BATCH)
+    return counts, exp.feeds["train"]._pool_size(BATCH), data
 
 
-def step_breakdown(exp):
+def step_breakdown(exp, tag: str = ""):
     """Where a kernels-on step's time goes: CUDA events around each part of
     WINDOW steps (device time between the marks, which counts the device
     waiting on the host), the host's own time per part, then
-    torch.profiler's device time per kernel over the same kind of steps."""
+    torch.profiler's device time per kernel over the same kind of steps.
+    The optimizer part includes the aux state's update. `tag` names the
+    algorithm in the printed lines."""
     feed, alg = exp.feeds["train"], exp.algorithm
+    step_tag, prof_tag = f"[step{tag}]", f"[profile{tag}]"
     parts = ("plan", "gather", "forward+loss", "backward", "optimizer")
     ev = {p: [] for p in parts}
     host = dict.fromkeys(parts, 0.0)
@@ -865,11 +899,11 @@ def step_breakdown(exp):
             a = mark()
             batch = feed.batch_from_plan(plan, i)
             b = mark()
-            loss = alg.losses(exp.state, batch)[0]
+            out = alg.losses(exp.state, batch)
             c = mark()
-            grads = torch.autograd.grad(loss, alg.trainable(exp.state))
+            grads = torch.autograd.grad(out[0], alg.trainable(exp.state))
             d = mark()
-            alg.apply_gradients(exp.state, grads)
+            alg.update_aux(alg.apply_gradients(exp.state, grads), out)
             e = mark()
             for p, (x, y) in zip(parts[1:], ((a, b), (b, c), (c, d), (d, e))):
                 ev[p].append((x[0], y[0]))
@@ -885,11 +919,12 @@ def step_breakdown(exp):
     window()
     wall = time.perf_counter() - t0
     dev_ms = {p: sum(x.elapsed_time(y) for x, y in ev[p]) for p in parts}
-    print(f"[step] {WINDOW} kernels-on steps in {1e3 * wall:.2f} ms wall "
+    print(f"{step_tag} {WINDOW} kernels-on steps in {1e3 * wall:.2f} ms wall "
           f"({1e3 * wall / WINDOW:.3f} ms a step)", flush=True)
     for p in parts:
-        print(f"[step]   {p}: device span {dev_ms[p] / WINDOW:.4f} ms a step,"
-              f" host {1e3 * host[p] / WINDOW:.4f} ms a step", flush=True)
+        print(f"{step_tag}   {p}: device span {dev_ms[p] / WINDOW:.4f} ms "
+              f"a step, host {1e3 * host[p] / WINDOW:.4f} ms a step",
+              flush=True)
 
     step_wall = wall / WINDOW
     timed = {}
@@ -902,7 +937,7 @@ def step_breakdown(exp):
     kernels = device_events(profiled_window)
     wall = timed["wall"]
     if not kernels:
-        print("[profile] torch.profiler recorded no device activity: the "
+        print(f"{prof_tag} torch.profiler recorded no device activity: the "
               "device busy share is not measured in this run", flush=True)
         return
     by_name = {}
@@ -910,18 +945,18 @@ def step_breakdown(exp):
         total, count = by_name.get(name, (0.0, 0))
         by_name[name] = (total + us, count + 1)
     busy_ms = sum(us for _, us in kernels) / 1e3
-    print(f"[profile] {WINDOW} steps: wall {1e3 * wall:.2f} ms, device busy "
+    print(f"{prof_tag} {WINDOW} steps: wall {1e3 * wall:.2f} ms, device busy "
           f"{busy_ms:.2f} ms ({100 * busy_ms / (1e3 * wall):.1f}%, idle "
           f"{100 - 100 * busy_ms / (1e3 * wall):.1f}%) under the profiler; "
           f"{len(kernels) / WINDOW:.0f} device activities a step", flush=True)
     busy_step = busy_ms / WINDOW
-    print(f"[profile] busy {busy_step:.4f} ms of the unprofiled "
+    print(f"{prof_tag} busy {busy_step:.4f} ms of the unprofiled "
           f"{1e3 * step_wall:.4f} ms step: "
           f"{100 - 100 * busy_step / (1e3 * step_wall):.1f}% idle",
           flush=True)
     for name, (us, count) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:15]:
-        print(f"[profile]   {us / 1e3 / WINDOW:.4f} ms a step, {count} "
+        print(f"{prof_tag}   {us / 1e3 / WINDOW:.4f} ms a step, {count} "
               f"launches: {name[:90]}", flush=True)
 
 
@@ -944,46 +979,65 @@ def write_ultra_split(data_dir: str, split: str, num_queries: int,
             fout.write(qid + " " + " ".join(f"{v:g}" for v in labels) + "\n")
 
 
-def phase_cli(mlp, dev, click_json):
-    from ultra_pytorch_tpu_torch.data.dataset import read_data
-    from ultra_pytorch_tpu_torch.serve import Scorer
-
+def write_ultra_data() -> str:
+    """Phase 8's ULTRA-format dataset (train 512, valid 128, test 128
+    queries of the synthetic data) under ``build/``; returns its
+    directory."""
     data_dir = os.path.join(WORK, "ultra_data")
-    model_dir = os.path.join(WORK, "cli_model")
-    out_dir = os.path.join(WORK, "cli_out")
-    for stale in (model_dir, out_dir):  # an earlier run's checkpoint
-        shutil.rmtree(stale, ignore_errors=True)
     for split, q, seed in (("train", 512, 10), ("valid", 128, 11),
                            ("test", 128, 12)):
         write_ultra_split(data_dir, split, q, seed)
     with open(os.path.join(data_dir, "settings.json"), "w") as fout:
         json.dump({"feature_size": FEATURES, "max_label": 2}, fout)
-    setting_file = os.path.join(WORK, "cli_settings.json")
+    return data_dir
+
+
+def run_module(tag: str, module: str, args, timeout: int = 400) -> str:
+    """``python -m <module> <args>`` from the checkout root; its output
+    printed under `tag`; fails the run on a non-zero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module] + list(args),
+                          cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                          capture_output=True, text=True, timeout=timeout)
+    for line in proc.stdout.splitlines():
+        print(f"[{tag}] {line}", flush=True)
+    check(proc.returncode == 0, f"{module} failed:\n{proc.stderr[-3000:]}")
+    print(f"[{tag}] ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return proc.stdout
+
+
+def run_cli(mlp, dev, settings, data_dir: str, tag: str):
+    """Train through ``python -m ultra_pytorch_tpu_torch.run`` (2 windows,
+    best checkpoint kept), ``--test_only`` for the ranklist, then a
+    ``Scorer`` on that checkpoint against the plain version."""
+    from ultra_pytorch_tpu_torch.data.dataset import read_data
+    from ultra_pytorch_tpu_torch.serve import Scorer
+
+    stem = os.path.join(WORK, tag.replace(" ", "_"))
+    model_dir, out_dir = f"{stem}_model", f"{stem}_out"
+    for stale in (model_dir, out_dir):  # an earlier run's checkpoint
+        shutil.rmtree(stale, ignore_errors=True)
+    setting_file = f"{stem}_settings.json"
     with open(setting_file, "w") as fout:
-        json.dump(dla_settings(True, click_json), fout)
-    common = [sys.executable, "-m", "ultra_pytorch_tpu_torch.run",
-              "--data_dir", data_dir, "--setting_file", setting_file,
-              "--model_dir", model_dir, "--batch_size", str(BATCH)]
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    for extra in (["--max_train_iteration", str(2 * WINDOW),
-                   "--steps_per_checkpoint", str(WINDOW)],
-                  ["--output_dir", out_dir, "--test_only"]):
-        t0 = time.perf_counter()
-        proc = subprocess.run(common + extra, cwd=ROOT, env=env,
-                              capture_output=True, text=True, timeout=400)
-        for line in proc.stdout.splitlines():
-            print(f"[cli] {line}", flush=True)
-        check(proc.returncode == 0, f"the CLI failed:\n{proc.stderr[-3000:]}")
-        print(f"[cli] ({time.perf_counter() - t0:.1f} s)", flush=True)
-    check(os.path.isfile(os.path.join(model_dir, "DLA.ckpt.npz")),
-          "the CLI saved no checkpoint")
+        json.dump(settings, fout)
+    common = ["--data_dir", data_dir, "--setting_file", setting_file,
+              "--model_dir", model_dir, "--batch_size", str(BATCH),
+              "--device", dev.type]
+    module = "ultra_pytorch_tpu_torch.run"
+    run_module(tag, module, common + ["--max_train_iteration",
+                                      str(2 * WINDOW),
+                                      "--steps_per_checkpoint", str(WINDOW)])
+    run_module(tag, module, common + ["--output_dir", out_dir, "--test_only"])
+    name = settings["learning_algorithm"].rsplit(".", 1)[-1]
+    check(os.path.isfile(os.path.join(model_dir, f"{name}.ckpt.npz")),
+          f"the CLI saved no {name} checkpoint")
     ranklist = os.path.join(out_dir, "test.ranklist")
     with open(ranklist) as fin:
         lines = fin.read().splitlines()
     check(len(lines) == 128 * LIST and all(len(x.split()) == 6
                                            for x in lines),
           "the ranklist is not one TREC line per test document")
-    scorer = Scorer.from_checkpoint(model_dir)
+    scorer = Scorer.from_checkpoint(model_dir, device=dev)
     check(scorer.ranker.hparams.use_pallas, "Scorer did not select K1")
     test = read_data(data_dir, "test")
     feats = test.features[test.initial_list[:16]]
@@ -993,11 +1047,17 @@ def phase_cli(mlp, dev, click_json):
             scorer.ranker.layers,
             torch.from_numpy(feats).to(dev)).cpu()
     err = (got - ref).abs().max().item()
-    print(f"[cli] ranklist {len(lines)} lines; Scorer on the trained "
-          f"checkpoint: 16 queries, max abs err vs the plain version "
+    print(f"[{tag}] ranklist {len(lines)} lines; Scorer on the trained "
+          f"{name} checkpoint: 16 queries, max abs err vs the plain version "
           f"{err:.3e}", flush=True)
     check(torch.allclose(got, ref, rtol=TOL, atol=TOL),
           "the served checkpoint disagrees with the plain version")
+
+
+def phase_cli(mlp, dev, click_json) -> str:
+    data_dir = write_ultra_data()
+    run_cli(mlp, dev, dla_settings(True, click_json), data_dir, "cli")
+    return data_dir
 
 
 def phase_kernel_timing(mlp, gen, dev, pool):
@@ -1145,6 +1205,235 @@ def phase_loss_timing(gen, dev):
     return rows
 
 
+OFFLINE = ("NaiveAlgorithm", "IPWrank", "RegressionEM", "PairDebias",
+           "LambdaRank", "PRSrank")
+SOFTMAX_ALGOS = ("NaiveAlgorithm", "IPWrank")   # the ones that use K3/K4
+OFFLINE_WINDOWS = 2            # windows x WINDOW steps per algorithm
+# The reference's estimator JSON (randomized, PBM eta 1), which IPW and
+# PRS read in phases 10-11.
+ESTIMATOR_JSON = os.path.join(ROOT, "example", "PropensityEstimator",
+                              "randomized_pbm_0.1_1.0_4_1.0.json")
+SESSIONS = 10_000_000          # the reference estimator's session count
+ESTIMATE_TOL = 0.03            # IPW_list[x] against exam[0] / exam[x]
+
+
+def offline_settings(algo: str, kernels: bool, click_json: str,
+                     estimator_json: str = ESTIMATOR_JSON):
+    """Phase 7's settings with another algorithm: the estimator JSON for
+    IPW and PRS, ``fused_softmax_loss`` for Naive and IPW when the kernels
+    are on (the other four have losses of their own)."""
+    hp = []
+    if algo in ("IPWrank", "PRSrank"):
+        hp.append(f"propensity_estimator_json={estimator_json}")
+    if kernels and algo in SOFTMAX_ALGOS:
+        hp.append("loss_func=fused_softmax_loss")
+    settings = dla_settings(kernels, click_json)
+    settings.update(learning_algorithm=algo,
+                    learning_algorithm_hparams=",".join(hp))
+    return settings
+
+
+def phase_offline_step(dev, click_json):
+    """One step of each offline algorithm at full width on phase 6's fixed
+    batch, kernels on against the plain path from the same
+    initialisation (Regression-EM with the same uniforms): the loss and
+    the ranker's gradient."""
+    from ultra_pytorch_tpu_torch.run.experiment import create_algorithm
+
+    batch = fixed_batch(dev)
+    u = torch.rand((BATCH, LIST), generator=torch.Generator().manual_seed(
+        4)).to(dev)
+    for algo in OFFLINE:
+        out = {}
+        for kernels in (True, False):
+            settings = offline_settings(algo, kernels, click_json)
+            settings.update(max_candidate_num=LIST)
+            alg = create_algorithm(settings, FEATURES, 2.0, dev)
+            state = alg.init_state(torch.Generator().manual_seed(1))
+            extra = (u,) if algo == "RegressionEM" else ()
+            loss = alg.losses(state, batch, *extra)[0]
+            grads = torch.autograd.grad(loss, alg.trainable(state))
+            out[kernels] = (loss.item(),
+                            torch.cat([g.reshape(-1) for g in grads]))
+        (loss_k, grad_k), (loss_p, grad_p) = out[True], out[False]
+        err, rel = max_rel_err(grad_k, grad_p)
+        print(f"[offline step] {algo}: loss {loss_k:.6f} vs {loss_p:.6f} "
+              f"(rel err {abs(loss_k - loss_p) / abs(loss_p):.3e}, limit "
+              f"{LOSS_TOL}); ranker gradient max abs {err:.3e} ({rel:.3e} "
+              f"of its largest, limit {GRAD_TOL})", flush=True)
+        check(math.isfinite(loss_k), f"{algo}: non-finite loss")
+        check(abs(loss_k - loss_p) <= LOSS_TOL * abs(loss_p),
+              f"{algo}: the loss differs between the kernels and the plain "
+              "path")
+        check(rel <= GRAD_TOL, f"{algo}: the ranker gradient differs "
+              "between the kernels and the plain path")
+
+
+def fmt(values) -> str:
+    return ", ".join(f"{v:.5f}" for v in values)
+
+
+def check_aux(algo: str, aux) -> str:
+    """The aux state stays in range: Regression-EM's propensity finite in
+    [0, 1], PairDebias' and LambdaRank's t+ and t- finite and positive."""
+    if algo == "RegressionEM":
+        p = aux["propensity"]
+        check(bool(torch.isfinite(p).all()) and 0 <= p.min().item()
+              and p.max().item() <= 1, f"{algo}: propensity out of [0, 1]")
+        return "propensity " + " ".join(f"{v:.3f}" for v in p[0].tolist())
+    if algo in ("PairDebias", "LambdaRank"):
+        t = torch.stack([aux["t_plus"], aux["t_minus"]])
+        check(bool(torch.isfinite(t).all()) and t.min().item() > 0,
+              f"{algo}: t+ / t- not finite and positive")
+        return ("t+ " + " ".join(f"{v:.3f}" for v in t[0].tolist())
+                + " | t- " + " ".join(f"{v:.3f}" for v in t[1].tolist()))
+    check(aux is None, f"{algo}: unexpected aux state")
+    return "no aux state"
+
+
+def phase_offline_training(dev, click_json, data):
+    """Each offline algorithm for OFFLINE_WINDOWS x WINDOW steps at full
+    width on phase 7's data, all kernel hparams on, with exact launch
+    counts (the first run); the same run plain launches nothing. Runs in
+    turns (on, plain, plain, on) for queries/s of the last window of each
+    (the first window is the warm-up); then phase 7's step breakdown for
+    PairDebias. Returns the first kernels-on runs' launches, summed."""
+    steps = OFFLINE_WINDOWS * WINDOW
+    valid_batches = OFFLINE_WINDOWS * math.ceil(
+        data["valid"].num_queries / BATCH)
+    total = dict.fromkeys(counters(), 0)
+    rates, pair_exp = {}, None
+    for algo in OFFLINE:
+        softmax = algo in SOFTMAX_ALGOS
+        want = {"K1": (2 if algo == "RegressionEM" else 1) * steps
+                + valid_batches,
+                "K2": steps, "K3": steps if softmax else 0,
+                "K4": steps if softmax else 0, "K5": OFFLINE_WINDOWS + 1}
+        rates[algo] = {True: [], False: []}
+        for turn, kernels in enumerate((True, False, False, True)):
+            reset_counts()
+            seconds, losses, summaries, exp = train_run(
+                offline_settings(algo, kernels, click_json), dev, data, 0,
+                OFFLINE_WINDOWS)
+            counts = read_counts()
+            ndcg = [x["ndcg_10"] for x in summaries]
+            aux = check_aux(algo, exp.state.aux)
+            check(all(math.isfinite(v) for v in losses),
+                  f"{algo}: non-finite training loss")
+            check(all(math.isfinite(v) and 0 <= v <= 1 for v in ndcg),
+                  f"{algo}: nDCG@10 out of [0, 1]")
+            rates[algo][kernels].append(WINDOW * BATCH / seconds[-1])
+            if not kernels:
+                check(not any(counts.values()),
+                      f"{algo}: the plain path launched a kernel")
+            if turn:
+                continue
+            print(f"[offline] {algo} kernels on: {steps} steps, launches "
+                  f"{counts} (expected {want}); losses {fmt(losses)}; "
+                  f"ndcg_10 {fmt(ndcg)}; {aux}", flush=True)
+            for k, n in want.items():
+                check(counts[k] == n, f"{algo}: {k} launched {counts[k]} "
+                      f"times on the training path, expected {n}")
+                total[k] += counts[k]
+            if algo == "PairDebias":
+                pair_exp = exp
+        on, off = rates[algo][True], rates[algo][False]
+        print(f"[offline] {algo} queries/s (host clock, window "
+              f"{OFFLINE_WINDOWS}, turns on/plain/plain/on): kernels on "
+              f"{on[0]:.0f} {on[1]:.0f}, plain {off[0]:.0f} {off[1]:.0f} "
+              f"({sum(on) / sum(off):.2f}x of the means)", flush=True)
+    print("[offline] queries/s [on, on, plain, plain]: " + json.dumps(
+        {k: [round(x) for x in r[True] + r[False]]
+         for k, r in rates.items()}), flush=True)
+    step_breakdown(pair_exp, " PairDebias")
+    return total
+
+
+def phase_propensity(dev, data, click_json, data_dir) -> str:
+    """The randomized estimator at the reference's 10M sessions over
+    phase 7's train split (PBM, eta 1): every IPW_list[x] within 3% of
+    exam[0] / exam[x]; sessions/s. Then the estimator CLI on phase 8's
+    ULTRA data; returns the JSON it wrote."""
+    from ultra_pytorch_tpu_torch.sim import propensity as prop
+    from ultra_pytorch_tpu_torch.sim.click_models import (
+        exam_at_ranks, load_model_from_file)
+
+    model = load_model_from_file(click_json)
+    train = data["train"]
+    labels = train.labels
+    mask = (train.initial_list >= 0).astype(np.float32)
+    est = prop.RandomizedPropensityEstimator()
+    batch = 1 << 17
+    est.estimate_from_model(model, labels, mask, sessions=batch,
+                            device=dev)   # warm-up
+    t0 = time.perf_counter()
+    est.estimate_from_model(model, labels, mask, sessions=SESSIONS,
+                            device=dev)   # ends with a device read
+    seconds = time.perf_counter() - t0
+    run = math.ceil(SESSIONS / batch) * batch
+    exam = exam_at_ranks(model, LIST).numpy().astype(np.float64)
+    want = exam[0] / exam
+    got = np.asarray(est.IPW_list[:LIST])
+    rel = np.abs(got / want - 1.0)
+    print(f"[propensity] {run} sessions ({batch} a batch) over "
+          f"{train.num_queries} queries in {seconds:.3f} s: "
+          f"{run / seconds:.4g} sessions/s (host clock)", flush=True)
+    print(f"[propensity] IPW_list {np.round(got, 4).tolist()} vs exam[0] / "
+          f"exam {np.round(want, 4).tolist()}: max rel err {rel.max():.4f} "
+          f"(limit {ESTIMATE_TOL})", flush=True)
+    check(len(est.IPW_list) == LIST and bool(np.all(rel <= ESTIMATE_TOL)),
+          "the randomized estimate is off PBM's exam[0] / exam")
+    out_dir = os.path.join(WORK, "estimator")
+    stdout = run_module("propensity cli", "ultra_pytorch_tpu_torch.sim."
+                        "propensity", [click_json, data_dir, out_dir,
+                                       "--device", dev.type])
+    path = stdout.strip().splitlines()[-1]
+    cli_est = prop.BasicPropensityEstimator(file_name=path)
+    cli_rel = np.abs(np.asarray(cli_est.IPW_list[:LIST]) / want - 1.0)
+    print(f"[propensity cli] {path}: IPW_list max rel err vs exam[0] / exam "
+          f"{cli_rel.max():.4f}", flush=True)
+    check(cli_est.click_model is not None
+          and bool(np.all(cli_rel <= ESTIMATE_TOL)),
+          "the estimator CLI's JSON is off PBM's exam[0] / exam")
+    return path
+
+
+def phase_offline_cli(mlp, dev, click_json, data, data_dir, estimator_json):
+    """IPWrank through the training CLI on the estimator CLI's JSON, then
+    ``--test_only`` and a ``Scorer``; then Regression-EM and PairDebias
+    Experiments saved and restored into fresh ones: every state leaf, aux
+    state included, comes back bit for bit."""
+    from ultra_pytorch_tpu_torch.run.experiment import Experiment
+
+    run_cli(mlp, dev, offline_settings("IPWrank", True, click_json,
+                                       estimator_json), data_dir, "ipw cli")
+    for algo in ("RegressionEM", "PairDebias"):
+        model_dir = os.path.join(WORK, f"ckpt_{algo}")
+        shutil.rmtree(model_dir, ignore_errors=True)
+        exps = []
+        for _ in range(2):
+            exp = Experiment(offline_settings(algo, True, click_json),
+                             "unused", model_dir, batch_size=BATCH, seed=0,
+                             device=dev).setup(datasets=data)
+            exp.init_state()
+            exps.append(exp)
+        saved, fresh = exps
+        saved.train_steps(WINDOW)
+        saved.save({"step": WINDOW})
+        check(fresh.restore(), f"{algo}: no checkpoint to restore")
+        a = saved.algorithm.state_leaves(saved.state)
+        b = fresh.algorithm.state_leaves(fresh.state)
+        same = len(a) == len(b) and all(np.array_equal(x, y)
+                                        for x, y in zip(a, b))
+        aux_same = all(torch.equal(saved.state.aux[k], fresh.state.aux[k])
+                       for k in saved.state.aux)
+        print(f"[checkpoint] {algo}: {len(a)} leaves after {WINDOW} steps, "
+              f"restored bit for bit: {same}; aux {sorted(saved.state.aux)} "
+              f"equal: {aux_same}", flush=True)
+        check(same and aux_same and fresh.state.step == WINDOW,
+              f"{algo}: the restored state differs from the saved one")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1169,12 +1458,18 @@ def main() -> int:
     k1_timing = phase_timing(mlp, gen, dev, model_dir)[BUCKETS[-1]]
     click_json = click_model_file()
     phase_dla_step(dev, click_json)
-    counts, pool = phase_training(dev, click_json)
-    phase_cli(mlp, dev, click_json)
+    counts, pool, data = phase_training(dev, click_json)
+    data_dir = phase_cli(mlp, dev, click_json)
     timing = phase_kernel_timing(mlp, gen, dev, pool)
     timing.update(phase_loss_timing(gen, dev))
     timing["K1"] = k1_timing
+    phase_offline_step(dev, click_json)
+    offline_counts = phase_offline_training(dev, click_json, data)
+    estimator_json = phase_propensity(dev, data, click_json, data_dir)
+    phase_offline_cli(mlp, dev, click_json, data, data_dir, estimator_json)
     counts["K1"] += serving_launches
+    for k, n in offline_counts.items():
+        counts[k] += n
     sources = {
         "K1": ("fused_mlp_fwd", "mlp_fwd.cu",
                "ultra_pytorch_tpu/ops/pallas/mlp.py:91"),

@@ -102,6 +102,27 @@ def test_unknown_component_raises():
 @pytest.mark.parametrize("kind,name,module,attr", [
     ("algorithm", "DLA", "algorithms.dla", "DLA"),
     ("algorithm", "ultra.learning_algorithm.DLA", "algorithms.dla", "DLA"),
+    ("algorithm", "NaiveAlgorithm", "algorithms.naive", "NaiveAlgorithm"),
+    ("algorithm", "ultra.learning_algorithm.NaiveAlgorithm",
+     "algorithms.naive", "NaiveAlgorithm"),
+    ("algorithm", "ultra.learning_algorithm.NavieAlgorithm",
+     "algorithms.naive", "NaiveAlgorithm"),
+    ("algorithm", "IPWrank", "algorithms.ipw", "IPWrank"),
+    ("algorithm", "ultra.learning_algorithm.IPWrank", "algorithms.ipw",
+     "IPWrank"),
+    ("algorithm", "RegressionEM", "algorithms.regression_em",
+     "RegressionEM"),
+    ("algorithm", "ultra.learning_algorithm.RegressionEM",
+     "algorithms.regression_em", "RegressionEM"),
+    ("algorithm", "PairDebias", "algorithms.pairwise_debias", "PairDebias"),
+    ("algorithm", "ultra.learning_algorithm.PairDebias",
+     "algorithms.pairwise_debias", "PairDebias"),
+    ("algorithm", "LambdaRank", "algorithms.lambda_rank", "LambdaRank"),
+    ("algorithm", "ultra.learning_algorithm.LambdaRank",
+     "algorithms.lambda_rank", "LambdaRank"),
+    ("algorithm", "PRSrank", "algorithms.prs_rank", "PRSrank"),
+    ("algorithm", "ultra.learning_algorithm.PRSrank", "algorithms.prs_rank",
+     "PRSrank"),
     ("feed", "ClickSimulationFeed", "input_layer.feeds",
      "ClickSimulationFeed"),
     ("feed", "ultra.input_layer.ClickSimulationFeed", "input_layer.feeds",
@@ -118,7 +139,7 @@ def test_registry_resolves_training_components(kind, name, module, attr):
 
 
 @pytest.mark.parametrize("kind,name", [
-    ("algorithm", "ultra.learning_algorithm.IPWrank"),
+    ("algorithm", "ultra.learning_algorithm.DBGD"),
     ("algorithm", "NSGD"), ("algorithm", "PDGD"),
     ("feed", "ultra.input_layer.StochasticOnlineSimulationFeed"),
     ("feed", "DeterministicOnlineSimulationFeed"),

@@ -27,7 +27,7 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def _settings(click_model_json, kernels=False):
+def _settings(click_model_json, kernels=False, algorithm="DLA"):
     ranker = "hidden_layer_sizes=[16]"
     algo = ""
     feed = f"click_model_json={click_model_json}"
@@ -41,7 +41,7 @@ def _settings(click_model_json, kernels=False):
         "valid_input_feed": "DirectLabelFeed", "valid_input_hparams": "",
         "test_input_feed": "DirectLabelFeed", "test_input_hparams": "",
         "ranking_model": "DNN", "ranking_model_hparams": ranker,
-        "learning_algorithm": "DLA", "learning_algorithm_hparams": algo,
+        "learning_algorithm": algorithm, "learning_algorithm_hparams": algo,
         "metrics": ["ndcg", "mrr"], "metrics_topn": [3, 5],
         "objective_metric": "ndcg_5", "selection_bias_cutoff": 5,
     }
@@ -106,12 +106,60 @@ def test_port_checkpoint_loads_into_jax(toy_data_dir, click_model_json,
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("algorithm", ["RegressionEM", "PairDebias"])
+def test_aux_state_checkpoints_cross_both_ways(toy_data_dir,
+                                               click_model_json, tmp_path,
+                                               algorithm):
+    """Regression-EM's propensity and PairDebias' t+/t- go through
+    checkpoints in both directions leaf for leaf."""
+    settings = _settings(click_model_json, algorithm=algorithm)
+    jexp = _jax(settings, toy_data_dir, str(tmp_path / "jax"))
+    jexp.train_steps(3)
+    jexp.save({"step": 3})
+    exp = _port(settings, toy_data_dir, str(tmp_path / "port"))
+    assert exp.restore(jexp.ckpt_path)
+    mine, theirs = _port_leaves(exp), _jax_leaves(jexp)
+    assert len(mine) == len(theirs)
+    for a, b in zip(mine, theirs):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    assert exp.state.step == 3
+
+    exp.train_steps(2)
+    exp.save({"step": 5})
+    back = _jax(settings, toy_data_dir, str(tmp_path / "port"))
+    assert back.restore()
+    for a, b in zip(_jax_leaves(back), _port_leaves(exp)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    aux = exp.state.aux
+    assert all(bool(torch.isfinite(t).all()) for t in aux.values())
+
+
 def test_restore_continues_the_same_run(toy_data_dir, click_model_json,
                                         tmp_path):
     """Two windows straight through equal one window, a checkpoint, a
     fresh Experiment restoring it and the second window: the data key is
     part of the state."""
     settings = _settings(click_model_json, kernels=True)
+    straight = _port(settings, toy_data_dir, str(tmp_path / "a"))
+    straight.train_steps(2)
+    straight.train_steps(2)
+    first = _port(settings, toy_data_dir, str(tmp_path / "b"))
+    first.train_steps(2)
+    first.save()
+    resumed = _port(settings, toy_data_dir, str(tmp_path / "b"))
+    assert resumed.restore()
+    resumed.train_steps(2)
+    for a, b in zip(_port_leaves(straight), _port_leaves(resumed)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_restore_continues_the_same_regression_em_run(
+        toy_data_dir, click_model_json, tmp_path):
+    """Regression-EM draws its uniforms from the window's generator after
+    the plan, so a restored run continues the same stream too."""
+    settings = _settings(click_model_json, kernels=True,
+                         algorithm="RegressionEM")
+    settings["learning_algorithm_hparams"] = ""   # it has no loss_func
     straight = _port(settings, toy_data_dir, str(tmp_path / "a"))
     straight.train_steps(2)
     straight.train_steps(2)
@@ -201,3 +249,27 @@ def test_cli_train_then_test_only(toy_data_dir, click_model_json, tmp_path):
     first = lines[0].split()
     assert len(first) == 6 and first[1] == "Q0" and first[3] == "1"
     assert first[5] == "Model"
+
+
+@pytest.mark.parametrize("config", [
+    "naive", "naive_oracle", "ipw_rank", "regression_EM", "pairwise_debias",
+    "lambda_rank", "prs_rank"])
+def test_offline_configs_train_through_the_cli(tmp_path, config):
+    """Each offline config of ``configs/`` trains through the port's CLI
+    on the CPU (from the repo root, where its click-model and estimator
+    paths point)."""
+    model_dir = tmp_path / "model"
+    setting_file = os.path.join(REPO, "configs", f"{config}.json")
+    stdout = _run(["--device", "cpu",
+                   "--data_dir", os.path.join(REPO, "tests", "data"),
+                   "--setting_file", setting_file,
+                   "--model_dir", str(model_dir), "--batch_size", "8",
+                   "--max_train_iteration", "4",
+                   "--steps_per_checkpoint", "2"], cwd=REPO)
+    assert "Training done at step 4" in stdout
+    with open(setting_file) as fin:
+        algo = json.load(fin)["learning_algorithm"].rsplit(".", 1)[-1]
+    assert (model_dir / f"{algo}.ckpt.npz").is_file()
+    losses = [float(line.split()[3]) for line in stdout.splitlines()
+              if line.startswith("step ")]
+    assert len(losses) == 2 and all(np.isfinite(losses))

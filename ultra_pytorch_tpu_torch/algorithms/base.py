@@ -3,10 +3,17 @@
 The port's counterpart of the JAX package's ``algorithms/base.py``. An
 algorithm owns the ranker (an ``nn.Module``) and works on a
 :class:`TrainState` that holds the ranker, the optimizer state, the
-algorithm's auxiliary state (DLA's propensity tower and its optimizer)
+algorithm's auxiliary state (DLA's propensity tower, Regression-EM's
+propensity, PairDebias' and LambdaRank's t+/t-; ``None`` for the others)
 and the step count. ``train_step`` updates the tensors in place with
 autograd and returns the state and the step's metrics as 0-dim device
 tensors (no host round trip per step).
+
+A step is split so that each part can be driven alone: ``losses(state,
+batch, ...)`` returns a tuple whose first element is the differentiable
+loss (the rest is what the aux update needs), ``trainable(state)`` the
+tensors it is differentiated in, ``apply_gradients`` the optimizer step
+and ``update_aux`` the aux state's update from the ``losses`` tuple.
 
 The optimizers follow ``make_optimizer`` of the JAX package exactly: a
 clip by global norm written to optax's rule (``g / norm * max_norm`` when
@@ -17,6 +24,10 @@ step) or ``sgd``, all over ONE flat vector in JAX's ravel order
 (``optax.flatten``): the leaves in JAX's tree order, each raveled in C
 order, a Linear's ``w`` as ``[in, out]``. So the Adagrad accumulator is
 the same vector, element for element, as the JAX checkpoint's.
+
+Checkpoints hold the state in the JAX ``TrainState``'s leaf order: the
+ranker's leaves, the flat optimizer vectors, the aux leaves (dict keys
+sorted; ``None`` gives no leaf, as in ``jax.tree_util``), the step.
 """
 
 from __future__ import annotations
@@ -24,10 +35,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ultra_pytorch_tpu_torch.metrics import ranking as metrics_lib
 from ultra_pytorch_tpu_torch.ops import losses
+from ultra_pytorch_tpu_torch.utils.checkpoint import tree_leaves
 from ultra_pytorch_tpu_torch.utils.hparams import HParams
 
 PADDING_SCORE = metrics_lib.PADDING_SCORE
@@ -159,21 +172,93 @@ class BaseAlgorithm:
     def device(self) -> torch.device:
         return next(self.ranker.parameters()).device
 
+    def optimizer(self) -> FlatOptimizer:
+        hp = self.hparams
+        return make_optimizer(hp.get("grad_strategy", "ada"),
+                              float(hp.get("learning_rate", 0.05)),
+                              float(hp.get("max_gradient_norm", 5.0)))
+
     def init_state(self, generator: torch.Generator) -> TrainState:
+        """Draw the ranker's weights from `generator` (a CPU generator, so
+        they are the same on every device); a fresh flat optimizer state,
+        no aux state, step 0."""
+        self.ranker.reset_parameters(generator)
+        n = sum(p.numel() for p in self.ranker.parameters())
+        return TrainState(params=self.ranker,
+                          opt_state=self.optimizer().init(n, self.device),
+                          aux=None, step=0)
+
+    # -- a step, in parts -------------------------------------------------
+    def losses(self, state: TrainState, batch: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, ...]:
+        """(loss, ...): the differentiable loss first, then whatever
+        :meth:`update_aux` needs."""
         raise NotImplementedError
 
-    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
+    def trainable(self, state: TrainState) -> List[torch.Tensor]:
+        """The tensors the loss is differentiated in: the ranker's, in
+        JAX's leaf order."""
+        return [t for t, _ in state.params.jax_leaves()]
+
+    def apply_gradients(self, state: TrainState,
+                        grads: Sequence[torch.Tensor]) -> TrainState:
+        """One optimizer step (`grads` in :meth:`trainable` order), in
+        place; advances the step."""
+        state.opt_state = self.optimizer().step(
+            state.params.jax_leaves(), grads, state.opt_state)
+        state.step += 1
+        return state
+
+    def update_aux(self, state: TrainState, out: Tuple[torch.Tensor, ...]
+                   ) -> TrainState:
+        """The aux state's update from :meth:`losses`' tuple, after the
+        optimizer step; none by default."""
+        return state
+
+    def metrics(self, out: Tuple[torch.Tensor, ...]
+                ) -> Dict[str, torch.Tensor]:
+        return {"loss": out[0].detach()}
+
+    def _step(self, state: TrainState, batch: Dict[str, torch.Tensor],
+              *extra) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        out = self.losses(state, batch, *extra)
+        grads = torch.autograd.grad(out[0], self.trainable(state))
+        state = self.update_aux(self.apply_gradients(state, grads), out)
+        return state, self.metrics(out)
+
+    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        raise NotImplementedError
+        """One step. `generator` is the window's device generator (the one
+        the feed's plan drew from); an algorithm that draws takes its
+        draws from it, in step order."""
+        return self._step(state, batch)
+
+    # -- checkpoint layout ------------------------------------------------
+    def _state_targets(self, state: TrainState) -> List[Leaf]:
+        """The state's tensors in the JAX TrainState's leaf order (the
+        step follows)."""
+        return (state.params.jax_leaves()
+                + [(t, False) for t in tree_leaves(state.opt_state)]
+                + [(t, False) for t in tree_leaves(state.aux)])
 
     def state_leaves(self, state: TrainState) -> List[Any]:
-        """The state as a list of tensors/arrays in the JAX TrainState's
-        leaf order (checkpoint layout)."""
-        raise NotImplementedError
+        """The state as numpy arrays in JAX's leaf order and layouts."""
+        return [(t.t() if transposed else t).detach().cpu().numpy().copy()
+                for t, transposed in self._state_targets(state)] + [
+                    np.asarray(state.step, np.int32)]
 
     def load_state_leaves(self, state: TrainState, leaves: List[Any]
                           ) -> TrainState:
-        raise NotImplementedError
+        """Copy `leaves` (numpy, JAX's leaf order and layouts) into
+        `state`; returns it."""
+        it = iter(leaves)
+        with torch.no_grad():
+            for t, transposed in self._state_targets(state):
+                src = torch.as_tensor(np.array(next(it)))
+                t.copy_(src.t() if transposed else src.reshape(t.shape))
+        state.step = int(np.asarray(next(it)))
+        return state
 
     # -- shared helpers ---------------------------------------------------
     @torch.no_grad()

@@ -109,33 +109,6 @@ class DLA(BaseAlgorithm):
                  "prop_opt_state": opt_p.init(L + 1, device)},
             step=0)
 
-    def _state_targets(self, state: TrainState):
-        """JAX's leaf order: params, opt_state, aux (prop_opt_state, then
-        propensity b, w); the step follows."""
-        aux = state.aux
-        return (state.params.jax_leaves()
-                + [(t, False) for t in state.opt_state.values()]
-                + [(t, False) for t in aux["prop_opt_state"].values()]
-                + self._prop_leaves(aux["propensity"]))
-
-    def state_leaves(self, state: TrainState) -> List[Any]:
-        """The state as numpy arrays in JAX's leaf order and layouts."""
-        return [(t.t() if transposed else t).detach().cpu().numpy().copy()
-                for t, transposed in self._state_targets(state)] + [
-                    np.asarray(state.step, np.int32)]
-
-    def load_state_leaves(self, state: TrainState, leaves: List[Any]
-                          ) -> TrainState:
-        """Copy `leaves` (numpy, JAX's leaf order and layouts) into
-        `state`; returns it."""
-        it = iter(leaves)
-        with torch.no_grad():
-            for t, transposed in self._state_targets(state):
-                src = torch.as_tensor(np.array(next(it)))
-                t.copy_(src.t() if transposed else src.reshape(t.shape))
-        state.step = int(np.asarray(next(it)))
-        return state
-
     # -- train ------------------------------------------------------------
     def trainable(self, state: TrainState) -> List[torch.Tensor]:
         """The ranker's tensors then the tower's, in JAX's leaf order."""
@@ -176,13 +149,10 @@ class DLA(BaseAlgorithm):
         state.step += 1
         return state
 
-    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
-                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        loss, rank_loss, exam_loss = self.losses(state, batch)
-        grads = torch.autograd.grad(loss, self.trainable(state))
-        state = self.apply_gradients(state, grads)
-        return state, {"loss": loss.detach(), "rank_loss": rank_loss.detach(),
-                       "exam_loss": exam_loss.detach()}
+    def metrics(self, out):
+        loss, rank_loss, exam_loss = out
+        return {"loss": loss.detach(), "rank_loss": rank_loss.detach(),
+                "exam_loss": exam_loss.detach()}
 
 
 def params_to_jax(state: TrainState) -> Dict[str, Any]:

@@ -54,6 +54,15 @@ def softmax_loss(output: torch.Tensor, labels: torch.Tensor,
                                              torch.ones_like(total))
 
 
+def bce_with_logits(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Elementwise ``max(x, 0) - x z + log(1 + exp(-|x|))``. Written with
+    ``relu``: at x == 0 its gradient (0) plus torch's ``abs`` (0) gives
+    JAX's ``-z`` there, where ``jnp.maximum`` (0.5) and ``jnp.abs`` (1)
+    also sum to it; ``torch.maximum`` would give 0.5 - z and
+    ``clamp_min`` 1 - z."""
+    return F.relu(x) - x * z + torch.log1p(torch.exp(-x.abs()))
+
+
 def sigmoid_loss_on_list(output: torch.Tensor, labels: torch.Tensor,
                          propensity_weights: Optional[torch.Tensor] = None,
                          mask: Optional[torch.Tensor] = None
@@ -61,9 +70,7 @@ def sigmoid_loss_on_list(output: torch.Tensor, labels: torch.Tensor,
     """Pointwise BCE-with-logits, summed over the list and averaged over
     the batch."""
     propensity_weights = _ones_if_none(propensity_weights, labels)
-    x, z = output, labels
-    bce = torch.clamp_min(x, 0.0) - x * z + torch.log1p(torch.exp(-x.abs()))
-    loss = bce * propensity_weights
+    loss = bce_with_logits(output, labels) * propensity_weights
     if mask is not None:
         loss = loss * mask
     return torch.mean(torch.sum(loss, dim=1))

@@ -19,7 +19,9 @@ Randomness: the ranker and the propensity tower are drawn from a CPU
 device. The data stream is keyed by two 32-bit words (the JAX trainer's
 ``uint32[2]`` data key, which the checkpoint stores in the same place):
 each window seeds a generator on the device from them and draws the next
-two words, so a restored run continues the same stream.
+two words, so a restored run continues the same stream. The feed's plan
+draws from the window's generator first, then the algorithm's own draws
+(Regression-EM's uniforms) come from it step by step.
 
 Data parallelism (``dp`` > 1) and ``shard_data`` are not ported yet.
 """
@@ -232,14 +234,16 @@ class Experiment:
     # -- train ------------------------------------------------------------
     def train_steps(self, num_steps: int) -> Dict[str, float]:
         """Run `num_steps` steps, their draws planned in one pass; returns
-        the window's mean metrics as host floats (one transfer)."""
+        the window's mean metrics as host floats (one transfer). The
+        window's generator goes on to each step after the plan has drawn
+        from it (Regression-EM's uniforms)."""
         feed = self.feeds["train"]
-        plan = feed.train_batch_plan(self._window_generator(),
-                                     self.state.step, num_steps)
+        generator = self._window_generator()
+        plan = feed.train_batch_plan(generator, self.state.step, num_steps)
         total, keys = None, None
         for i in range(num_steps):
             self.state, metrics = self.algorithm.train_step(
-                self.state, feed.batch_from_plan(plan, i))
+                self.state, feed.batch_from_plan(plan, i), generator)
             keys = keys or sorted(metrics)
             values = torch.stack([metrics[k] for k in keys])
             total = values if total is None else total + values

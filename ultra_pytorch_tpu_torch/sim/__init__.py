@@ -1,2 +1,2 @@
-"""Click simulation: the PBM click model (UBM and cascade are not ported
-yet)."""
+"""Click simulation: the PBM click model, the propensity estimators and
+the ranking samplers (UBM and cascade are not ported yet)."""

@@ -140,6 +140,33 @@ def sample_clicks(params: ClickModelParams, generator: torch.Generator,
     return clicks, exam_p * mask, click_p
 
 
+def propensity_weights(params: ClickModelParams, clicks: torch.Tensor,
+                       use_non_clicked_data: bool = False) -> torch.Tensor:
+    """True propensity weights ``exam[0] / exam`` (PBM, scalar eta) for a
+    click pattern ``[B, L]``, on the clicks' device; zero where nothing
+    was clicked unless `use_non_clicked_data`."""
+    if params.model_name != "position_biased_model":
+        raise NotImplementedError(
+            f"propensity_weights for {params.model_name} is not yet ported "
+            "to ultra_pytorch_tpu_torch (PBM only)")
+    exam = exam_at_ranks(params.to(clicks.device), clicks.shape[1])
+    pw = torch.broadcast_to(exam[0] / exam, clicks.shape)
+    if not use_non_clicked_data:
+        pw = pw * (clicks > 0)
+    return pw
+
+
+def model_to_json(params: ClickModelParams) -> Dict[str, Any]:
+    """The reference's JSON schema ``{model_name, eta, click_prob,
+    exam_prob}``, with the examination probabilities raised to eta."""
+    return {
+        "model_name": params.model_name,
+        "eta": float(params.eta),
+        "click_prob": params.click_prob.cpu().tolist(),
+        "exam_prob": (params.exam_prob ** params.eta).cpu().tolist(),
+    }
+
+
 def click_model_json_numpy(name: str, neg: float, pos: float, grades: int,
                            eta: float) -> Dict[str, Any]:
     """Pure-numpy JSON construction of a click model description."""

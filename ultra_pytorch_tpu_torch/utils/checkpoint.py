@@ -12,7 +12,8 @@ ones the port writes.
 
 Trees here are nested ``dict``/``list``/``tuple`` of numpy arrays, and
 they flatten in the order ``jax.tree_util`` uses for the same containers:
-dict keys sorted, sequences in order.
+dict keys sorted, sequences in order, and ``None`` an empty subtree (no
+leaf).
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ _META_KEY = "__ultra_meta__"
 
 def tree_leaves(tree: Any) -> List[Any]:
     """Leaves of a dict/list/tuple tree, in ``jax.tree_util`` order."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -40,6 +43,8 @@ def _tree_unflatten(template: Any, leaves: List[Any]) -> Any:
     it = iter(leaves)
 
     def build(node):
+        if node is None:
+            return None
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
         if isinstance(node, (list, tuple)):
@@ -51,6 +56,8 @@ def _tree_unflatten(template: Any, leaves: List[Any]) -> Any:
 
 def _structure(tree: Any) -> str:
     """Human-readable structure fingerprint (diagnostics only)."""
+    if tree is None:
+        return "None"
     if isinstance(tree, dict):
         return "{" + ", ".join(f"{k!r}: {_structure(tree[k])}"
                                for k in sorted(tree)) + "}"

@@ -27,8 +27,7 @@ _KIND_MODULES = {
 # Components of the JAX package that the port does not have yet.
 _NOT_YET_PORTED = {
     "ranker": ("Linear", "SetRank", "DLCM", "GSF"),
-    "algorithm": ("NaiveAlgorithm", "IPWrank", "RegressionEM", "PairDebias",
-                  "PDGD", "LambdaRank", "PRSrank", "DBGD", "MGD", "NSGD"),
+    "algorithm": ("PDGD", "DBGD", "MGD", "NSGD"),
     "feed": ("DeterministicOnlineSimulationFeed",
              "StochasticOnlineSimulationFeed"),
 }
