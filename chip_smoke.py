@@ -79,9 +79,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``--test_only`` and a ``Scorer`` on its checkpoint; Regression-EM and
     PairDebias ``Experiment`` checkpoints restored bit for bit, aux state
     included.
-14. Kernels: one JSON line listing K1-K5 (launches summed over the
-    serving, DLA training and offline training runs), then the result
-    line.
+14. Rankers and click models: the six configs that the Linear, SetRank,
+    DLCM and GSF rankers and the UBM and cascade click models bring
+    (``dla_ubm``, ``naive_cascade`` with the DNN at [512, 256, 128];
+    ``dla_setrank``, ``dla_dlcm``, ``naive_gsf``, ``naive_linear`` at the
+    JAX package's default hparams; PBM, UBM and cascade from
+    ``example/ClickModel/``), all at F = 136, B = 256, L = 10 on phase
+    7's data with every kernel hparam their paths allow. UBM and cascade
+    clicks on the card equal the CPU's given the same uniforms (cascade
+    at most one a list); one step each kernels on against plain (phase
+    10's tolerances); 2 windows x 50 steps each with exact launch counts
+    (the DNN configs K1 = steps + the validation batches and K2 = steps;
+    K3 = K4 = 2 x steps for DLA, steps for Naive; K5 = windows + 1 for
+    PBM, 0 for UBM and cascade; the same run plain launches nothing),
+    queries/s in turns (on, plain, plain, on), phase 7's step breakdown
+    for ``dla_setrank`` and ``dla_dlcm`` kernels on and plain, each
+    kernels-on run's
+    checkpoint loaded by ``Scorer.from_checkpoint`` and served over HTTP
+    through a ``MicroBatcher`` (every reply equal to direct scoring); and
+    SetRank at ``rate=0.1`` for 50 steps (finite losses, eval scores
+    unchanged by a second call).
+15. Kernels: one JSON line listing K1-K5 (launches summed over the
+    serving, DLA training, offline training and phase 14's runs), then
+    the result line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -290,14 +310,19 @@ def read_counts():
     return {k: fn.launches for k, fn in counters().items()}
 
 
-def phase_device():
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0 and smi.stdout.strip(),
           f"nvidia-smi: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    print(card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[device] {torch.cuda.get_device_name(0)} x "
@@ -871,7 +896,7 @@ def phase_training(dev, click_json):
 
 
 def step_breakdown(exp, tag: str = ""):
-    """Where a kernels-on step's time goes: CUDA events around each part of
+    """Where a step's time goes: CUDA events around each part of
     WINDOW steps (device time between the marks, which counts the device
     waiting on the host), the host's own time per part, then
     torch.profiler's device time per kernel over the same kind of steps.
@@ -919,7 +944,7 @@ def step_breakdown(exp, tag: str = ""):
     window()
     wall = time.perf_counter() - t0
     dev_ms = {p: sum(x.elapsed_time(y) for x, y in ev[p]) for p in parts}
-    print(f"{step_tag} {WINDOW} kernels-on steps in {1e3 * wall:.2f} ms wall "
+    print(f"{step_tag} {WINDOW} steps in {1e3 * wall:.2f} ms wall "
           f"({1e3 * wall / WINDOW:.3f} ms a step)", flush=True)
     for p in parts:
         print(f"{step_tag}   {p}: device span {dev_ms[p] / WINDOW:.4f} ms "
@@ -1233,40 +1258,41 @@ def offline_settings(algo: str, kernels: bool, click_json: str,
     return settings
 
 
-def phase_offline_step(dev, click_json):
-    """One step of each offline algorithm at full width on phase 6's fixed
-    batch, kernels on against the plain path from the same
-    initialisation (Regression-EM with the same uniforms): the loss and
-    the ranker's gradient."""
+def phase_one_step(dev, tag: str, names, settings_of):
+    """One step of each of `names` at full width on phase 6's fixed batch,
+    kernels on (``settings_of(name, True)``) against the plain path from
+    the same initialisation (Regression-EM with the same uniforms): the
+    loss within LOSS_TOL relative, the gradient of every trained tensor
+    within GRAD_TOL of its largest magnitude."""
     from ultra_pytorch_tpu_torch.run.experiment import create_algorithm
 
     batch = fixed_batch(dev)
     u = torch.rand((BATCH, LIST), generator=torch.Generator().manual_seed(
         4)).to(dev)
-    for algo in OFFLINE:
+    for name in names:
         out = {}
         for kernels in (True, False):
-            settings = offline_settings(algo, kernels, click_json)
+            settings = settings_of(name, kernels)
             settings.update(max_candidate_num=LIST)
             alg = create_algorithm(settings, FEATURES, 2.0, dev)
             state = alg.init_state(torch.Generator().manual_seed(1))
-            extra = (u,) if algo == "RegressionEM" else ()
+            extra = (u,) if alg.name == "regression_em" else ()
             loss = alg.losses(state, batch, *extra)[0]
             grads = torch.autograd.grad(loss, alg.trainable(state))
             out[kernels] = (loss.item(),
                             torch.cat([g.reshape(-1) for g in grads]))
         (loss_k, grad_k), (loss_p, grad_p) = out[True], out[False]
         err, rel = max_rel_err(grad_k, grad_p)
-        print(f"[offline step] {algo}: loss {loss_k:.6f} vs {loss_p:.6f} "
+        print(f"[{tag}] {name}: loss {loss_k:.6f} vs {loss_p:.6f} "
               f"(rel err {abs(loss_k - loss_p) / abs(loss_p):.3e}, limit "
-              f"{LOSS_TOL}); ranker gradient max abs {err:.3e} ({rel:.3e} "
-              f"of its largest, limit {GRAD_TOL})", flush=True)
-        check(math.isfinite(loss_k), f"{algo}: non-finite loss")
+              f"{LOSS_TOL}); gradient max abs {err:.3e} ({rel:.3e} of its "
+              f"largest, limit {GRAD_TOL})", flush=True)
+        check(math.isfinite(loss_k), f"{name}: non-finite loss")
         check(abs(loss_k - loss_p) <= LOSS_TOL * abs(loss_p),
-              f"{algo}: the loss differs between the kernels and the plain "
+              f"{name}: the loss differs between the kernels and the plain "
               "path")
-        check(rel <= GRAD_TOL, f"{algo}: the ranker gradient differs "
-              "between the kernels and the plain path")
+        check(rel <= GRAD_TOL, f"{name}: the gradient differs between the "
+              "kernels and the plain path")
 
 
 def fmt(values) -> str:
@@ -1291,13 +1317,57 @@ def check_aux(algo: str, aux) -> str:
     return "no aux state"
 
 
+def train_in_turns(tag: str, name: str, settings_of, want, dev, data):
+    """`name` for OFFLINE_WINDOWS x WINDOW steps at full width on phase 7's
+    data, four times in turns (kernels on, plain, plain, on): losses
+    finite, nDCG@10 in [0, 1], the first run's launches exactly `want`, a
+    plain run's none. Prints the first run and the queries/s of each run's
+    last window (the first is the warm-up). Returns the runs as (kernels,
+    experiment), the first run's launches and the rates by kernels."""
+    steps = OFFLINE_WINDOWS * WINDOW
+    runs, rates = [], {True: [], False: []}
+    for turn, kernels in enumerate((True, False, False, True)):
+        reset_counts()
+        seconds, losses, summaries, exp = train_run(
+            settings_of(name, kernels), dev, data, 0, OFFLINE_WINDOWS)
+        counts = read_counts()
+        ndcg = [x["ndcg_10"] for x in summaries]
+        check(all(math.isfinite(v) for v in losses),
+              f"{name}: non-finite training loss")
+        check(all(math.isfinite(v) and 0 <= v <= 1 for v in ndcg),
+              f"{name}: nDCG@10 out of [0, 1]")
+        rates[kernels].append(WINDOW * BATCH / seconds[-1])
+        if not kernels:
+            check(not any(counts.values()),
+                  f"{name}: the plain path launched a kernel")
+        if not turn:
+            first = counts
+            print(f"[{tag}] {name} kernels on: {steps} steps, launches "
+                  f"{counts} (expected {want}); losses {fmt(losses)}; "
+                  f"ndcg_10 {fmt(ndcg)}", flush=True)
+            for k, n in want.items():
+                check(counts[k] == n, f"{name}: {k} launched {counts[k]} "
+                      f"times on the training path, expected {n}")
+        runs.append((kernels, exp))
+    on, off = rates[True], rates[False]
+    print(f"[{tag}] {name} queries/s (host clock, window {OFFLINE_WINDOWS}, "
+          f"turns on/plain/plain/on): kernels on {on[0]:.0f} {on[1]:.0f}, "
+          f"plain {off[0]:.0f} {off[1]:.0f} ({sum(on) / sum(off):.2f}x of "
+          "the means)", flush=True)
+    return runs, first, rates
+
+
+def print_rates(tag: str, rates) -> None:
+    print(f"[{tag}] queries/s [on, on, plain, plain] on {card_line()}: "
+          + json.dumps({k: [round(x) for x in r[True] + r[False]]
+                        for k, r in rates.items()}), flush=True)
+
+
 def phase_offline_training(dev, click_json, data):
-    """Each offline algorithm for OFFLINE_WINDOWS x WINDOW steps at full
-    width on phase 7's data, all kernel hparams on, with exact launch
-    counts (the first run); the same run plain launches nothing. Runs in
-    turns (on, plain, plain, on) for queries/s of the last window of each
-    (the first window is the warm-up); then phase 7's step breakdown for
-    PairDebias. Returns the first kernels-on runs' launches, summed."""
+    """Each offline algorithm through ``train_in_turns`` with exact launch
+    counts, its aux state in range after every run; then phase 7's step
+    breakdown for PairDebias. Returns the first kernels-on runs'
+    launches, summed."""
     steps = OFFLINE_WINDOWS * WINDOW
     valid_batches = OFFLINE_WINDOWS * math.ceil(
         data["valid"].num_queries / BATCH)
@@ -1309,42 +1379,18 @@ def phase_offline_training(dev, click_json, data):
                 + valid_batches,
                 "K2": steps, "K3": steps if softmax else 0,
                 "K4": steps if softmax else 0, "K5": OFFLINE_WINDOWS + 1}
-        rates[algo] = {True: [], False: []}
-        for turn, kernels in enumerate((True, False, False, True)):
-            reset_counts()
-            seconds, losses, summaries, exp = train_run(
-                offline_settings(algo, kernels, click_json), dev, data, 0,
-                OFFLINE_WINDOWS)
-            counts = read_counts()
-            ndcg = [x["ndcg_10"] for x in summaries]
-            aux = check_aux(algo, exp.state.aux)
-            check(all(math.isfinite(v) for v in losses),
-                  f"{algo}: non-finite training loss")
-            check(all(math.isfinite(v) and 0 <= v <= 1 for v in ndcg),
-                  f"{algo}: nDCG@10 out of [0, 1]")
-            rates[algo][kernels].append(WINDOW * BATCH / seconds[-1])
-            if not kernels:
-                check(not any(counts.values()),
-                      f"{algo}: the plain path launched a kernel")
-            if turn:
-                continue
-            print(f"[offline] {algo} kernels on: {steps} steps, launches "
-                  f"{counts} (expected {want}); losses {fmt(losses)}; "
-                  f"ndcg_10 {fmt(ndcg)}; {aux}", flush=True)
-            for k, n in want.items():
-                check(counts[k] == n, f"{algo}: {k} launched {counts[k]} "
-                      f"times on the training path, expected {n}")
-                total[k] += counts[k]
-            if algo == "PairDebias":
-                pair_exp = exp
-        on, off = rates[algo][True], rates[algo][False]
-        print(f"[offline] {algo} queries/s (host clock, window "
-              f"{OFFLINE_WINDOWS}, turns on/plain/plain/on): kernels on "
-              f"{on[0]:.0f} {on[1]:.0f}, plain {off[0]:.0f} {off[1]:.0f} "
-              f"({sum(on) / sum(off):.2f}x of the means)", flush=True)
-    print("[offline] queries/s [on, on, plain, plain]: " + json.dumps(
-        {k: [round(x) for x in r[True] + r[False]]
-         for k, r in rates.items()}), flush=True)
+        runs, counts, rates[algo] = train_in_turns(
+            "offline", algo,
+            lambda a, kernels: offline_settings(a, kernels, click_json),
+            want, dev, data)
+        aux = [check_aux(algo, exp.state.aux) for _, exp in runs]
+        print(f"[offline] {algo} after {steps} steps (first run): {aux[0]}",
+              flush=True)
+        for k, n in counts.items():
+            total[k] += n
+        if algo == "PairDebias":
+            pair_exp = runs[0][1]
+    print_rates("offline", rates)
     step_breakdown(pair_exp, " PairDebias")
     return total
 
@@ -1434,6 +1480,189 @@ def phase_offline_cli(mlp, dev, click_json, data, data_dir, estimator_json):
               f"{algo}: the restored state differs from the saved one")
 
 
+# Phase 14: the six configs of configs/ that the new rankers and click
+# models bring, at full width: name -> (algorithm, ranker, ranker hparams,
+# click model). The rankers at the JAX package's default hparams; the DNN
+# at [512, 256, 128].
+RANKER_CONFIGS = {
+    "dla_ubm": ("DLA", "DNN", HIDDEN, "ubm"),
+    "naive_cascade": ("NaiveAlgorithm", "DNN", HIDDEN, "cascade"),
+    "dla_setrank": ("DLA", "SetRank",
+                    "d_model=256,num_heads=8,num_layers=2,diff=64", "pbm"),
+    "dla_dlcm": ("DLA", "DLCM", "embed_size=64,hidden_size=64", "pbm"),
+    "naive_gsf": ("NaiveAlgorithm", "GSF",
+                  "group_size=2,hidden_layer_sizes=[256, 128]", "pbm"),
+    "naive_linear": ("NaiveAlgorithm", "Linear", "", "pbm"),
+}
+# The configs whose steps phase 14 breaks down, kernels on and plain.
+BREAKDOWN_CONFIGS = ("dla_setrank", "dla_dlcm")
+CLICK_JSONS = {  # the reference's click-model files
+    "pbm": "pbm_0.1_1.0_4_1.0.json", "ubm": "ubm_0.1_1_4_1.0.json",
+    "cascade": "cascade_0.1_1.0_4_1.0.json"}
+
+
+def ranker_settings(config: str, kernels: bool, extra_hparams: str = ""):
+    """Phase 7's settings for one of RANKER_CONFIGS, with every kernel
+    hparam its path allows when `kernels`: ``use_pallas`` for the DNN,
+    ``fused_softmax_loss``, and ``use_pallas_click`` for PBM."""
+    algo, ranker, hp, click = RANKER_CONFIGS[config]
+    on = "true" if kernels else "false"
+    click_json = os.path.join(ROOT, "example", "ClickModel",
+                              CLICK_JSONS[click])
+    feed = f"click_model_json={click_json}"
+    if click == "pbm":
+        feed += f",use_pallas_click={on}"
+    if ranker == "DNN":
+        hp += f",use_pallas={on}"
+    hp = ",".join(x for x in (hp, extra_hparams) if x)
+    settings = dla_settings(kernels, click_json)
+    settings.update(train_input_hparams=feed, ranking_model=ranker,
+                    ranking_model_hparams=hp, learning_algorithm=algo)
+    return settings
+
+
+def expected_launches(config: str, steps: int, windows: int,
+                      valid_batches: int):
+    """The exact launch counts of a kernels-on run of `config`."""
+    algo, ranker, _, click = RANKER_CONFIGS[config]
+    dnn = ranker == "DNN"
+    losses = (2 if algo == "DLA" else 1) * steps
+    return {"K1": steps + valid_batches if dnn else 0,
+            "K2": steps if dnn else 0, "K3": losses, "K4": losses,
+            "K5": windows + 1 if click == "pbm" else 0}
+
+
+def phase_ranker_clicks(dev):
+    """UBM and cascade clicks on the card equal the same function on the
+    CPU given the same uniforms (masked lists, eta 1); cascade clicks at
+    most once a list."""
+    from ultra_pytorch_tpu_torch.sim import click_models as cm
+
+    gen = torch.Generator().manual_seed(5)
+    shape = (16384, LIST)
+    labels = torch.randint(0, 5, shape, generator=gen).float()
+    mask = (torch.rand(shape, generator=gen) < 0.9).float()
+    u = torch.rand(shape, generator=gen)
+    for name in ("ubm", "cascade"):
+        model = cm.load_model_from_file(os.path.join(
+            ROOT, "example", "ClickModel", CLICK_JSONS[name]))
+        want = cm.clicks_from_uniforms(model, labels, u, mask)
+        got = cm.clicks_from_uniforms(model.to(dev), labels.to(dev),
+                                      u.to(dev), mask.to(dev))
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        per_list = got[0].sum(dim=1)
+        print(f"[rankers] {model.model_name} clicks on the card vs the CPU "
+              f"on {shape[0]} lists: equal {same}; clicks a list mean "
+              f"{per_list.mean().item():.3f} max {per_list.max().item():.0f}",
+              flush=True)
+        check(same, f"{name} clicks on the card differ from the CPU's")
+        if name == "cascade":
+            check(per_list.max().item() <= 1, "cascade clicked twice")
+
+
+def serve_checkpoint(exp, dev, config: str) -> None:
+    """Save `exp`, load it with ``Scorer.from_checkpoint`` and serve it over
+    HTTP through a ``MicroBatcher``: every reply equals the Scorer's direct
+    scoring of that request (lists of 9-16 documents, one list bucket)."""
+    from ultra_pytorch_tpu_torch.serve import MicroBatcher, Scorer, \
+        make_server
+
+    shutil.rmtree(exp.model_dir, ignore_errors=True)
+    exp.save({"step": exp.state.step})
+    scorer = Scorer.from_checkpoint(exp.model_dir, device=dev)
+    dnn = RANKER_CONFIGS[config][1] == "DNN"
+    check(bool(scorer.ranker.hparams.get("use_pallas")) == dnn,
+          f"{config}: the Scorer's K1 choice is wrong")
+    rng = np.random.default_rng(1)
+    requests = [[rng.normal(size=(rng.integers(9, 17), FEATURES))
+                 .astype(np.float32) for _ in range(rng.integers(1, 9))]
+                for _ in range(6)]
+    batcher = MicroBatcher(scorer)
+    server = make_server(scorer, port=0, batcher=batcher)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = "http://%s:%d/v1/rank" % server.server_address
+
+    def post(qs):
+        body = json.dumps({"queries": [q.tolist() for q in qs]}).encode()
+        req = urllib.request.Request(
+            url, data=body, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    try:
+        with ThreadPoolExecutor(len(requests)) as pool:
+            replies = list(pool.map(post, requests))
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+        thread.join(timeout=30)
+    worst = 0.0
+    for qs, out in zip(requests, replies):
+        check(len(out["ranked"]) == len(qs), f"{config}: reply lost queries")
+        for q, ranked, scores in zip(qs, out["ranked"], out["scores"]):
+            direct = scorer.score(q[None])[0]
+            got = np.asarray(scores, np.float32)
+            check(sorted(ranked) == list(range(len(q)))
+                  and got.shape == direct.shape
+                  and bool(np.isfinite(got).all()),
+                  f"{config}: malformed reply")
+            worst = max(worst, float(np.abs(got - direct).max()))
+            check(np.allclose(got, direct, rtol=TOL, atol=TOL),
+                  f"{config}: a served reply differs from direct scoring")
+    print(f"[rankers serve] {config}: {type(scorer.ranker).__name__} "
+          f"checkpoint (step {exp.state.step}) served over HTTP, "
+          f"{sum(len(qs) for qs in requests)} queries in "
+          f"{batcher.device_calls} device calls; max abs diff vs direct "
+          f"scoring {worst:.3e}", flush=True)
+
+
+def phase_rankers(dev, data):
+    """Phase 14: the new click models on the card, one step of each of
+    RANKER_CONFIGS kernels on vs plain, then each 2 windows x 50 steps on
+    phase 7's data in turns (on, plain, plain, on) with exact launch
+    counts (the first run; plain launches nothing), its checkpoint served,
+    phase 7's step breakdown for BREAKDOWN_CONFIGS kernels on and plain,
+    and SetRank with dropout. Returns the first kernels-on runs'
+    launches, summed."""
+    phase_ranker_clicks(dev)
+    phase_one_step(dev, "rankers step", RANKER_CONFIGS, ranker_settings)
+    steps = OFFLINE_WINDOWS * WINDOW
+    valid_batches = OFFLINE_WINDOWS * math.ceil(
+        data["valid"].num_queries / BATCH)
+    total = dict.fromkeys(counters(), 0)
+    rates = {}
+    for config in RANKER_CONFIGS:
+        runs, counts, rates[config] = train_in_turns(
+            "rankers", config, ranker_settings,
+            expected_launches(config, steps, OFFLINE_WINDOWS, valid_batches),
+            dev, data)
+        for k, n in counts.items():
+            total[k] += n
+        serve_checkpoint(runs[0][1], dev, config)
+        if config in BREAKDOWN_CONFIGS:
+            for kernels, exp in runs[:2]:
+                mode = "on" if kernels else "plain"
+                step_breakdown(exp, f" {config} {mode}")
+    print_rates("rankers", rates)
+
+    # SetRank with dropout: 50 steps draw their masks from the window's
+    # generator; eval scoring stays deterministic.
+    _, losses, _, exp = train_run(
+        ranker_settings("dla_setrank", True, "rate=0.1"), dev, data, 0, 1)
+    first = exp.test_scores("valid")
+    again = exp.test_scores("valid")
+    print(f"[rankers] SetRank rate=0.1: {WINDOW} steps, loss "
+          f"{fmt(losses)}; eval scores of the valid split equal on a second "
+          f"call: {np.array_equal(first, again)}", flush=True)
+    check(all(math.isfinite(v) for v in losses) and exp.state.step == WINDOW,
+          "SetRank with dropout did not train")
+    check(np.array_equal(first, again) and bool(np.isfinite(first).all()),
+          "SetRank's eval scores changed between two calls")
+    return total
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1463,13 +1692,17 @@ def main() -> int:
     timing = phase_kernel_timing(mlp, gen, dev, pool)
     timing.update(phase_loss_timing(gen, dev))
     timing["K1"] = k1_timing
-    phase_offline_step(dev, click_json)
+    phase_one_step(dev, "offline step", OFFLINE,
+                   lambda algo, kernels: offline_settings(algo, kernels,
+                                                          click_json))
     offline_counts = phase_offline_training(dev, click_json, data)
     estimator_json = phase_propensity(dev, data, click_json, data_dir)
     phase_offline_cli(mlp, dev, click_json, data, data_dir, estimator_json)
+    ranker_counts = phase_rankers(dev, data)
     counts["K1"] += serving_launches
-    for k, n in offline_counts.items():
-        counts[k] += n
+    for part in (offline_counts, ranker_counts):
+        for k, n in part.items():
+            counts[k] += n
     sources = {
         "K1": ("fused_mlp_fwd", "mlp_fwd.cu",
                "ultra_pytorch_tpu/ops/pallas/mlp.py:91"),

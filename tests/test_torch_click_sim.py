@@ -1,4 +1,5 @@
-"""K5, the PBM click sampler, and the PBM click model against JAX.
+"""K5, the PBM click sampler, and the PBM click model against JAX (UBM
+and cascade are held in ``test_torch_click_models.py``).
 
 The kernel's random bits are Philox4x32-10, which the JAX sampler does
 not use, so the two are compared in two ways: given JAX's own uniforms,
@@ -151,5 +152,20 @@ def test_click_model_files_match_jax(tmp_path):
 
 @pytest.mark.parametrize("name", ["ubm", "cascade"])
 def test_other_click_models_are_not_yet_ported(name):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cm.make_click_model(name)
+    """UBM and cascade are ported: ``make_click_model`` builds JAX's
+    tables, and a JSON written by the port loads in JAX (and back) as the
+    same model."""
+    mine = cm.make_click_model(name, 0.1, 1.0, 4, 1.0)
+    theirs = jax_cm.make_click_model(name, 0.1, 1.0, 4, 1.0)
+    assert mine.model_name == theirs.model_name
+    for a, b in ((mine.exam_prob, theirs.exam_prob),
+                 (mine.click_prob, theirs.click_prob)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    crossed = jax_cm.load_model_from_json(cm.model_to_json(mine))
+    back = cm.load_model_from_json(jax_cm.model_to_json(crossed))
+    assert back.model_name == crossed.model_name == mine.model_name
+    np.testing.assert_array_equal(np.asarray(crossed.exam_prob),
+                                  mine.exam_prob.numpy())
+    np.testing.assert_array_equal(back.exam_prob.numpy(),
+                                  mine.exam_prob.numpy())
+    assert float(back.eta) == float(crossed.eta) == 1.0

@@ -2,8 +2,8 @@
 
 The same override strings go through the JAX ``HParams`` and the port's;
 the results (or the errors) must be identical. The registry resolves the
-names that checkpoints and ``configs/*.json`` carry, and a ranker that is
-not yet ported raises instead of falling back.
+names that checkpoints and ``configs/*.json`` carry, and a component
+that is not yet ported raises instead of falling back.
 """
 
 import pytest
@@ -84,14 +84,22 @@ def test_registry_resolves_dnn(name):
 
 
 def test_registry_lists_ported_rankers():
-    assert registry.list_available("ranker") == ["DNN"]
+    assert registry.list_available("ranker") == [
+        "DLCM", "DNN", "GSF", "Linear", "SetRank"]
 
 
 @pytest.mark.parametrize("name", ["Linear", "SetRank", "DLCM", "GSF",
                                   "ultra.ranking_model.SetRank"])
 def test_unported_ranker_raises(name):
-    with pytest.raises(KeyError, match="not yet ported"):
-        registry.find_class(name, kind="ranker")
+    """The four rankers of the JAX package that were not ported before are
+    now: each name resolves to the port's class, and none raises."""
+    import importlib
+
+    short = name.rsplit(".", 1)[-1]
+    module = importlib.import_module(
+        f"ultra_pytorch_tpu_torch.models.{short.lower()}")
+    assert registry.find_class(name, kind="ranker") is getattr(module, short)
+    assert registry.find_class(name) is getattr(module, short)
 
 
 def test_unknown_component_raises():

@@ -1,5 +1,6 @@
-"""The port's propensity estimators, PBM propensity weights and ranking
-samplers against the JAX package's, and the estimator CLI
+"""The port's propensity estimators (over PBM, UBM and cascade), the
+click models' propensity weights and the ranking samplers against the
+JAX package's, and the estimator CLI
 (``python -m ultra_pytorch_tpu_torch.sim.propensity --device cpu``).
 
 Deterministic pieces (the Basic and Oracle weights, ``rerank``,
@@ -79,11 +80,52 @@ def test_oracle_pbm_weights_equal_jax_exactly(tmp_path, eta,
 
 
 def test_propensity_weights_of_other_click_models_raise():
-    pbm = cm.make_click_model("pbm")
-    ubm = cm.ClickModelParams(pbm.click_prob, pbm.exam_prob, pbm.eta,
-                              model_name="user_browsing_model")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cm.propensity_weights(ubm, torch.ones(2, 10))
+    """UBM's weights (ported, no longer raising) equal JAX's: ``1 / exam``
+    given the clicks before each position."""
+    clicks = _clicks(L=12)
+    for use_non_clicked in (False, True):
+        got = cm.propensity_weights(cm.make_click_model("ubm"),
+                                    torch.from_numpy(clicks),
+                                    use_non_clicked)
+        want = jax_cm.propensity_weights(jax_cm.make_click_model("ubm"),
+                                         clicks, use_non_clicked)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["ubm", "cascade"])
+def test_oracle_weights_of_ubm_and_cascade_equal_jax(tmp_path, name):
+    """The Oracle estimator reads a UBM or cascade model from its JSON and
+    weights click patterns as JAX's does (UBM through its sequential
+    walk), within 1e-6."""
+    desc = cm.click_model_json_numpy(name, 0.1, 1.0, 4, 1.0)
+    path = tmp_path / "oracle.json"
+    path.write_text(json.dumps({"click_model": desc, "IPW_list": [1.0]}))
+    clicks = _clicks(L=13)
+    for use_non_clicked in (False, True):
+        got = prop.OraclePropensityEstimator(file_name=str(path)).weights(
+            torch.from_numpy(clicks), use_non_clicked)
+        want = jax_prop.OraclePropensityEstimator(
+            file_name=str(path)).weights(clicks, use_non_clicked)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["ubm", "cascade"])
+def test_randomized_estimates_of_ubm_and_cascade_match_jax(name):
+    """200k randomized sessions through each package's sampler: the two
+    estimates agree within 8% at every position (their spread at this
+    count is under 3%)."""
+    labels, mask = _pbm_labels()
+    est = prop.RandomizedPropensityEstimator()
+    est.estimate_from_model(cm.make_click_model(name), labels, mask,
+                            sessions=200_000, batch=1 << 15, device="cpu")
+    jax_est = jax_prop.RandomizedPropensityEstimator()
+    jax_est.estimate_from_model(jax_cm.make_click_model(name), labels, mask,
+                                sessions=200_000, batch=1 << 15)
+    assert est.click_model.model_name == jax_est.click_model.model_name
+    assert abs(est.IPW_list[0] - 1.0) < 1e-6   # the 10e-6 epsilon
+    np.testing.assert_allclose(est.IPW_list, jax_est.IPW_list, rtol=0.08)
 
 
 def _pbm_labels(Q=50, L=6):

@@ -154,14 +154,32 @@ def test_per_bucket_record(scorer):
     assert scorer.bucket_calls[(16, 16)] == 1
 
 
-def test_use_pallas_needs_the_dnn(model_dir):
+def test_use_pallas_needs_the_dnn(tmp_path):
+    """A Linear checkpoint (written by JAX, with its serve metadata) serves
+    through the generic bridge and scores as the JAX Linear does; forcing
+    K1 for it still raises."""
+    from ultra_pytorch_tpu.models.linear import Linear as JaxLinear
+    from ultra_pytorch_tpu_torch.models.linear import Linear
+
+    jax_linear = JaxLinear("", 12)
+    params = jax_linear.init(jax.random.PRNGKey(2), 12)
+    jax_ckpt.save_checkpoint(
+        str(tmp_path / "NaiveAlgorithm.ckpt"),
+        (params, {"extra": np.zeros(3)}),
+        metadata={"serve": {"feature_size": 12, "exp_settings": {
+            "ranking_model": "ultra.ranking_model.Linear",
+            "ranking_model_hparams": ""}}})
+    linear = Scorer.from_checkpoint(str(tmp_path), device="cpu")
+    assert isinstance(linear.ranker, Linear)
+    feats, n_valid = _lists(12, seed=3), [7, 3, 5]
+    got = linear.score(feats, n_valid)
+    want = np.asarray(jax_linear.apply(params, feats))
+    for i, n in enumerate(n_valid):
+        np.testing.assert_allclose(got[i, :n], want[i, :n], rtol=TOL,
+                                   atol=TOL)
+        assert (got[i, n:] < -1e29).all()
     with pytest.raises(ValueError, match="requires the DNN"):
-        Scorer.from_checkpoint(model_dir, exp_settings={
-            "ranking_model": "ultra.ranking_model.Linear"},
-            use_pallas=True, device="cpu")
-    with pytest.raises(KeyError, match="not yet ported"):
-        Scorer.from_checkpoint(model_dir, exp_settings={
-            "ranking_model": "ultra.ranking_model.Linear"}, device="cpu")
+        Scorer.from_checkpoint(str(tmp_path), use_pallas=True, device="cpu")
 
 
 def test_microbatcher_parity_and_coalescing(scorer, jax_scorer):

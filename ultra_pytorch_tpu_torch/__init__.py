@@ -4,18 +4,23 @@ A second package beside the JAX one, mirroring its layout: each module
 sits under the same relative path as its JAX counterpart. It imports
 ``torch`` and never JAX. Every Pallas kernel of the JAX package becomes a
 kernel written by hand for Hopper, with a plain PyTorch version beside it
-that serves CPU tensors. Ported so far, serving and DLA training:
+that serves CPU tensors. Ported so far, serving and the offline training
+paths:
 
 - ``utils``       settings grammar (``HParams``), registry, ``.npz``
                   checkpoints shared with the JAX trainer, metric logs.
 - ``data``        the ULTRA-format loader, device datasets, TREC ranklists.
-- ``sim``         the PBM click model.
-- ``models``      the DNN ranker (LayerNorm -> Linear -> activation).
+- ``sim``         the PBM, UBM and cascade click models, the propensity
+                  estimators and the ranking samplers.
+- ``models``      the DNN, Linear, SetRank, DLCM and GSF rankers, and the
+                  generic weight bridge to the JAX params trees.
 - ``ops``         the losses and the kernels: K1/K2 the fused MLP forward
                   and backward, K3/K4 the fused listwise softmax loss and
                   its gradient, K5 the PBM click sampler (``ops/kernels``).
 - ``metrics``     the eight ranking metrics.
-- ``algorithms``  DLA with the torch-exact flat Adagrad.
+- ``algorithms``  DLA and the offline debiasing family (Naive, IPW,
+                  Regression-EM, PairDebias, LambdaRank, PRS) with the
+                  torch-exact flat Adagrad.
 - ``input_layer`` ``ClickSimulationFeed`` and ``DirectLabelFeed``.
 - ``run``         ``Experiment`` and the training CLI
                   (``python -m ultra_pytorch_tpu_torch.run``).

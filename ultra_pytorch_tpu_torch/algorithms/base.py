@@ -10,10 +10,15 @@ autograd and returns the state and the step's metrics as 0-dim device
 tensors (no host round trip per step).
 
 A step is split so that each part can be driven alone: ``losses(state,
-batch, ...)`` returns a tuple whose first element is the differentiable
-loss (the rest is what the aux update needs), ``trainable(state)`` the
-tensors it is differentiated in, ``apply_gradients`` the optimizer step
-and ``update_aux`` the aux state's update from the ``losses`` tuple.
+batch, ..., generator=None)`` returns a tuple whose first element is the
+differentiable loss (the rest is what the aux update needs),
+``trainable(state)`` the tensors it is differentiated in,
+``apply_gradients`` the optimizer step and ``update_aux`` the aux state's
+update from the ``losses`` tuple. ``losses`` scores in training mode
+through :meth:`BaseAlgorithm.score_with_params`, which hands the ranker
+the step's generator for its dropout (SetRank at ``rate > 0``; every other
+ranker, and ``rate = 0``, draws nothing, so the streams are those of a
+ranker without dropout).
 
 The optimizers follow ``make_optimizer`` of the JAX package exactly: a
 clip by global norm written to optax's rule (``g / norm * max_norm`` when
@@ -39,17 +44,13 @@ import numpy as np
 import torch
 
 from ultra_pytorch_tpu_torch.metrics import ranking as metrics_lib
+from ultra_pytorch_tpu_torch.models.base import Leaf
 from ultra_pytorch_tpu_torch.ops import losses
 from ultra_pytorch_tpu_torch.utils.checkpoint import tree_leaves
 from ultra_pytorch_tpu_torch.utils.hparams import HParams
 
 PADDING_SCORE = metrics_lib.PADDING_SCORE
 ADAGRAD_EPS = 1e-10
-
-# A tensor in JAX's leaf order, and whether JAX stores it transposed (a
-# Linear's w is [in, out] in JAX, [out, in] in nn.Linear).
-Leaf = Tuple[torch.Tensor, bool]
-
 
 @dataclasses.dataclass
 class TrainState:
@@ -76,6 +77,16 @@ def add_flat_(leaves: Sequence[Leaf], flat: torch.Tensor) -> None:
                 piece = piece.view(t.shape[1], t.shape[0]).t()
             t.add_(piece.view(t.shape))
             off += n
+
+
+def gradients(loss: torch.Tensor, inputs: Sequence[torch.Tensor]
+              ) -> List[torch.Tensor]:
+    """``d loss / d input`` for every input; zeros for an input the loss
+    does not reach (a skipped LayerNorm under ``norm=none``), as
+    ``jax.grad`` gives."""
+    grads = torch.autograd.grad(loss, list(inputs), allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g
+            for t, g in zip(inputs, grads)]
 
 
 def clip_by_global_norm(g: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -189,10 +200,12 @@ class BaseAlgorithm:
                           aux=None, step=0)
 
     # -- a step, in parts -------------------------------------------------
-    def losses(self, state: TrainState, batch: Dict[str, torch.Tensor]
+    def losses(self, state: TrainState, batch: Dict[str, torch.Tensor],
+               *, generator: Optional[torch.Generator] = None
                ) -> Tuple[torch.Tensor, ...]:
         """(loss, ...): the differentiable loss first, then whatever
-        :meth:`update_aux` needs."""
+        :meth:`update_aux` needs; `generator` goes to
+        :meth:`score_with_params`."""
         raise NotImplementedError
 
     def trainable(self, state: TrainState) -> List[torch.Tensor]:
@@ -220,9 +233,10 @@ class BaseAlgorithm:
         return {"loss": out[0].detach()}
 
     def _step(self, state: TrainState, batch: Dict[str, torch.Tensor],
-              *extra) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        out = self.losses(state, batch, *extra)
-        grads = torch.autograd.grad(out[0], self.trainable(state))
+              *extra, generator: Optional[torch.Generator] = None
+              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        out = self.losses(state, batch, *extra, generator=generator)
+        grads = gradients(out[0], self.trainable(state))
         state = self.update_aux(self.apply_gradients(state, grads), out)
         return state, self.metrics(out)
 
@@ -231,8 +245,9 @@ class BaseAlgorithm:
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One step. `generator` is the window's device generator (the one
         the feed's plan drew from); an algorithm that draws takes its
-        draws from it, in step order."""
-        return self._step(state, batch)
+        draws from it, in step order, and the ranker's dropout masks come
+        after them."""
+        return self._step(state, batch, generator=generator)
 
     # -- checkpoint layout ------------------------------------------------
     def _state_targets(self, state: TrainState) -> List[Leaf]:
@@ -266,6 +281,15 @@ class BaseAlgorithm:
               ) -> torch.Tensor:
         """Eval-mode scoring of a full candidate list."""
         return state.params(batch["features"], batch.get("mask"))
+
+    def score_with_params(self, params: torch.nn.Module,
+                          batch: Dict[str, torch.Tensor],
+                          generator: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+        """Training-mode scoring: the ranker's dropout (if any) draws from
+        `generator`; without one, a ranker with ``rate > 0`` raises."""
+        return params(batch["features"], batch.get("mask"),
+                      generator=generator, training=True)
 
     def validation_metrics(self, state: TrainState,
                            batch: Dict[str, torch.Tensor],

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from ultra_pytorch_tpu_torch.algorithms.base import (
     BaseAlgorithm, TrainState, make_optimizer)
-from ultra_pytorch_tpu_torch.models import dnn
+from ultra_pytorch_tpu_torch.models import base
 from ultra_pytorch_tpu_torch.utils.registry import register
 
 
@@ -115,14 +115,15 @@ class DLA(BaseAlgorithm):
         return [t for t, _ in state.params.jax_leaves()
                 + self._prop_leaves(state.aux["propensity"])]
 
-    def losses(self, state: TrainState, batch: Dict[str, torch.Tensor]
+    def losses(self, state: TrainState, batch: Dict[str, torch.Tensor], *,
+               generator=None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The step's (loss, rank_loss, exam_loss), differentiable in both
         towers."""
         batch = self.train_slice(batch)
         labels = batch["labels"]
         mask = batch.get("mask")
-        scores = state.params(batch["features"], mask)
+        scores = self.score_with_params(state.params, batch, generator)
         prop_logits = self._propensity_logits(
             state.aux["propensity"])[None, :].expand(labels.shape)
         pw = self._normalized_weights(
@@ -157,9 +158,9 @@ class DLA(BaseAlgorithm):
 
 def params_to_jax(state: TrainState) -> Dict[str, Any]:
     """Both towers as the JAX DLA's numpy trees:
-    ``{"params": <DNN tree>, "propensity": {"w", "b"}}``."""
+    ``{"params": <ranker tree>, "propensity": {"w", "b"}}``."""
     prop = state.aux["propensity"]
-    return {"params": dnn.params_to_jax(state.params),
+    return {"params": base.params_to_jax(state.params),
             "propensity": {k: v.detach().cpu().numpy().copy()
                            for k, v in prop.items()}}
 
@@ -168,7 +169,7 @@ def params_from_jax(state: TrainState, params: Dict[str, Any],
                     propensity: Dict[str, Any]) -> TrainState:
     """Load the JAX DLA's ranker params and propensity tower into
     `state` (numpy or JAX arrays)."""
-    dnn.params_from_jax(state.params, params)
+    base.params_from_jax(state.params, params)
     with torch.no_grad():
         for k, t in state.aux["propensity"].items():
             t.copy_(torch.as_tensor(np.array(propensity[k])))

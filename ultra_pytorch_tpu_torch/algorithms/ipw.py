@@ -54,10 +54,10 @@ class IPWrank(BaseAlgorithm):
         super().__init__(*args, **kwargs)
         self.propensity_estimator = load_estimator(self.hparams)
 
-    def losses(self, state, batch):
+    def losses(self, state, batch, *, generator=None):
         batch = self.train_slice(batch)
         clicks, mask = batch["labels"], batch.get("mask")
         pw = self.propensity_estimator.weights(clicks)
-        scores = state.params(batch["features"], mask)
+        scores = self.score_with_params(state.params, batch, generator)
         loss = self.loss_fn(scores, clicks, pw, mask=mask)
         return (loss + self.l2_penalty(self.trainable(state)),)

@@ -80,10 +80,10 @@ class LambdaRank(BaseAlgorithm):
         delta = self.delta_ndcg(ideal_sorted, labels_sorted)
         return order, p_ij, std_p_ij, delta
 
-    def losses(self, state, batch):
+    def losses(self, state, batch, *, generator=None):
         """(loss, pair_loss [L, L] without its gradient)."""
         batch = self.train_slice(batch)
-        scores = state.params(batch["features"], batch.get("mask"))
+        scores = self.score_with_params(state.params, batch, generator)
         _, p_ij, std_p_ij, delta = self._pair_matrices(scores,
                                                        batch["labels"])
         pair_loss = torch.sum(bce_with_logits(p_ij, std_p_ij) * delta, dim=0)

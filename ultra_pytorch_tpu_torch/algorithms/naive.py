@@ -19,9 +19,9 @@ class NaiveAlgorithm(BaseAlgorithm):
 
     name = "naive"
 
-    def losses(self, state, batch):
+    def losses(self, state, batch, *, generator=None):
         batch = self.train_slice(batch)
         mask = batch.get("mask")
-        scores = state.params(batch["features"], mask)
+        scores = self.score_with_params(state.params, batch, generator)
         loss = self.loss_fn(scores, batch["labels"], mask=mask)
         return (loss + self.l2_penalty(self.trainable(state)),)

@@ -60,14 +60,14 @@ class PairDebias(BaseAlgorithm):
                                      - scores[:, None, :])))
         return torch.sum(valid_pair * ce, dim=0)
 
-    def losses(self, state, batch):
+    def losses(self, state, batch, *, generator=None):
         """(loss, pair_loss [L, L] without its gradient)."""
         batch = self.train_slice(batch)
         clicks, mask = batch["labels"], batch.get("mask")
         t_plus, t_minus = state.aux["t_plus"], state.aux["t_minus"]
         L = clicks.shape[1]
         off_diag = 1.0 - torch.eye(L, device=clicks.device)
-        scores = state.params(batch["features"], mask)
+        scores = self.score_with_params(state.params, batch, generator)
         pair_loss = self._pair_loss_matrix(scores, clicks, mask) * off_diag
         loss = torch.sum(pair_loss / (t_plus[:, None] * t_minus[None, :]))
         return (loss + self.l2_penalty(self.trainable(state)),

@@ -56,7 +56,7 @@ class PRSrank(LambdaRank):
     def init_state(self, generator):
         return BaseAlgorithm.init_state(self, generator)
 
-    def losses(self, state, batch):
+    def losses(self, state, batch, *, generator=None):
         batch = self.train_slice(batch)
         clicks = batch["labels"]
         L = clicks.shape[1]
@@ -65,7 +65,7 @@ class PRSrank(LambdaRank):
         pw = safe_div(torch.ones_like(ipw), ipw)
         triu = torch.triu(torch.ones((L, L), device=clicks.device),
                           diagonal=1)[None]
-        scores = state.params(batch["features"], batch.get("mask"))
+        scores = self.score_with_params(state.params, batch, generator)
         order, p_ij, std_p_ij, delta = self._pair_matrices(scores, clicks)
         prs = (torch.gather(ipw, 1, order)[:, :, None]
                * torch.gather(pw, 1, order)[:, None, :] * triu)

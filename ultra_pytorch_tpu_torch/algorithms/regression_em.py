@@ -2,8 +2,10 @@
 
 The port's counterpart of the JAX package's ``algorithms/regression_em.py``:
 
-* E-step: from scores of a no-grad forward (a second K1 launch with
-  ``use_pallas=true``), ``gamma = sigmoid(scores)`` and the posterior
+* E-step: from scores of a no-grad training-mode forward without a
+  generator (a second K1 launch with ``use_pallas=true``; a ranker with
+  dropout raises there, as in the JAX package, whose E-step passes no
+  rng), ``gamma = sigmoid(scores)`` and the posterior
   relevance ``p_r1 = c + (1 - c) (1 - prop) gamma / (1 - prop gamma)``;
   Bernoulli pseudo-labels ``ceil(p_r1 - u)`` trained with BCE;
 * M-step: the propensity ``[1, L]`` (``aux["propensity"]``, from 0.9)
@@ -44,14 +46,14 @@ class RegressionEM(BaseAlgorithm):
             (1, self.rank_list_size), 0.9, device=self.device)}
         return state
 
-    def losses(self, state, batch, u):
+    def losses(self, state, batch, u, *, generator=None):
         """(loss, M-step target [1, L]) with the uniforms `u` of the
         step's Bernoulli pseudo-labels."""
         batch = self.train_slice(batch)
         clicks, mask = batch["labels"], batch.get("mask")
         propensity = state.aux["propensity"]
         with torch.no_grad():
-            gamma = torch.sigmoid(state.params(batch["features"], mask))
+            gamma = torch.sigmoid(self.score_with_params(state.params, batch))
             denom = 1.0 - propensity * gamma
             p_e1_r0_c0 = propensity * (1.0 - gamma) / denom
             p_e0_r1_c0 = (1.0 - propensity) * gamma / denom
@@ -59,8 +61,9 @@ class RegressionEM(BaseAlgorithm):
             ranker_labels = torch.ceil(p_r1 - u)
             target = torch.mean(clicks + (1.0 - clicks) * p_e1_r0_c0,
                                 dim=0, keepdim=True)
-        bce = bce_with_logits(state.params(batch["features"], mask),
-                              ranker_labels)
+        bce = bce_with_logits(
+            self.score_with_params(state.params, batch, generator),
+            ranker_labels)
         if mask is not None:
             loss = torch.sum(bce * mask) / torch.clamp_min(torch.sum(mask),
                                                            1.0)
@@ -74,11 +77,12 @@ class RegressionEM(BaseAlgorithm):
                      + alpha * out[1]}
         return state
 
-    def step_with_uniforms(self, state, batch, u):
-        """One step with the pseudo-labels' uniforms `u` ``[B, L]``."""
-        return self._step(state, batch, u)
+    def step_with_uniforms(self, state, batch, u, generator=None):
+        """One step with the pseudo-labels' uniforms `u` ``[B, L]``;
+        `generator` goes to the ranker's dropout."""
+        return self._step(state, batch, u, generator=generator)
 
     def train_step(self, state, batch, generator=None):
         shape = self.train_slice(batch)["labels"].shape
         u = torch.rand(shape, generator=generator, device=self.device)
-        return self.step_with_uniforms(state, batch, u)
+        return self.step_with_uniforms(state, batch, u, generator)

@@ -107,7 +107,8 @@ class ClickSimulationFeed(BaseInputFeed):
             "oracle_mode": False,
             "dynamic_bias_eta_change": 0.0,
             "dynamic_bias_step_interval": 1000,
-            # PBM clicks through K5 (ops/kernels/click_sim.py).
+            # PBM clicks through K5 (ops/kernels/click_sim.py); another
+            # click model with it raises at construction.
             "use_pallas_click": False,
             "resample_strategy": "compact",
             # Pool size multiple; 0 = auto-size from the click rate
@@ -125,6 +126,13 @@ class ClickSimulationFeed(BaseInputFeed):
                 raise FileNotFoundError(f"click model json not found: {path}")
             self.click_model = cm.load_model_from_file(path).to(
                 self.dataset.device)
+            if (self.hparams.use_pallas_click
+                    and self.click_model.model_name != cm.PBM):
+                # The JAX feed falls back to its jnp sampler here; the
+                # port says so at construction instead.
+                raise ValueError(
+                    "use_pallas_click=true samples PBM clicks through K5; "
+                    f"{path} is a {self.click_model.model_name}")
         self._p_click_lo = self._estimate_click_rate()
 
     # -- click model --------------------------------------------------------

@@ -11,30 +11,21 @@ unchanged; here it selects the hand-written CUDA kernels
 gradients, K2 for the backward, as the TPU's Pallas kernels did. Without
 it the DNN trains through autograd of its plain path.
 
-Weights cross from JAX through :func:`params_from_jax`: JAX stores a
-Linear's ``w`` as ``[in, out]`` and ``nn.Linear`` as ``[out, in]``.
+Weights cross from JAX through the generic bridge of ``models/base.py``
+(:func:`params_from_jax` / :func:`params_to_jax` here are thin wrappers):
+per layer ``linear{b, w}`` then ``norm{bias, scale}``.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 from torch import nn
 
 from ultra_pytorch_tpu_torch.models import base
 from ultra_pytorch_tpu_torch.ops.kernels import mlp as mlp_kernel
 from ultra_pytorch_tpu_torch.utils.registry import register
-
-
-class NormLinear(nn.Module):
-    """One DNN layer's parameters: ``norm`` (LayerNorm) then ``linear``."""
-
-    def __init__(self, d_in: int, d_out: int):
-        super().__init__()
-        self.norm = base.LayerNorm(d_in)
-        self.linear = nn.utils.skip_init(nn.Linear, d_in, d_out)
 
 
 def _linear(x, w, b, cdtype):
@@ -67,27 +58,17 @@ class DNN(base.BaseRanker):
         super().__init__(hparams_str, feature_size)
         sizes = [feature_size] + list(self.hparams.hidden_layer_sizes) + [1]
         self.layers = nn.ModuleList(
-            NormLinear(sizes[j], sizes[j + 1]) for j in range(len(sizes) - 1))
+            base.NormLinear(sizes[j], sizes[j + 1])
+            for j in range(len(sizes) - 1))
         self.reset_parameters(generator)
 
-    def reset_parameters(self, generator: Optional[torch.Generator] = None
-                         ) -> None:
-        """torch-default Linear init on `generator`, LayerNorm ones/zeros."""
-        for layer in self.layers:
-            base.linear_init_(layer.linear, generator)
-            with torch.no_grad():
-                layer.norm.weight.fill_(1.0)
-                layer.norm.bias.zero_()
-
-    def jax_leaves(self):
-        """``(tensor, transposed)`` in the JAX params tree's leaf order (per
-        layer: linear b, linear w [in, out], norm bias, norm scale)."""
-        return [leaf for layer in self.layers for leaf in (
-            (layer.linear.bias, False), (layer.linear.weight, True),
-            (layer.norm.bias, False), (layer.norm.weight, False))]
+    def jax_tree(self):
+        return {"layers": [layer.jax_tree() for layer in self.layers]}
 
     def forward(self, features: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None, *,
+                generator: Optional[torch.Generator] = None,
+                training: bool = False) -> torch.Tensor:
         use_norm = self.hparams.norm == "layer"
         if self.hparams.get("use_pallas"):
             return mlp_kernel.fused_mlp_score(
@@ -117,34 +98,9 @@ def params_to_jax(model: DNN) -> Dict[str, Any]:
     """The model's weights as the JAX DNN's numpy params pytree
     ``{"layers": [{"linear": {"w" [in, out], "b"}, "norm": {"scale",
     "bias"}}]}``."""
-    def arr(t):
-        return t.detach().cpu().numpy().copy()
-
-    return {"layers": [
-        {"linear": {"w": arr(layer.linear.weight.t()),
-                    "b": arr(layer.linear.bias)},
-         "norm": {"scale": arr(layer.norm.weight),
-                  "bias": arr(layer.norm.bias)}}
-        for layer in model.layers]}
+    return base.params_to_jax(model)
 
 
 def params_from_jax(model: DNN, params: Dict[str, Any]) -> DNN:
     """Load a JAX DNN params pytree (numpy or JAX arrays) into `model`."""
-    layers = params["layers"]
-    if len(layers) != len(model.layers):
-        raise ValueError(f"{len(layers)} layers in the params, "
-                         f"{len(model.layers)} in the model")
-    pairs = []
-    for mine, theirs in zip(model.layers, layers):
-        pairs += [(mine.linear.weight, np.asarray(theirs["linear"]["w"]).T),
-                  (mine.linear.bias, theirs["linear"]["b"]),
-                  (mine.norm.weight, theirs["norm"]["scale"]),
-                  (mine.norm.bias, theirs["norm"]["bias"])]
-    with torch.no_grad():
-        for dst, src in pairs:
-            src = torch.as_tensor(np.array(src))
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(f"param shape {tuple(src.shape)} != model "
-                                 f"shape {tuple(dst.shape)}")
-            dst.copy_(src)
-    return model
+    return base.params_from_jax(model, params)

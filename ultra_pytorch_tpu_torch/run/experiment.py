@@ -37,7 +37,7 @@ import torch
 
 from ultra_pytorch_tpu_torch.data import dataset as data_lib
 from ultra_pytorch_tpu_torch.data.trec import output_ranklist
-from ultra_pytorch_tpu_torch.models.dnn import params_from_jax, params_to_jax
+from ultra_pytorch_tpu_torch.models.base import params_from_jax, params_to_jax
 from ultra_pytorch_tpu_torch.utils import checkpoint as ckpt_lib
 from ultra_pytorch_tpu_torch.utils.device import resolve_device
 from ultra_pytorch_tpu_torch.utils.registry import find_class

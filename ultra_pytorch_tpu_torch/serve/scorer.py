@@ -14,9 +14,13 @@ The port's counterpart of the JAX package's ``serve/scorer.py``:
   name, its hparams and the feature size in the checkpoint metadata, so
   ``Scorer.from_checkpoint(model_dir)`` needs no settings file. Only the
   ranker params are read: they are the first leaves of the file.
+* **Any registered ranker serves.** Its weights come through the generic
+  bridge of ``models/base.py`` (``params_to_jax`` gives the template,
+  ``params_from_jax`` loads it).
 * **The DNN runs K1 on CUDA.** ``use_pallas=None`` turns the fused forward
   kernel on for the DNN on a CUDA device, as the JAX scorer turns the
-  Pallas kernel on for the DNN on a TPU.
+  Pallas kernel on for the DNN on a TPU. K1 is the DNN's alone: forcing it
+  for another ranker raises.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ultra_pytorch_tpu_torch.models.dnn import params_from_jax, params_to_jax
+from ultra_pytorch_tpu_torch.models.base import params_from_jax, params_to_jax
 from ultra_pytorch_tpu_torch.utils import checkpoint as ckpt_lib
 from ultra_pytorch_tpu_torch.utils.device import resolve_device
 from ultra_pytorch_tpu_torch.utils.registry import find_class

@@ -10,7 +10,7 @@ The port's counterpart of the JAX package's ``sim/propensity.py``:
   of uniformly shuffled lists go through the click model in batches on
   the device, and ``IPW[x] = first_click / agg_click`` per position;
 * :class:`OraclePropensityEstimator`: the click model's own examination
-  probabilities.
+  probabilities (UBM's given the clicks before each position).
 
 Every estimator has ``weights(clicks [B, L]) -> [B, L]`` on the clicks'
 device, with the table kept there after the first call.
@@ -107,7 +107,8 @@ class RandomizedPropensityEstimator(BasicPropensityEstimator):
         (the last batch may overshoot, as in the JAX package).
 
         A batch draws `batch` queries, shuffles each list uniformly
-        (Plackett-Luce on flat scores), samples PBM clicks, and adds the
+        (Plackett-Luce on flat scores), samples the click model's clicks
+        (PBM, UBM or cascade), and adds the
         clicks into an ``[L, L]`` float64 count by list length
         (``index_add_``); the count is read back once at the end."""
         device = resolve_device(device)

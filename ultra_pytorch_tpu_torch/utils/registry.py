@@ -26,7 +26,6 @@ _KIND_MODULES = {
 
 # Components of the JAX package that the port does not have yet.
 _NOT_YET_PORTED = {
-    "ranker": ("Linear", "SetRank", "DLCM", "GSF"),
     "algorithm": ("PDGD", "DBGD", "MGD", "NSGD"),
     "feed": ("DeterministicOnlineSimulationFeed",
              "StochasticOnlineSimulationFeed"),
