@@ -99,9 +99,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
     through a ``MicroBatcher`` (every reply equal to direct scoring); and
     SetRank at ``rate=0.1`` for 50 steps (finite losses, eval scores
     unchanged by a second call).
-15. Kernels: one JSON line listing K1-K5 (launches summed over the
-    serving, DLA training, offline training and phase 14's runs), then
-    the result line.
+15. Kernels, after phase 16: one JSON line listing K1-K5 (launches
+    summed over the serving, DLA training, offline training, phase 14's
+    and phase 16's runs), then the result line.
+16. The online family: the six configs ``naive_online``, ``pdgd``,
+    ``dbgd``, ``dbgd_ndcg``, ``mgd`` and ``nsgd`` (each config's own
+    file with the DNN at [512, 256, 128], every kernel hparam its path
+    allows, L = 10) on Lc = 120 candidates a query, MSLR-WEB10K's mean
+    list length: the online feeds score and rank the whole list every
+    step. The draft on the card equals the CPU's given the same order;
+    the DBGD noise has unit columns; NSGD's null-space samples keep
+    their properties on the card, and cuSOLVER's null projector is
+    printed beside the CPU's. One step of each config kernels on against
+    plain on a fixed batch (the DBGD family with the same noises and
+    winners: candidate scores within TOL, the parameter delta within
+    GRAD_TOL; Naive and PDGD: phase 10's tolerances). Then each 2
+    windows x 50 steps on 4,096 synthetic queries of 120 candidates in
+    turns (on, plain, plain, on): exact launch counts (K1 = 2, 3, 3, 3,
+    6, 6 a step + the validation batches; K2 = steps for Naive and PDGD;
+    K3 = K4 = steps for Naive; K5 none; plain launches nothing), losses
+    and online metrics finite, nDCG@10 in [0, 1]; phase 7's step
+    breakdown for MGD and NSGD (feed, noise with NSGD's SVDs,
+    candidates, winners, update); NSGD's checkpoint served over HTTP;
+    the CLI with ``--test_only`` for PDGD and NSGD on phase 8's data.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -760,22 +780,24 @@ def click_model_file() -> str:
     return path
 
 
-def synthetic(num_queries: int, seed: int):
+def synthetic(num_queries: int, seed: int, length: int = LIST):
     """The bench protocol's synthetic data (``__graft_entry__``'s
-    ``_make_synthetic``): normal features, grades 0-2, a positive first
-    document."""
+    ``_make_synthetic``): `length` documents a query, normal features,
+    grades 0-2, a positive first document."""
     from ultra_pytorch_tpu_torch.data.dataset import RankingDataset
 
     rng = np.random.default_rng(seed)
-    d = num_queries * LIST
-    labels = rng.integers(0, 3, size=(num_queries, LIST)).astype(np.float32)
+    d = num_queries * length
+    labels = rng.integers(0, 3, size=(num_queries, length)).astype(
+        np.float32)
     labels[:, 0] = np.maximum(labels[:, 0], 1.0)
     return RankingDataset(
         features=rng.normal(size=(d, FEATURES)).astype(np.float32),
-        initial_list=np.arange(d, dtype=np.int64).reshape(num_queries, LIST),
+        initial_list=np.arange(d, dtype=np.int64).reshape(num_queries,
+                                                          length),
         labels=labels, qids=[str(i) for i in range(num_queries)],
         dids=[f"d{i}" for i in range(d)], feature_size=FEATURES,
-        rank_list_size=LIST, max_label=2.0)
+        rank_list_size=length, max_label=2.0)
 
 
 def fixed_batch(dev):
@@ -828,23 +850,23 @@ def phase_dla_step(dev, click_json):
 
 def train_run(settings, dev, data, seed: int, windows: int = WINDOWS):
     """A full-width run of `windows` x WINDOW steps through the Experiment
-    API; returns the per-window host seconds, losses and validation
-    summaries, and the experiment."""
+    API; returns the per-window host seconds, mean metrics (the loss, and
+    the online family's shown-list metrics) and validation summaries, and
+    the experiment."""
     from ultra_pytorch_tpu_torch.run.experiment import Experiment
 
     exp = Experiment(settings, "unused", os.path.join(WORK, "train"),
                      batch_size=BATCH, seed=seed, device=dev)
     exp.setup(datasets=data)
     exp.init_state()
-    seconds, losses, summaries = [], [], []
+    seconds, metrics, summaries = [], [], []
     for _ in range(windows):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        metrics = exp.train_steps(WINDOW)   # ends with a device read
+        metrics.append(exp.train_steps(WINDOW))   # ends with a device read
         seconds.append(time.perf_counter() - t0)
-        losses.append(metrics["loss"])
         summaries.append(exp.validate("valid"))
-    return seconds, losses, summaries, exp
+    return seconds, metrics, summaries, exp
 
 
 def phase_training(dev, click_json):
@@ -853,9 +875,10 @@ def phase_training(dev, click_json):
     # The main path: counts set to 0 before the Experiment is built (its
     # feed launches K5 once for the click-rate estimate) and read after.
     reset_counts()
-    seconds, losses, summaries, exp = train_run(
+    seconds, metrics, summaries, exp = train_run(
         dla_settings(True, click_json), dev, data, 0)
     counts = read_counts()
+    losses = [m["loss"] for m in metrics]
     print(f"[training] kernels on: {steps} steps in {WINDOWS} windows; "
           f"pool {exp.feeds['train']._pool_size(BATCH)} candidates a step; "
           f"launches {counts}", flush=True)
@@ -880,8 +903,9 @@ def phase_training(dev, click_json):
     rates[True].append(WINDOW * BATCH * (WINDOWS - 1) / sum(seconds[1:]))
     for kernels in (False, False, True):
         reset_counts()
-        secs, run_losses, _, _ = train_run(dla_settings(kernels, click_json),
-                                           dev, data, 0)
+        secs, run_metrics, _, _ = train_run(
+            dla_settings(kernels, click_json), dev, data, 0)
+        run_losses = [m["loss"] for m in run_metrics]
         if not kernels:
             check(not any(read_counts().values()),
                   "the plain path launched a kernel")
@@ -903,23 +927,12 @@ def step_breakdown(exp, tag: str = ""):
     The optimizer part includes the aux state's update. `tag` names the
     algorithm in the printed lines."""
     feed, alg = exp.feeds["train"], exp.algorithm
-    step_tag, prof_tag = f"[step{tag}]", f"[profile{tag}]"
-    parts = ("plan", "gather", "forward+loss", "backward", "optimizer")
-    ev = {p: [] for p in parts}
-    host = dict.fromkeys(parts, 0.0)
 
-    def mark():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e, time.perf_counter()
-
-    def window():
+    def window(record):
         m0 = mark()
         plan = feed.train_batch_plan(exp._window_generator(), exp.state.step,
                                      WINDOW)
-        m1 = mark()
-        ev["plan"].append((m0[0], m1[0]))
-        host["plan"] += m1[1] - m0[1]
+        record("plan", m0, mark())
         for i in range(WINDOW):
             a = mark()
             batch = feed.batch_from_plan(plan, i)
@@ -930,18 +943,42 @@ def step_breakdown(exp, tag: str = ""):
             d = mark()
             alg.update_aux(alg.apply_gradients(exp.state, grads), out)
             e = mark()
-            for p, (x, y) in zip(parts[1:], ((a, b), (b, c), (c, d), (d, e))):
-                ev[p].append((x[0], y[0]))
-                host[p] += y[1] - x[1]
-        torch.cuda.synchronize()
-        return m0
+            for p, x, y in (("gather", a, b), ("forward+loss", b, c),
+                            ("backward", c, d), ("optimizer", d, e)):
+                record(p, x, y)
 
-    window()  # warm-up
+    step_wall = time_parts(f"[step{tag}]", ("plan", "gather", "forward+loss",
+                                            "backward", "optimizer"), window)
+    profile_steps(exp, f"[profile{tag}]", step_wall)
+
+
+def mark():
+    """A CUDA event recorded now, and the host clock."""
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e, time.perf_counter()
+
+
+def time_parts(step_tag: str, parts, window) -> float:
+    """Run ``window(record)`` (WINDOW steps; it calls ``record(part,
+    mark_a, mark_b)`` around each part) once to warm up and once timed;
+    print each part's device span and host time a step; return the wall
+    seconds a step."""
+    ev = {p: [] for p in parts}
+    host = dict.fromkeys(parts, 0.0)
+
+    def record(part, a, b):
+        ev[part].append((a[0], b[0]))
+        host[part] += b[1] - a[1]
+
+    window(record)   # warm-up
+    torch.cuda.synchronize()
     for p in parts:
         ev[p].clear()
         host[p] = 0.0
     t0 = time.perf_counter()
-    window()
+    window(record)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     dev_ms = {p: sum(x.elapsed_time(y) for x, y in ev[p]) for p in parts}
     print(f"{step_tag} {WINDOW} steps in {1e3 * wall:.2f} ms wall "
@@ -950,8 +987,12 @@ def step_breakdown(exp, tag: str = ""):
         print(f"{step_tag}   {p}: device span {dev_ms[p] / WINDOW:.4f} ms "
               f"a step, host {1e3 * host[p] / WINDOW:.4f} ms a step",
               flush=True)
+    return wall / WINDOW
 
-    step_wall = wall / WINDOW
+
+def profile_steps(exp, prof_tag: str, step_wall: float) -> None:
+    """torch.profiler's device time per kernel over WINDOW steps of
+    ``exp``, against the unprofiled step's `step_wall` seconds."""
     timed = {}
 
     def profiled_window():
@@ -1328,9 +1369,13 @@ def train_in_turns(tag: str, name: str, settings_of, want, dev, data):
     runs, rates = [], {True: [], False: []}
     for turn, kernels in enumerate((True, False, False, True)):
         reset_counts()
-        seconds, losses, summaries, exp = train_run(
+        seconds, metrics, summaries, exp = train_run(
             settings_of(name, kernels), dev, data, 0, OFFLINE_WINDOWS)
         counts = read_counts()
+        losses = [m["loss"] for m in metrics]
+        online = [m[k] for m in metrics for k in ONLINE_METRICS if k in m]
+        check(all(math.isfinite(v) for v in online),
+              f"{name}: non-finite online metrics")
         ndcg = [x["ndcg_10"] for x in summaries]
         check(all(math.isfinite(v) for v in losses),
               f"{name}: non-finite training loss")
@@ -1342,9 +1387,11 @@ def train_in_turns(tag: str, name: str, settings_of, want, dev, data):
                   f"{name}: the plain path launched a kernel")
         if not turn:
             first = counts
+            shown = "".join(f"; {k} {fmt([m[k] for m in metrics])}"
+                            for k in ONLINE_METRICS if k in metrics[0])
             print(f"[{tag}] {name} kernels on: {steps} steps, launches "
-                  f"{counts} (expected {want}); losses {fmt(losses)}; "
-                  f"ndcg_10 {fmt(ndcg)}", flush=True)
+                  f"{counts} (expected {want}); losses {fmt(losses)}"
+                  f"{shown}; ndcg_10 {fmt(ndcg)}", flush=True)
             for k, n in want.items():
                 check(counts[k] == n, f"{name}: {k} launched {counts[k]} "
                       f"times on the training path, expected {n}")
@@ -1570,7 +1617,7 @@ def serve_checkpoint(exp, dev, config: str) -> None:
     shutil.rmtree(exp.model_dir, ignore_errors=True)
     exp.save({"step": exp.state.step})
     scorer = Scorer.from_checkpoint(exp.model_dir, device=dev)
-    dnn = RANKER_CONFIGS[config][1] == "DNN"
+    dnn = type(exp.state.params).__name__ == "DNN"
     check(bool(scorer.ranker.hparams.get("use_pallas")) == dnn,
           f"{config}: the Scorer's K1 choice is wrong")
     rng = np.random.default_rng(1)
@@ -1649,8 +1696,9 @@ def phase_rankers(dev, data):
 
     # SetRank with dropout: 50 steps draw their masks from the window's
     # generator; eval scoring stays deterministic.
-    _, losses, _, exp = train_run(
+    _, metrics, _, exp = train_run(
         ranker_settings("dla_setrank", True, "rate=0.1"), dev, data, 0, 1)
+    losses = [m["loss"] for m in metrics]
     first = exp.test_scores("valid")
     again = exp.test_scores("valid")
     print(f"[rankers] SetRank rate=0.1: {WINDOW} steps, loss "
@@ -1660,6 +1708,311 @@ def phase_rankers(dev, data):
           "SetRank with dropout did not train")
     check(np.array_equal(first, again) and bool(np.isfinite(first).all()),
           "SetRank's eval scores changed between two calls")
+    return total
+
+
+ONLINE = ("naive_online", "pdgd", "dbgd", "dbgd_ndcg", "mgd", "nsgd")
+ONLINE_METRICS = ("online_reward", "online_ndcg")
+# Candidates a query on the online path: MSLR-WEB10K's mean list length
+# (1,200,192 documents over 10,000 queries). The online feeds score and
+# rank the whole list every step.
+ONLINE_LIST = 120
+# K1 launches a training step: the feed's scoring of the whole list, then
+# Naive's loss forward; PDGD's no-grad pass and loss forward; the DBGD
+# family's current ranker and each of its R candidates.
+ONLINE_K1 = {"naive_online": 2, "pdgd": 3, "dbgd": 3, "dbgd_ndcg": 3,
+             "mgd": 6, "nsgd": 6}
+ONLINE_BREAKDOWN = ("mgd", "nsgd")
+ONLINE_CLI = ("pdgd", "nsgd")
+ONLINE_SERVED = "nsgd"
+
+
+def online_settings(config: str, kernels: bool, hidden: str = HIDDEN):
+    """``configs/<config>.json`` with the DNN at `hidden` (full width by
+    default), ``use_pallas`` when `kernels` (and ``fused_softmax_loss``
+    for ``naive_online``'s Naive), L = 10, and its click-model paths
+    made absolute."""
+    with open(os.path.join(ROOT, "configs", f"{config}.json")) as fin:
+        settings = json.loads(fin.read().replace(
+            "./example/", os.path.join(ROOT, "example") + "/"))
+    on = "true" if kernels else "false"
+    settings.update(ranking_model_hparams=f"{hidden},use_pallas={on}",
+                    selection_bias_cutoff=LIST, metrics=["ndcg", "mrr"],
+                    metrics_topn=[3, 5, 10])
+    if kernels and config == "naive_online":
+        settings["learning_algorithm_hparams"] = "loss_func=fused_softmax_loss"
+    return settings
+
+
+def online_launches(config: str, steps: int, valid_batches: int):
+    """The exact launch counts of a kernels-on run of `config`."""
+    backward = config in ("naive_online", "pdgd")
+    softmax = steps if config == "naive_online" else 0
+    return {"K1": ONLINE_K1[config] * steps + valid_batches,
+            "K2": steps if backward else 0, "K3": softmax, "K4": softmax,
+            "K5": 0}
+
+
+def online_batch(dev):
+    """Phase 16's fixed batch in an online feed's layout: B lists of
+    ONLINE_LIST candidates (a quarter cut to 60), clicks on the top L at
+    0.3 (always on the first), grades 0-4 as ``relevance``."""
+    rng = np.random.default_rng(6)
+    mask = np.ones((BATCH, ONLINE_LIST), np.float32)
+    mask[: BATCH // 4, 60:] = 0.0
+    clicks = np.zeros((BATCH, ONLINE_LIST), np.float32)
+    clicks[:, :LIST] = rng.random((BATCH, LIST)) < 0.3
+    clicks[:, 0] = 1.0
+    batch = {"features": rng.normal(size=(BATCH, ONLINE_LIST, FEATURES)),
+             "labels": clicks, "mask": mask,
+             "relevance": rng.integers(0, 5, (BATCH, ONLINE_LIST)) * mask,
+             "initial_scores": np.zeros((BATCH, ONLINE_LIST))}
+    return {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+            for k, v in batch.items()}
+
+
+def null_projector(bad):
+    """The projector onto the null space NSGD samples from, for a memory
+    ``[R, D]``."""
+    from ultra_pytorch_tpu_torch.algorithms.nsgd import SV_TOL
+
+    _, s, vh = torch.linalg.svd(bad, full_matrices=False)
+    null = vh * (s <= SV_TOL).to(vh.dtype)[:, None]
+    return null.t() @ null
+
+
+def phase_online_checks(dev):
+    """The draft on the card equals the CPU's given the same order; the
+    DBGD noise of the full-width DNN has unit columns on the card; NSGD's
+    samples from a rank-2 memory of every perturbed leaf have unit norm
+    and are orthogonal to the stored rows; cuSOLVER's null projector
+    against the CPU's (information)."""
+    from ultra_pytorch_tpu_torch.algorithms.nsgd import null_space_sample
+    from ultra_pytorch_tpu_torch.models import base
+    from ultra_pytorch_tpu_torch.sim.interleave import (
+        draft, round_assignments)
+
+    gen = torch.Generator().manual_seed(8)
+    n = 5
+    # Even lists: the rankers share their first 3 documents; odd lists:
+    # independent rankings.
+    base_order = torch.rand((BATCH, ONLINE_LIST), generator=gen).argsort(-1)
+    perm = torch.rand((BATCH, n, ONLINE_LIST - 3), generator=gen).argsort(-1)
+    shared = torch.cat([base_order[:, None, :3].expand(-1, n, -1),
+                        torch.gather(base_order[:, None, 3:].expand(
+                            -1, n, -1), 2, perm)], dim=-1)
+    free = torch.rand((BATCH, n, ONLINE_LIST), generator=gen).argsort(-1)
+    even = (torch.arange(BATCH) % 2 == 0)[:, None, None]
+    rankings = torch.where(even, shared, free)
+    assignments = round_assignments(gen, BATCH, n, LIST)
+    want = draft(rankings, assignments, LIST)
+    got = draft(rankings.to(dev), assignments.to(dev), LIST)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    prefix = (want[1][::2, :3] == -1).all().item()
+    print(f"[online] draft of {n} rankings x {ONLINE_LIST} candidates, "
+          f"{BATCH} lists, first {LIST}: card equals CPU {same}; common "
+          f"prefix of 3 on half the lists drafted with team -1: {prefix}",
+          flush=True)
+    check(same and prefix, "the draft on the card differs from the CPU's")
+
+    model = seeded_dnn(HIDDEN, torch.Generator().manual_seed(9), dev)
+    cgen = torch.Generator(device=dev).manual_seed(9)
+    noise = base.dbgd_noise_like(cgen, model, 4)
+    worst = 0.0
+    for nz, (t, transposed), noisy in zip(noise, model.jax_leaves(),
+                                          base.noise_spec(model)):
+        if not noisy:
+            check(not nz.any().item(), "DBGD noise on a frozen leaf")
+            continue
+        norms = torch.linalg.vector_norm(nz, dim=2 if transposed else 1)
+        worst = max(worst, (norms - 1).abs().max().item())
+    print(f"[online] DBGD noise, 4 at full width: unit columns within "
+          f"{worst:.2e}", flush=True)
+    check(worst < 1e-5, "DBGD noise columns are not unit on the card")
+
+    worst_norm = worst_dot = 0.0
+    for t, transposed in model.jax_leaves():
+        shape = t.shape[::-1] if transposed else t.shape
+        if t.numel() <= 1:
+            continue
+        bad = torch.randn((4,) + tuple(shape), generator=cgen, device=dev)
+        bad[1] = 0.0
+        bad[3] = 0.0
+        vec = null_space_sample(cgen, bad).reshape(4, -1)
+        losers = bad.reshape(4, -1)[[0, 2]]
+        losers = losers / losers.norm(dim=1, keepdim=True)
+        worst_norm = max(worst_norm, (vec.norm(dim=1) - 1).abs().max().item())
+        worst_dot = max(worst_dot, (vec @ losers.t()).abs().max().item())
+    print(f"[online] NSGD null-space samples of every leaf from a rank-2 "
+          f"memory on the card: unit within {worst_norm:.2e}, largest "
+          f"|cos| with a stored row {worst_dot:.2e} (limit 1e-5)",
+          flush=True)
+    check(worst_norm < 1e-5 and worst_dot < 1e-5,
+          "NSGD's samples leave the null space on the card")
+
+    zero = torch.zeros((4, 64))
+    rank2 = torch.randn((4, 64), generator=gen)
+    rank2[1] = rank2[3] = 0.0
+    rank2 = rank2 / rank2.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    for name, bad in (("zero", zero), ("rank-2", rank2)):
+        diff = (null_projector(bad.to(dev)).cpu()
+                - null_projector(bad)).abs().max().item()
+        print(f"[online] null projector of a {name} [4, 64] memory, "
+              f"cuSOLVER vs the CPU's LAPACK: max abs diff {diff:.3e} "
+              "(information: the null basis is the SVD's own)", flush=True)
+
+
+def order_flips(a, b, mask, top: int):
+    """Lists whose top-`top` order by scores `a` differs from that by `b`,
+    and the smallest gap between adjacent sorted scores of `b` within each
+    such list's top + 1."""
+    from ultra_pytorch_tpu_torch.sim.sampling import deterministic_rank
+
+    ra = deterministic_rank(a, mask)[:, :top]
+    rb = deterministic_rank(b, mask)[:, :top + 1]
+    flipped = (ra != rb[:, :top]).any(dim=1)
+    sorted_b = torch.gather(b, 1, rb)
+    gaps = (sorted_b[:, :-1] - sorted_b[:, 1:]).abs().min(dim=1).values
+    return flipped, gaps
+
+
+def phase_online_step(dev):
+    """One step of each online config at full width on a fixed batch of
+    ONLINE_LIST candidates, kernels on against plain from the same
+    initialisation. Naive and PDGD: the loss within LOSS_TOL relative and
+    the gradient within GRAD_TOL of its largest. The DBGD family, given
+    the same noises (the same generator's draws) and the winners that the
+    plain path's scores give: every candidate's scores within TOL, the
+    parameter delta within GRAD_TOL of its largest, and the loss (1 -
+    nDCG@10, a step function of the scores) within LOSS_TOL relative plus
+    1 / B for each list whose top-10 order differs between the two paths,
+    each such list holding a near tie (two plain scores within 2 TOL)."""
+    from ultra_pytorch_tpu_torch.run.experiment import create_algorithm
+
+    batch = online_batch(dev)
+    for config in ONLINE:
+        out = {}
+        for kernels in (False, True):
+            settings = online_settings(config, kernels)
+            settings.update(max_candidate_num=ONLINE_LIST)
+            alg = create_algorithm(settings, FEATURES, 4.0, dev)
+            state = alg.init_state(torch.Generator().manual_seed(1))
+            if not hasattr(alg, "candidate_scores"):
+                loss = alg.losses(state, batch)[0]
+                grads = torch.autograd.grad(loss, alg.trainable(state))
+                out[kernels] = (loss, torch.cat([g.reshape(-1)
+                                                 for g in grads]), None)
+                continue
+            gen = torch.Generator(device=dev).manual_seed(7)
+            noises = alg.sample_noises(state, gen)
+            scores = alg.candidate_scores(state, batch, noises, gen)
+            if not kernels:   # the plain path's winners, for both
+                share = (alg.interleave_winners(scores, batch, gen)[0]
+                         .mean(dim=0) if alg.hparams.need_interleave
+                         else alg.ndcg_winners(scores, batch))
+            before = torch.cat([t.reshape(-1).clone()
+                                for t, _ in state.params.jax_leaves()])
+            alg.apply_noise_update(state, noises, share)
+            after = torch.cat([t.reshape(-1)
+                               for t, _ in state.params.jax_leaves()])
+            out[kernels] = (alg.ranking_loss(scores[0], batch),
+                            after - before, torch.stack(scores))
+        (loss_k, delta_k, s_k), (loss_p, delta_p, s_p) = out[True], out[False]
+        loss_k, loss_p = loss_k.item(), loss_p.item()
+        err, rel = max_rel_err(delta_k, delta_p)
+        what = "gradient" if s_k is None else "parameter delta"
+        allowed, note = LOSS_TOL * abs(loss_p), ""
+        if s_k is not None:
+            s_err = (s_k - s_p).abs().max().item()
+            flipped, gaps = order_flips(s_k[0], s_p[0], batch["mask"], LIST)
+            n_flip = int(flipped.sum())
+            allowed += n_flip / BATCH
+            note = (f"; {s_k.shape[0]} score lists max abs err {s_err:.3e} "
+                    f"(limit {TOL}); {n_flip} lists' top-{LIST} order "
+                    "differs")
+            check(torch.allclose(s_k, s_p, rtol=TOL, atol=TOL),
+                  f"{config}: candidate scores differ between K1 and plain")
+            scale = 2 * TOL * (1 + s_p[0].abs().max().item())
+            check(bool((gaps[flipped] <= scale).all()),
+                  f"{config}: a top-{LIST} order differs without a near tie")
+        print(f"[online step] {config}: loss {loss_k:.6f} vs {loss_p:.6f} "
+              f"(abs diff {abs(loss_k - loss_p):.3e}, limit {allowed:.3e}); "
+              f"{what} max abs {err:.3e} ({rel:.3e} of its largest, limit "
+              f"{GRAD_TOL}){note}", flush=True)
+        check(math.isfinite(loss_k), f"{config}: non-finite loss")
+        check(abs(loss_k - loss_p) <= allowed,
+              f"{config}: the loss differs between the kernels and plain")
+        check(rel <= GRAD_TOL, f"{config}: the {what} differs between the "
+              "kernels and the plain path")
+
+
+def online_step_breakdown(exp, tag: str) -> None:
+    """Phase 7's step breakdown for a DBGD-family run: the feed's batch
+    (its K1 scoring of the whole list, the ranking, the clicks), the
+    noises (NSGD's SVDs), the candidates' scoring, the winners (rankings,
+    draft, clicks) and the update (with the aux state and the loss)."""
+    feed, alg = exp.feeds["train"], exp.algorithm
+
+    def window(record):
+        gen = exp._window_generator()
+        for _ in range(WINDOW):
+            a = mark()
+            batch = feed.train_batch(gen, exp.state)
+            b = mark()
+            noises = alg.sample_noises(exp.state, gen)
+            c = mark()
+            scores = alg.candidate_scores(exp.state, batch, noises, gen)
+            d = mark()
+            winners = alg.interleave_winners(scores, batch, gen)[0]
+            e = mark()
+            aux = alg.updated_aux(exp.state, noises, winners.sum(dim=0))
+            alg.apply_noise_update(exp.state, noises, winners.mean(dim=0))
+            exp.state.aux = aux
+            alg.ranking_loss(scores[0], batch)
+            f = mark()
+            for p, x, y in (("feed", a, b), ("noise", b, c),
+                            ("candidates", c, d), ("winners", d, e),
+                            ("update", e, f)):
+                record(p, x, y)
+
+    step_wall = time_parts(f"[step {tag}]", ("feed", "noise", "candidates",
+                                             "winners", "update"), window)
+    profile_steps(exp, f"[profile {tag}]", step_wall)
+
+
+def phase_online(mlp, dev, data_dir):
+    """Phase 16: the online family. Phase 16's checks, one step of each
+    config kernels on vs plain, then each config 2 windows x 50 steps at
+    full width on 4,096 synthetic queries of ONLINE_LIST candidates in
+    turns (on, plain, plain, on) with exact launch counts (the first run;
+    plain launches nothing) and finite online metrics; the step breakdown
+    of ONLINE_BREAKDOWN kernels on; the NSGD checkpoint served over HTTP;
+    the CLI for ONLINE_CLI on phase 8's data. Returns the first
+    kernels-on runs' launches, summed."""
+    phase_online_checks(dev)
+    phase_online_step(dev)
+    data = {"train": synthetic(4096, 20, ONLINE_LIST),
+            "valid": synthetic(1024, 21, ONLINE_LIST)}
+    steps = OFFLINE_WINDOWS * WINDOW
+    valid_batches = OFFLINE_WINDOWS * math.ceil(
+        data["valid"].num_queries / BATCH)
+    total = dict.fromkeys(counters(), 0)
+    rates = {}
+    for config in ONLINE:
+        runs, counts, rates[config] = train_in_turns(
+            "online", config, online_settings,
+            online_launches(config, steps, valid_batches), dev, data)
+        for k, n in counts.items():
+            total[k] += n
+        if config in ONLINE_BREAKDOWN:
+            online_step_breakdown(runs[0][1], f"{config} on")
+        if config == ONLINE_SERVED:
+            serve_checkpoint(runs[0][1], dev, config)
+    print_rates("online", rates)
+    for config in ONLINE_CLI:
+        run_cli(mlp, dev, online_settings(
+            config, True, "hidden_layer_sizes=[64, 32]"), data_dir,
+            f"online cli {config}")
     return total
 
 
@@ -1699,8 +2052,9 @@ def main() -> int:
     estimator_json = phase_propensity(dev, data, click_json, data_dir)
     phase_offline_cli(mlp, dev, click_json, data, data_dir, estimator_json)
     ranker_counts = phase_rankers(dev, data)
+    online_counts = phase_online(mlp, dev, data_dir)
     counts["K1"] += serving_launches
-    for part in (offline_counts, ranker_counts):
+    for part in (offline_counts, ranker_counts, online_counts):
         for k, n in part.items():
             counts[k] += n
     sources = {

@@ -2,8 +2,8 @@
 
 The same override strings go through the JAX ``HParams`` and the port's;
 the results (or the errors) must be identical. The registry resolves the
-names that checkpoints and ``configs/*.json`` carry, and a component
-that is not yet ported raises instead of falling back.
+names that checkpoints and ``configs/*.json`` carry, for every
+algorithm and feed of the JAX package (the online family's included).
 """
 
 import pytest
@@ -137,6 +137,15 @@ def test_unknown_component_raises():
      "ClickSimulationFeed"),
     ("feed", "ultra.input_layer.DirectLabelFeed", "input_layer.feeds",
      "DirectLabelFeed"),
+    ("algorithm", "ultra.learning_algorithm.DBGD", "algorithms.dbgd",
+     "DBGD"),
+    ("algorithm", "NSGD", "algorithms.nsgd", "NSGD"),
+    ("algorithm", "PDGD", "algorithms.pdgd", "PDGD"),
+    ("feed", "ultra.input_layer.StochasticOnlineSimulationFeed",
+     "input_layer.feeds", "StochasticOnlineSimulationFeed"),
+    ("feed", "DeterministicOnlineSimulationFeed", "input_layer.feeds",
+     "DeterministicOnlineSimulationFeed"),
+    ("algorithm", "ultra.learning_algorithm.MGD", "algorithms.mgd", "MGD"),
 ])
 def test_registry_resolves_training_components(kind, name, module, attr):
     import importlib
@@ -145,13 +154,3 @@ def test_registry_resolves_training_components(kind, name, module, attr):
         f"ultra_pytorch_tpu_torch.{module}"), attr)
     assert registry.find_class(name, kind=kind) is want
 
-
-@pytest.mark.parametrize("kind,name", [
-    ("algorithm", "ultra.learning_algorithm.DBGD"),
-    ("algorithm", "NSGD"), ("algorithm", "PDGD"),
-    ("feed", "ultra.input_layer.StochasticOnlineSimulationFeed"),
-    ("feed", "DeterministicOnlineSimulationFeed"),
-])
-def test_unported_algorithms_and_feeds_raise(kind, name):
-    with pytest.raises(KeyError, match="not yet ported"):
-        registry.find_class(name, kind=kind)

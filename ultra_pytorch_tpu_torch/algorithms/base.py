@@ -4,10 +4,10 @@ The port's counterpart of the JAX package's ``algorithms/base.py``. An
 algorithm owns the ranker (an ``nn.Module``) and works on a
 :class:`TrainState` that holds the ranker, the optimizer state, the
 algorithm's auxiliary state (DLA's propensity tower, Regression-EM's
-propensity, PairDebias' and LambdaRank's t+/t-; ``None`` for the others)
-and the step count. ``train_step`` updates the tensors in place with
-autograd and returns the state and the step's metrics as 0-dim device
-tensors (no host round trip per step).
+propensity, PairDebias' and LambdaRank's t+/t-, NSGD's bad-noise memory;
+``None`` for the others) and the step count. ``train_step`` updates the
+tensors in place with autograd and returns the state and the step's
+metrics as 0-dim device tensors (no host round trip per step).
 
 A step is split so that each part can be driven alone: ``losses(state,
 batch, ..., generator=None)`` returns a tuple whose first element is the
@@ -18,7 +18,8 @@ update from the ``losses`` tuple. ``losses`` scores in training mode
 through :meth:`BaseAlgorithm.score_with_params`, which hands the ranker
 the step's generator for its dropout (SetRank at ``rate > 0``; every other
 ranker, and ``rate = 0``, draws nothing, so the streams are those of a
-ranker without dropout).
+ranker without dropout). The DBGD family takes no gradient: it overrides
+``train_step`` with its own parts (``algorithms/dbgd.py``).
 
 The optimizers follow ``make_optimizer`` of the JAX package exactly: a
 clip by global norm written to optax's rule (``g / norm * max_norm`` when
@@ -149,6 +150,17 @@ class FlatOptimizer:
 def make_optimizer(grad_strategy: str, learning_rate: float,
                    max_gradient_norm: float) -> FlatOptimizer:
     return FlatOptimizer(grad_strategy, learning_rate, max_gradient_norm)
+
+
+def shown_ndcg(relevance: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """nDCG@L of lists ``[B, L]`` in the order shown, padded positions
+    (mask 0) last and without gain."""
+    L = mask.shape[1]
+    shown = metrics_lib.mask_padding(
+        -torch.arange(L, dtype=torch.float32, device=mask.device).expand(
+            mask.shape), mask)
+    return metrics_lib.normalized_discounted_cumulative_gain(
+        relevance * mask, shown, None, [L])[0]
 
 
 class BaseAlgorithm:
@@ -284,12 +296,13 @@ class BaseAlgorithm:
 
     def score_with_params(self, params: torch.nn.Module,
                           batch: Dict[str, torch.Tensor],
-                          generator: Optional[torch.Generator] = None
-                          ) -> torch.Tensor:
-        """Training-mode scoring: the ranker's dropout (if any) draws from
+                          generator: Optional[torch.Generator] = None,
+                          training: bool = True) -> torch.Tensor:
+        """Scoring with `params` (a ranker), in training mode unless
+        `training` is false: the ranker's dropout (if any) draws from
         `generator`; without one, a ranker with ``rate > 0`` raises."""
         return params(batch["features"], batch.get("mask"),
-                      generator=generator, training=True)
+                      generator=generator, training=training)
 
     def validation_metrics(self, state: TrainState,
                            batch: Dict[str, torch.Tensor],
@@ -305,6 +318,21 @@ class BaseAlgorithm:
             max_label=self.max_label, mask=batch.get("mask"),
             generator=generator)
         return output, summary
+
+    def online_reward_metric(self, batch: Dict[str, torch.Tensor]
+                             ) -> Optional[Dict[str, torch.Tensor]]:
+        """The shown list's online metrics when the batch came from an
+        online feed (which attaches ``relevance``, the true labels in
+        shown order): ``online_reward``, the mean clicks a list, and
+        ``online_ndcg``, the nDCG@L of the shown order against
+        ``relevance``. None for any other batch."""
+        if "relevance" not in batch:
+            return None
+        L = self.rank_list_size
+        mask = batch["mask"][:, :L]
+        clicks = batch["labels"][:, :L] * mask
+        return {"online_reward": clicks.sum(dim=1).mean(),
+                "online_ndcg": shown_ndcg(batch["relevance"][:, :L], mask)}
 
     def l2_penalty(self, params: Sequence[torch.Tensor]) -> torch.Tensor:
         l2 = float(self.hparams.get("l2_loss", 0.0))

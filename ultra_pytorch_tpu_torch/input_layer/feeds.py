@@ -1,11 +1,11 @@
 """Input feeds: batch builders over a :class:`DeviceDataset`.
 
-The port's counterpart of the JAX package's ``input_layer/feeds.py``
-(``DirectLabelFeed`` and ``ClickSimulationFeed``; the online feeds are not
-ported yet). Every draw comes from an explicit ``torch.Generator`` on the
-dataset's device. Batch layout: ``{"features": [B, L, F], "labels":
-[B, L], "mask": [B, L], "initial_scores": [B, L]}``; for click feeds
-``labels`` are sampled clicks.
+The port's counterpart of the JAX package's ``input_layer/feeds.py``:
+``DirectLabelFeed``, ``ClickSimulationFeed`` and the two online feeds.
+Every draw comes from an explicit ``torch.Generator`` on the dataset's
+device. Batch layout: ``{"features": [B, L, F], "labels": [B, L],
+"mask": [B, L], "initial_scores": [B, L]}``; for click feeds ``labels``
+are sampled clicks.
 
 Rejection resampling keeps the JAX semantics: ``compact`` draws one
 overdrawn candidate pool and keeps the first B clicked lists (a stable
@@ -15,6 +15,14 @@ slot's first clicked one. Slots left without a clicked list are masked
 out of the loss. The window plan draws a whole window's queries and
 clicks in one batched pass, written out as a leading batch dimension, so
 K5 (``use_pallas_click=true``) runs once per window.
+
+The online feeds cannot plan: they score with the current ranker, which
+changes every step. Their ``train_batch(generator, state)`` draws, in
+this order, the B queries, the Plackett-Luce uniforms (stochastic feed
+only) and the click uniforms of all 1 + 16 resample rounds in one
+``torch.rand``; each list keeps its first round with a click (the JAX
+feed's 16-round scan keeps the same one). They sample clicks with the
+click model's sampler, never with K5, as the JAX online feed does.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ import torch
 from ultra_pytorch_tpu_torch.data.dataset import DeviceDataset
 from ultra_pytorch_tpu_torch.ops.kernels import click_sim
 from ultra_pytorch_tpu_torch.sim import click_models as cm
+from ultra_pytorch_tpu_torch.sim.sampling import (
+    deterministic_rank, plackett_luce_sample, rerank)
 from ultra_pytorch_tpu_torch.utils.hparams import HParams
 from ultra_pytorch_tpu_torch.utils.registry import register
 
@@ -59,6 +69,17 @@ class BaseInputFeed:
 
     def default_hparams(self) -> Dict[str, Any]:
         return {}
+
+    def can_plan(self) -> bool:
+        """Whether this feed draws a window in one pass
+        (:meth:`train_batch_plan`) or a batch a step (:meth:`train_batch`,
+        given the current state)."""
+        return (type(self).train_batch_plan
+                is not BaseInputFeed.train_batch_plan)
+
+    def train_batch(self, generator: torch.Generator, state) -> Batch:
+        """One training batch for the current `state`."""
+        raise NotImplementedError
 
     def train_batch_plan(self, generator: torch.Generator, step: int,
                          n: int) -> Any:
@@ -94,9 +115,33 @@ class DirectLabelFeed(BaseInputFeed):
         return self.dataset.gather(plan[i])
 
 
+class _ClickFeedMixin:
+    """Click-model plumbing shared by the simulation feeds: the model from
+    ``click_model_json`` (none in oracle mode) and the dynamic bias
+    schedule."""
+
+    def _load_click_model(self) -> None:
+        self.click_model = None
+        if not self.hparams.oracle_mode:
+            path = self.hparams.click_model_json
+            if not os.path.isfile(path):
+                raise FileNotFoundError(f"click model json not found: {path}")
+            self.click_model = cm.load_model_from_file(path).to(
+                self.dataset.device)
+
+    def _eta_at_steps(self, steps: torch.Tensor) -> torch.Tensor:
+        """The dynamic bias schedule: every `dynamic_bias_step_interval`
+        steps eta grows by `dynamic_bias_eta_change`. One eta per step."""
+        base = self.click_model.eta
+        change = float(self.hparams.get("dynamic_bias_eta_change", 0.0))
+        interval = int(self.hparams.get("dynamic_bias_step_interval", 1000))
+        return base + torch.div(steps, interval,
+                                rounding_mode="floor").float() * change
+
+
 @register("feed", "ClickSimulationFeed",
           aliases=["ultra.input_layer.ClickSimulationFeed"])
-class ClickSimulationFeed(BaseInputFeed):
+class ClickSimulationFeed(BaseInputFeed, _ClickFeedMixin):
     """Offline click simulation on the fixed initial ranking."""
 
     RESAMPLE_ROUNDS = 8  # query redraw rounds for resample_strategy=rounds
@@ -119,31 +164,16 @@ class ClickSimulationFeed(BaseInputFeed):
     def __init__(self, *args, check_validation: bool = True, **kwargs):
         super().__init__(*args, **kwargs)
         self.check_validation = check_validation
-        self.click_model = None
-        if not self.hparams.oracle_mode:
-            path = self.hparams.click_model_json
-            if not os.path.isfile(path):
-                raise FileNotFoundError(f"click model json not found: {path}")
-            self.click_model = cm.load_model_from_file(path).to(
-                self.dataset.device)
-            if (self.hparams.use_pallas_click
-                    and self.click_model.model_name != cm.PBM):
-                # The JAX feed falls back to its jnp sampler here; the
-                # port says so at construction instead.
-                raise ValueError(
-                    "use_pallas_click=true samples PBM clicks through K5; "
-                    f"{path} is a {self.click_model.model_name}")
+        self._load_click_model()
+        if (self.click_model is not None and self.hparams.use_pallas_click
+                and self.click_model.model_name != cm.PBM):
+            # The JAX feed falls back to its jnp sampler here; the port
+            # says so at construction instead.
+            raise ValueError(
+                "use_pallas_click=true samples PBM clicks through K5; "
+                f"{self.hparams.click_model_json} is a "
+                f"{self.click_model.model_name}")
         self._p_click_lo = self._estimate_click_rate()
-
-    # -- click model --------------------------------------------------------
-    def _eta_at_steps(self, steps: torch.Tensor) -> torch.Tensor:
-        """The dynamic bias schedule: every `dynamic_bias_step_interval`
-        steps eta grows by `dynamic_bias_eta_change`. One eta per step."""
-        base = self.click_model.eta
-        change = float(self.hparams.get("dynamic_bias_eta_change", 0.0))
-        interval = int(self.hparams.get("dynamic_bias_step_interval", 1000))
-        return base + torch.div(steps, interval,
-                                rounding_mode="floor").float() * change
 
     def _simulate_clicks(self, model, generator, qs: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -238,3 +268,95 @@ class ClickSimulationFeed(BaseInputFeed):
             # Lists that never clicked are masked out of the loss.
             batch["mask"] = batch["mask"] * valid[i][:, None]
         return batch
+
+
+class _OnlineSimulationFeed(BaseInputFeed, _ClickFeedMixin):
+    """Online simulation: rank every candidate with the current ranker,
+    then simulate clicks on the top ``rank_list_size`` of that ranking."""
+
+    CLICK_RESAMPLE_ROUNDS = 16  # click redraws on the fixed ranking
+
+    def default_hparams(self):
+        return {
+            "click_model_json": "./example/ClickModel/pbm_0.1_1.0_4_1.0.json",
+            "oracle_mode": False,
+            "dynamic_bias_eta_change": 0.0,
+            "dynamic_bias_step_interval": 1000,
+            "tau": 1.0,  # the stochastic feed's Plackett-Luce temperature
+        }
+
+    def __init__(self, *args, check_validation: bool = True, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.check_validation = check_validation
+        self._load_click_model()
+
+    def _rank(self, generator: torch.Generator, scores: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _resampling(self) -> bool:
+        return self.check_validation and not self.hparams.oracle_mode
+
+    def train_batch(self, generator: torch.Generator, state) -> Batch:
+        ds = self.dataset
+        qs = _randint(generator, ds.num_queries, (self.batch_size,))
+        batch = ds.gather(qs)
+        scores = self.algorithm.score(state, batch)       # eval mode: K1
+        ranking = self._rank(generator, scores, batch["mask"])
+        u = None
+        if not self.hparams.oracle_mode:
+            rounds = 1 + (self.CLICK_RESAMPLE_ROUNDS
+                          if self._resampling() else 0)
+            L = min(self.rank_list_size, ranking.shape[1])
+            u = torch.rand((rounds, self.batch_size, L), generator=generator,
+                           device=ds.device)
+        return self.online_batch(batch, ranking, u, state.step)
+
+    def online_batch(self, batch: Batch, ranking: torch.Tensor,
+                     u: Optional[torch.Tensor], step: int) -> Batch:
+        """The batch of `ranking` ``[B, Lc]``: every tensor in ranked
+        order, clicks on the top L from the uniforms ``u [rounds, B, L]``
+        (none in oracle mode) with the click model at `step`, labels past
+        L zeroed, lists that never clicked masked out, and the true labels
+        in ranked order as ``relevance``."""
+        feats = torch.gather(batch["features"], 1, ranking[:, :, None].expand(
+            -1, -1, batch["features"].shape[-1]))
+        labels = rerank(batch["labels"], ranking)
+        mask = rerank(batch["mask"], ranking)
+        L = min(self.rank_list_size, labels.shape[1])
+        if self.hparams.oracle_mode:
+            clicks = labels[:, :L] * mask[:, :L]
+        else:
+            model = self.click_model.replace(eta=self._eta_at_steps(
+                torch.tensor(step)))
+            clicks, valid = cm.resampled_clicks(model, labels[:, :L],
+                                             mask[:, :L], u)
+            if self._resampling():
+                mask = mask * valid[:, None]
+        return {
+            "features": feats,
+            "labels": torch.cat([clicks, torch.zeros_like(labels[:, L:])],
+                                dim=1),
+            "mask": mask,
+            "initial_scores": rerank(batch["initial_scores"], ranking),
+            "relevance": labels,
+        }
+
+
+@register("feed", "DeterministicOnlineSimulationFeed",
+          aliases=["ultra.input_layer.DeterministicOnlineSimulationFeed"])
+class DeterministicOnlineSimulationFeed(_OnlineSimulationFeed):
+    """Rank by score, descending."""
+
+    def _rank(self, generator, scores, mask):
+        return deterministic_rank(scores, mask)
+
+
+@register("feed", "StochasticOnlineSimulationFeed",
+          aliases=["ultra.input_layer.StochasticOnlineSimulationFeed"])
+class StochasticOnlineSimulationFeed(_OnlineSimulationFeed):
+    """Rank by a Plackett-Luce draw at temperature ``tau``."""
+
+    def _rank(self, generator, scores, mask):
+        return plackett_luce_sample(generator, scores, mask,
+                                    tau=float(self.hparams.tau))

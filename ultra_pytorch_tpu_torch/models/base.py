@@ -232,3 +232,90 @@ def dropout(generator: Optional[torch.Generator], x: torch.Tensor,
     keep = torch.rand(x.shape, generator=generator,
                       device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+# -- DBGD-family noise utilities --------------------------------------------
+# A noise is a list of tensors in the ranker's own layouts, one a
+# ``jax_leaves()`` entry; a leading axis of size R holds R noises at once.
+
+_NOISE_KEYS = ("linear", "out", "fc1", "fc2", "mha_dense", "input_embed",
+               "output")
+_FROZEN_KEYS = ("norm", "ln1", "ln2")
+
+
+def _leaf_paths(tree, path=()) -> List[Tuple[str, ...]]:
+    """The dict keys above each leaf, in ``_flatten``'s order."""
+    if _is_leaf(tree):
+        return [path]
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _leaf_paths(tree[k],
+                                                             path + (k,))]
+    return [p for sub in tree for p in _leaf_paths(sub, path)]
+
+
+def noise_spec(ranker: BaseRanker) -> List[bool]:
+    """Which ``jax_leaves()`` the DBGD family perturbs: those under a
+    scorer's linear key, never a normalisation's (the JAX package's
+    ``noise_spec``, by the same key names)."""
+    spec = []
+    for path in _leaf_paths(ranker.jax_tree()):
+        frozen = any(k in _FROZEN_KEYS for k in path)
+        spec.append(any(k in _NOISE_KEYS for k in path) and not frozen)
+    return spec
+
+
+def unit_noise(normals: List[torch.Tensor], ranker: BaseRanker
+               ) -> List[torch.Tensor]:
+    """The DBGD noise from given normals (each of its leaf's shape, with
+    an optional leading axis): normalised along JAX's axis 0 (a Linear
+    weight's ``in``, which is dim 1 of ``nn.Linear``'s ``[out, in]``; a
+    bias as one vector), zero on the leaves the family does not perturb."""
+    out = []
+    for n, (t, transposed), noisy in zip(normals, ranker.jax_leaves(),
+                                         noise_spec(ranker)):
+        if not noisy:
+            out.append(torch.zeros_like(n))
+            continue
+        dim = n.dim() - t.dim() + (1 if transposed else 0)
+        norm = torch.linalg.vector_norm(n, dim=dim, keepdim=True)
+        out.append(n / norm.clamp_min(1e-12))
+    return out
+
+
+def dbgd_noise_like(generator: torch.Generator, ranker: BaseRanker,
+                    count: int = 1) -> List[torch.Tensor]:
+    """`count` DBGD noises (a leading axis of that size on every leaf):
+    N(0, 1) from `generator`, one ``torch.randn`` a perturbed leaf in
+    leaf order, through :func:`unit_noise`."""
+    normals = []
+    for (t, _), noisy in zip(ranker.jax_leaves(), noise_spec(ranker)):
+        shape = (count,) + tuple(t.shape)
+        normals.append(torch.randn(shape, generator=generator,
+                                   device=t.device)
+                       if noisy else torch.empty(shape, device=t.device))
+    return unit_noise(normals, ranker)
+
+
+def sample_noise_like(generator: torch.Generator, ranker: BaseRanker,
+                      normalize_per_leaf: bool = True) -> List[torch.Tensor]:
+    """Gaussian noise of every leaf's shape, each leaf scaled to unit L2
+    norm unless `normalize_per_leaf` is false."""
+    noise = []
+    for t, _ in ranker.jax_leaves():
+        n = torch.randn(t.shape, generator=generator, device=t.device)
+        if normalize_per_leaf:
+            n = n / (torch.linalg.vector_norm(n) + 1e-12)
+        noise.append(n)
+    return noise
+
+
+@torch.no_grad()
+def perturb_(target: BaseRanker, base: BaseRanker,
+             noise: List[torch.Tensor], rate: float) -> BaseRanker:
+    """``target = base + rate * noise``, leaf for leaf, in place (`target`
+    may be `base`); returns `target`."""
+    dst = [t for t, _ in target.jax_leaves()]
+    if target is not base:
+        torch._foreach_copy_(dst, [t for t, _ in base.jax_leaves()])
+    torch._foreach_add_(dst, list(noise), alpha=rate)
+    return target

@@ -31,6 +31,9 @@ import time
 from ultra_pytorch_tpu_torch.run.experiment import PRNG_IMPL, Experiment
 from ultra_pytorch_tpu_torch.utils.logging_utils import MetricLogger
 
+# The shown list's metrics that the online family's steps report.
+ONLINE_METRICS = ("online_reward", "online_ndcg")
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="ULTRA-TPU PyTorch/CUDA port")
@@ -124,8 +127,11 @@ def train(args) -> None:
         qps = window * args.batch_size / (time.perf_counter() - t0)
         step += window
         summary = exp.validate("valid")
+        online = "".join(f" {k} {metrics[k]:.5f}" for k in ONLINE_METRICS
+                         if k in metrics)
         print(f"step {step} loss {metrics.get('loss', float('nan')):.5f} "
-              f"({qps:.0f} queries/s) | {_line(summary)}", flush=True)
+              f"({qps:.0f} queries/s){online} | {_line(summary)}",
+              flush=True)
         logger.log("train", step, dict(metrics, queries_per_sec=qps))
         logger.log("valid", step, summary)
         if args.test_while_train:

@@ -8,7 +8,9 @@ resolves components through the registry and runs
 
 * a training window as a Python loop over steps, with the window's
   query, click and validity draws planned once (one batched pass, so K5
-  runs once per window with ``use_pallas_click=true``);
+  runs once per window with ``use_pallas_click=true``), or, for a feed
+  that cannot plan (the online feeds, which score with the current
+  ranker), the feed's batch drawn step by step;
 * validation in one pass over the split with the count-weighted merge,
   ties ordered at random from (seed, step);
 * checkpoints of the full train state in the JAX package's leaf order and
@@ -21,7 +23,10 @@ device. The data stream is keyed by two 32-bit words (the JAX trainer's
 each window seeds a generator on the device from them and draws the next
 two words, so a restored run continues the same stream. The feed's plan
 draws from the window's generator first, then the algorithm's own draws
-(Regression-EM's uniforms) come from it step by step.
+(Regression-EM's uniforms) come from it step by step. With a feed that
+cannot plan, each step draws from it the feed's batch first, then the
+algorithm's draws (the DBGD family's noises, rankings, drafting order and
+clicks).
 
 Data parallelism (``dp`` > 1) and ``shard_data`` are not ported yet.
 """
@@ -233,17 +238,20 @@ class Experiment:
 
     # -- train ------------------------------------------------------------
     def train_steps(self, num_steps: int) -> Dict[str, float]:
-        """Run `num_steps` steps, their draws planned in one pass; returns
-        the window's mean metrics as host floats (one transfer). The
-        window's generator goes on to each step after the plan has drawn
-        from it (Regression-EM's uniforms)."""
+        """Run `num_steps` steps, their draws planned in one pass where
+        the feed can plan; returns the window's mean metrics as host floats
+        (one transfer). The window's generator goes on to each step after
+        the plan has drawn from it (Regression-EM's uniforms)."""
         feed = self.feeds["train"]
         generator = self._window_generator()
-        plan = feed.train_batch_plan(generator, self.state.step, num_steps)
+        plan = (feed.train_batch_plan(generator, self.state.step, num_steps)
+                if feed.can_plan() else None)
         total, keys = None, None
         for i in range(num_steps):
+            batch = (feed.batch_from_plan(plan, i) if plan is not None
+                     else feed.train_batch(generator, self.state))
             self.state, metrics = self.algorithm.train_step(
-                self.state, feed.batch_from_plan(plan, i), generator)
+                self.state, batch, generator)
             keys = keys or sorted(metrics)
             values = torch.stack([metrics[k] for k in keys])
             total = values if total is None else total + values

@@ -1,2 +1,3 @@
-"""Click simulation: the PBM click model, the propensity estimators and
-the ranking samplers (UBM and cascade are not ported yet)."""
+"""Click simulation: the PBM, UBM and cascade click models, the
+propensity estimators, the ranking samplers and team-draft
+multileaving."""

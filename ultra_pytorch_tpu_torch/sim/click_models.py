@@ -13,7 +13,9 @@ the examination table becomes ``[n, 10]`` (PBM, cascade) or ``[n, 10,
 
 Sampling is :func:`clicks_from_uniforms`, a function of given uniforms
 (the CPU tests feed it JAX's), and :func:`sample_clicks` draws those
-uniforms from an explicit ``torch.Generator``. PBM's comparison
+uniforms from an explicit ``torch.Generator``; :func:`resampled_clicks`
+keeps each list's first clicked round of several given ones (the online
+feeds' and the DBGD family's resampling). PBM's comparison
 ``u < exam * click_prob`` is :func:`clicks_from_uniform` of the K5 module,
 which K5's plain version shares. UBM is sequential in the position: a
 Python loop over the L positions of ``[..., L]`` tensors, with the last
@@ -27,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import sys
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -233,6 +235,21 @@ def sample_clicks(params: ClickModelParams, generator: torch.Generator,
     :func:`clicks_from_uniforms`."""
     u = torch.rand(labels.shape, generator=generator, device=labels.device)
     return clicks_from_uniforms(params, labels, u, mask)
+
+
+def resampled_clicks(model: ClickModelParams, labels: torch.Tensor,
+                     mask: torch.Tensor, u: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Clicks on ``[B, L]`` lists given the uniforms ``u [rounds, B, L]``
+    of a first draw (round 0) and its resamples: (each list's first round
+    with a click, or round 0 where none has one; whether any has)."""
+    shape = u.shape
+    clicks, _, _ = clicks_from_uniforms(
+        model, labels.expand(shape), u, mask.expand(shape))
+    valid = clicks.sum(dim=-1) > 0                               # [rounds, B]
+    first = torch.argmax(valid.to(torch.int8), dim=0)            # 0 if none
+    rows = torch.arange(shape[1], device=u.device)
+    return clicks[first, rows], valid.any(dim=0)
 
 
 def propensity_weights(params: ClickModelParams, clicks: torch.Tensor,

@@ -4,9 +4,8 @@ The port's counterpart of the JAX package's ``utils/registry.py``. Names
 resolve the same way: short names ("DNN"), the port's dotted names
 ("ultra_pytorch_tpu_torch.models.DNN") and reference-style dotted names
 ("ultra.ranking_model.DNN", which checkpoint metadata and
-``configs/*.json`` carry) through the alias table. A component the JAX
-package has but the port does not yet have raises a ``KeyError`` saying
-so; nothing falls back to the JAX package.
+``configs/*.json`` carry) through the alias table. Nothing falls back to
+the JAX package.
 """
 
 from __future__ import annotations
@@ -22,13 +21,6 @@ _KIND_MODULES = {
     "ranker": "ultra_pytorch_tpu_torch.models",
     "algorithm": "ultra_pytorch_tpu_torch.algorithms",
     "feed": "ultra_pytorch_tpu_torch.input_layer",
-}
-
-# Components of the JAX package that the port does not have yet.
-_NOT_YET_PORTED = {
-    "algorithm": ("PDGD", "DBGD", "MGD", "NSGD"),
-    "feed": ("DeterministicOnlineSimulationFeed",
-             "StochasticOnlineSimulationFeed"),
 }
 
 
@@ -63,11 +55,6 @@ def find_class(name: str, kind: Optional[str] = None) -> Any:
     for k in kinds:
         if short in _REGISTRY.get(k, {}):
             return _REGISTRY[k][short]
-    for k in [kind] if kind else list(_NOT_YET_PORTED):
-        if short in _NOT_YET_PORTED.get(k, ()):
-            raise KeyError(
-                f"{name!r} ({k}) is not yet ported to "
-                "ultra_pytorch_tpu_torch")
     raise KeyError(f"Unknown component {name!r} (kind={kind})")
 
 
