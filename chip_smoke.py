@@ -99,9 +99,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
     through a ``MicroBatcher`` (every reply equal to direct scoring); and
     SetRank at ``rate=0.1`` for 50 steps (finite losses, eval scores
     unchanged by a second call).
-15. Kernels, after phase 16: one JSON line listing K1-K5 (launches
-    summed over the serving, DLA training, offline training, phase 14's
-    and phase 16's runs), then the result line.
+15. Kernels, after phase 18: one JSON line listing K1-K5 (launches
+    summed over the serving, DLA training, offline training, phase 14's,
+    phase 16's, phase 17's and both ranks' of phase 18's main runs), then
+    the result line.
 16. The online family: the six configs ``naive_online``, ``pdgd``,
     ``dbgd``, ``dbgd_ndcg``, ``mgd`` and ``nsgd`` (each config's own
     file with the DNN at [512, 256, 128], every kernel hparam its path
@@ -122,6 +123,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
     breakdown for MGD and NSGD (feed, noise with NSGD's SVDs,
     candidates, winners, update); NSGD's checkpoint served over HTTP;
     the CLI with ``--test_only`` for PDGD and NSGD on phase 8's data.
+17. Data formats: libsvm data at MSLR-WEB10K's shape (F = 136, grades
+    0-4, 120 documents a query; 1,024 train queries, about 180 MB of
+    text, 256 valid and 256 test) written from ``--seed`` with vectorised
+    formatting, and its ULTRE twin (did-keyed ``.feature``, ``qid did
+    ...`` lists, a click-model directory of logged clicks for train).
+    The native parser (built with g++ from the port's copy) reads the
+    libsvm train split: features, grades, qids and dids exactly as
+    written; rows/s and MB/s. The ULTRE loader takes the click-model
+    directory's labels. DLA with the DNN at full width and every kernel
+    on trains through the CLI (in this process, so its launches count):
+    2 x 50 steps on libsvm, 1 x 50 on ULTRE, then ``--test_only`` writes
+    the ranklist; exact launch counts (K1 once a step and once a
+    validation batch, K2 once a step, K3 = K4 twice, K5 once a window
+    plus one).
+18. Data parallelism on one card: two gloo ranks share cuda:0 (spawned;
+    the kernels were built in phase 2). DLA at full width, B = 256 (128 a
+    rank), every kernel on, 2 x 50 steps on phase 8's data: the state
+    bit-identical on both ranks after each window (rank 0's broadcast),
+    equal window metrics, exact launch counts on each rank, rank 0 alone
+    writes the checkpoint and one process's ``--test_only`` restores it.
+    One step on the two halves of phase 6's batch equals one process's
+    step on the mean of the two shards' gradients (loss within LOSS_TOL
+    relative, update within GRAD_TOL of its largest; ``sgd`` with a clip
+    that binds). One window each of Regression-EM, PairDebias and MGD
+    (Lc = 120, R = 4) with the state, aux included, bit-identical across
+    ranks; ``--shard_data`` keeps exactly each rank's stripe. Printed,
+    not judged: the gloo all-reduce of the flat gradient, and queries/s of
+    one rank alone against two summed, in turns (1, 2, 2, 1). Then NCCL at
+    world size 1: the backend resolves to NCCL, torch.profiler records its
+    kernel, and a DLA window equals the window without a group.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -690,7 +721,9 @@ def phase_timing(mlp, gen, dev, model_dir):
     rng = np.random.default_rng(1)
     rows = {}
     with torch.inference_mode():
-        for q, docs in BUCKETS + ((BATCH, LIST),):
+        # The serving buckets, a training step's rows and the online
+        # path's full-list scoring (ONLINE_LIST candidates a query).
+        for q, docs in BUCKETS + ((BATCH, LIST), (BATCH, ONLINE_LIST)):
             n = q * docs
             x = torch.randn(n, FEATURES, generator=gen).to(dev)
             calls = 50 if n <= 4096 else 10
@@ -717,7 +750,10 @@ def phase_timing(mlp, gen, dev, model_dir):
             rows[(q, docs)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                    bound_ms=bound_ms, bound_by=by,
                                    bound_f32_ms=f32_ms)
-            print(f"[timing] K1 {q}x{docs} ({n} rows): K1 {ms:.4f} ms, plain "
+            tile = mlp._fwd_plan(mlp._widths(layers), n,
+                                 mlp._sm_count(dev))[0]
+            print(f"[timing] K1 {q}x{docs} ({n} rows, {tile}-row tiles): K1 "
+                  f"{ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (device time "
                   f"a call) | back to back: K1 {call_ms:.4f} ms, library "
                   f"{lib_call_ms:.4f} ms | {ops / 1e9:.3f} GFLOP, "
@@ -2016,6 +2052,546 @@ def phase_online(mlp, dev, data_dir):
     return total
 
 
+# -- phase 17: the libsvm and ULTRE formats --------------------------------
+# MSLR-WEB10K's shape: FEATURES features, grades 0-4, FORMAT_DOCS documents
+# a query (its mean list length); FORMAT_QUERIES of them a split.
+FORMAT_DOCS = ONLINE_LIST
+FORMAT_QUERIES = {"train": 1024, "valid": 256, "test": 256}
+FORMAT_DECIMALS = 4            # features printed as d.dddd, in [0, 10)
+
+
+def letor_arrays(num_queries: int, seed: int):
+    """(features as integers k for k / 10^FORMAT_DECIMALS, grades) of
+    `num_queries` queries of FORMAT_DOCS documents, each query's first
+    document relevant."""
+    rng = np.random.default_rng(seed)
+    rows = num_queries * FORMAT_DOCS
+    ints = rng.integers(0, 10 ** (FORMAT_DECIMALS + 1), size=(rows, FEATURES))
+    grades = rng.integers(0, 5, size=rows)
+    grades[::FORMAT_DOCS] = np.maximum(grades[::FORMAT_DOCS], 1)
+    return ints, grades
+
+
+def text_rows(head: str, head_values, ints) -> bytes:
+    """One line a row: `head` (whose ``#`` characters take `head_values`'
+    digits, ``[rows, n#]``), then `` i:d.dddd`` for every feature, built as
+    one byte matrix (vectorised, no per-row formatting)."""
+    rows = ints.shape[0]
+    template, digit_cols = bytearray(head.encode()), []
+    hash_cols = [i for i, c in enumerate(head) if c == "#"]
+    for j in range(FEATURES):
+        template += f" {j + 1}:".encode()
+        digit_cols.append(len(template))
+        template += b"0." + b"0" * FORMAT_DECIMALS
+    template += b"\n"
+    out = np.tile(np.frombuffer(bytes(template), np.uint8), (rows, 1))
+    powers = 10 ** np.arange(FORMAT_DECIMALS, -1, -1)
+    digits = (ints[:, :, None] // powers) % 10            # [rows, F, 5]
+    cols = np.asarray(digit_cols)[:, None] + np.array(
+        [0] + list(range(2, FORMAT_DECIMALS + 2)))        # skip the point
+    out[:, cols.reshape(-1)] = (digits.reshape(rows, -1) + 48).astype(
+        np.uint8)
+    if hash_cols:
+        out[:, hash_cols] = (np.asarray(head_values) + 48).astype(np.uint8)
+    return out.tobytes()
+
+
+def id_digits(values, width: int):
+    """Decimal digits ``[n, width]`` of non-negative integers."""
+    return (np.asarray(values)[:, None]
+            // 10 ** np.arange(width - 1, -1, -1)) % 10
+
+
+def write_format_data(seed: int):
+    """Phase 17's data: a libsvm directory (``<split>/<split>.txt``) and its
+    ULTRE twin (did-keyed ``.feature``, ``qid did ...`` lists, the data's
+    grades, and a click-model directory of logged clicks for train).
+    Returns (libsvm dir, ULTRE dir, click dir, arrays by split, seconds,
+    megabytes of libsvm text)."""
+    base = os.path.join(WORK, "formats")
+    shutil.rmtree(base, ignore_errors=True)
+    libsvm_dir, ultre_dir = os.path.join(base, "libsvm"), os.path.join(
+        base, "ultre")
+    click_dir = os.path.join(ultre_dir, "clicks")
+    os.makedirs(click_dir)
+    with open(os.path.join(ultre_dir, "settings.json"), "w") as fout:
+        json.dump({"feature_size": FEATURES, "max_label": 4}, fout)
+    t0, nbytes, arrays = time.perf_counter(), 0, {}
+    first_qid = 0
+    for i, (split, q) in enumerate(FORMAT_QUERIES.items()):
+        ints, grades = letor_arrays(q, seed + i)
+        qids = np.repeat(np.arange(first_qid, first_qid + q), FORMAT_DOCS)
+        first_qid += q
+        clicks = (np.random.default_rng(seed + 10 + i).random(
+            grades.shape) < 0.2).astype(np.int64)
+        clicks[::FORMAT_DOCS] = 1
+        arrays[split] = (ints, grades, qids, clicks)
+        text = text_rows("# qid:#####", np.concatenate(
+            [grades[:, None], id_digits(qids, 5)], 1), ints)
+        nbytes += len(text) if split == "train" else 0
+        for d in (libsvm_dir, ultre_dir):
+            os.makedirs(os.path.join(d, split))
+        with open(os.path.join(libsvm_dir, split, f"{split}.txt"),
+                  "wb") as fout:
+            fout.write(text)
+        rows = np.arange(len(grades)) + 10 ** 7 * (i + 1)
+        with open(os.path.join(ultre_dir, split, f"{split}.feature"),
+                  "wb") as fout:
+            fout.write(text_rows("d########", id_digits(rows, 8), ints))
+        lists = rows.reshape(q, FORMAT_DOCS)
+        with open(os.path.join(ultre_dir, split, f"{split}.init_list"),
+                  "w") as fout:
+            fout.writelines(f"{qid:05d} " + " ".join(f"d{r}" for r in docs)
+                            + "\n" for qid, docs in zip(
+                                qids[::FORMAT_DOCS], lists))
+        for path, values in ((os.path.join(ultre_dir, split,
+                                           f"{split}.labels"), grades),
+                             (os.path.join(click_dir, f"{split}.labels"),
+                              clicks)):
+            if path.startswith(click_dir) and split != "train":
+                continue
+            with open(path, "w") as fout:
+                fout.writelines(
+                    f"{qid:05d} " + " ".join(map(str, v)) + "\n"
+                    for qid, v in zip(qids[::FORMAT_DOCS],
+                                      values.reshape(q, FORMAT_DOCS)))
+    return (libsvm_dir, ultre_dir, click_dir, arrays,
+            time.perf_counter() - t0, nbytes / 1e6)
+
+
+def run_cli_here(tag: str, argv) -> str:
+    """``ultra_pytorch_tpu_torch.run``'s ``main(argv)`` in this process (so
+    its kernel launches are counted here); its output printed under
+    `tag`."""
+    import contextlib
+    import io
+
+    from ultra_pytorch_tpu_torch.run import __main__ as cli
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(list(argv))
+    for line in out.getvalue().splitlines():
+        print(f"[{tag}] {line}", flush=True)
+    print(f"[{tag}] ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return out.getvalue()
+
+
+def cli_launches(steps: int, windows: int, valid_queries: int):
+    """Exact launches of a DLA CLI run with every kernel on: K1 once a
+    step and once a validation batch, K2 once a step, K3 and K4 twice, K5
+    once a window plus the feed's click-rate estimate."""
+    return {"K1": steps + windows * math.ceil(valid_queries / BATCH),
+            "K2": steps, "K3": 2 * steps, "K4": 2 * steps,
+            "K5": windows + 1}
+
+
+def phase_formats(click_json):
+    """Phase 17: the libsvm and ULTRE loaders with the native parser at
+    MSLR-WEB10K's shape, and DLA trained through the CLI on both. Returns
+    the data directories and the main path's launches."""
+    from ultra_pytorch_tpu_torch.data import dataset as data_lib
+    from ultra_pytorch_tpu_torch.data import native
+
+    (libsvm_dir, ultre_dir, click_dir, arrays, write_s,
+     megabytes) = write_format_data(17)
+    ints, grades, qids, clicks = arrays["train"]
+    print(f"[formats] wrote {len(grades)} train rows ({megabytes:.1f} MB of "
+          f"libsvm text) and the valid/test splits, each also as ULTRE, in "
+          f"{write_s:.2f} s", flush=True)
+    check(native.native_available(), "the native LETOR parser did not build")
+    parses = native.parse_letor_file.parses
+    t0 = time.perf_counter()
+    ds = data_lib.read_data(libsvm_dir, "train")
+    load_s = time.perf_counter() - t0
+    check(native.parse_letor_file.parses == parses + 1,
+          "the libsvm loader did not go through the native parser")
+    want = (ints / 10 ** FORMAT_DECIMALS).astype(np.float32)
+    check(np.array_equal(ds.features, want), "parsed libsvm features differ "
+          "from the written ones")
+    check(np.array_equal(ds.labels.reshape(-1), grades.astype(np.float32))
+          and ds.qids == [f"{q:05d}" for q in qids[::FORMAT_DOCS]]
+          and ds.dids[:2] == ["00000_0", "00000_1"]
+          and ds.max_label == 4.0 and ds.rank_list_size == FORMAT_DOCS,
+          "parsed libsvm grades, qids or dids differ from the written ones")
+    print(f"[formats] libsvm train loaded natively in {load_s:.3f} s: "
+          f"{len(grades) / load_s:.0f} rows/s, {megabytes / load_s:.1f} MB/s; "
+          "features, grades, qids and dids exact", flush=True)
+    t0 = time.perf_counter()
+    twin = data_lib.read_data(ultre_dir, "train", None, click_dir)
+    load_s = time.perf_counter() - t0
+    check(np.array_equal(twin.features, want)
+          and np.array_equal(twin.labels.reshape(-1),
+                             clicks.astype(np.float32))
+          and not np.array_equal(twin.labels, ds.labels),
+          "the ULTRE loader did not read the features or did not take the "
+          "click-model directory's labels")
+    print(f"[formats] ULTRE train loaded in {load_s:.3f} s with the "
+          f"click-model directory's labels ({twin.labels.mean():.3f} "
+          f"clicked) in place of the grades ({ds.labels.mean():.3f} mean)",
+          flush=True)
+
+    settings_file = os.path.join(WORK, "formats", "dla_settings.json")
+    with open(settings_file, "w") as fout:
+        json.dump(dla_settings(True, click_json), fout)
+    model_dir = os.path.join(WORK, "formats", "model")
+    common = ["--setting_file", settings_file, "--batch_size", str(BATCH),
+              "--steps_per_checkpoint", str(WINDOW), "--dp", "off",
+              "--device", "cuda"]
+    valid_q = FORMAT_QUERIES["valid"]
+    runs = (
+        ("libsvm", ["--data_dir", libsvm_dir, "--model_dir", model_dir,
+                    "--max_train_iteration", str(2 * WINDOW)],
+         cli_launches(2 * WINDOW, 2, valid_q)),
+        ("ULTRE", ["--data_dir", ultre_dir, "--model_dir",
+                   model_dir + "_ultre", "--data_format", "ULTRE",
+                   "--click_model_dir", click_dir,
+                   "--max_train_iteration", str(WINDOW)],
+         cli_launches(WINDOW, 1, valid_q)),
+        ("libsvm test", ["--data_dir", libsvm_dir, "--model_dir", model_dir,
+                         "--output_dir", model_dir + "_out", "--test_only"],
+         {"K1": 2 * math.ceil(FORMAT_QUERIES["test"] / BATCH), "K2": 0,
+          "K3": 0, "K4": 0, "K5": 0}),
+    )
+    total = dict.fromkeys(counters(), 0)
+    for name, argv, expected in runs:
+        reset_counts()
+        out = run_cli_here(f"formats {name}", common + argv)
+        counts = read_counts()
+        print(f"[formats] {name}: launches {counts} (expected {expected})",
+              flush=True)
+        check(counts == expected, f"{name} CLI launches {counts}, expected "
+              f"{expected}")
+        losses = [float(x) for x in re.findall(r"^step \d+ loss (\S+)", out,
+                                               re.M)]
+        check(all(math.isfinite(v) for v in losses), f"{name}: non-finite "
+              "training loss")
+        for k, n in counts.items():
+            total[k] += n
+    with open(os.path.join(model_dir + "_out", "test.ranklist")) as fin:
+        lines = fin.read().splitlines()
+    check(len(lines) == FORMAT_QUERIES["test"] * FORMAT_DOCS,
+          "the libsvm ranklist is not one line per test document")
+    return libsvm_dir, total
+
+
+# -- phase 18: data parallelism on one card --------------------------------
+DP_RANKS = 2
+DP_CLIP = 0.05        # binds: the mean gradient's norm is above it (printed)
+
+
+def same_on_every_rank(leaves, dev) -> bool:
+    """Rank 0's leaves broadcast and compared bit for bit on this rank
+    (gloo on CUDA tensors has broadcast but no all_gather)."""
+    import torch.distributed as dist
+
+    mine = torch.from_numpy(np.concatenate(
+        [np.asarray(a, np.float32).reshape(-1) for a in leaves])).to(dev)
+    theirs = mine.clone()
+    dist.broadcast(theirs, 0)
+    return bool(torch.equal(mine, theirs))
+
+
+def given_step_settings(click_json):
+    settings = dla_settings(True, click_json)
+    settings.update(max_candidate_num=LIST, learning_algorithm_hparams=(
+        "loss_func=fused_softmax_loss,grad_strategy=sgd,learning_rate=1.0,"
+        f"max_gradient_norm={DP_CLIP}"))
+    return settings
+
+
+def dp_window_run(settings, data_dir, model_dir, dev, windows: int,
+                  dp="auto", shard_data=False, seed=0):
+    """An Experiment (a rank of this process's group unless `dp` is
+    "off") trained `windows` x WINDOW steps, the whole valid split
+    validated after each, as the CLI does: (experiment, per-window
+    metrics, seconds, and whether the state was the same on every rank
+    after each window)."""
+    from ultra_pytorch_tpu_torch.run.experiment import Experiment
+
+    exp = Experiment(dict(settings), data_dir, model_dir, batch_size=BATCH,
+                     seed=seed, dp=dp, shard_data=shard_data, device=dev)
+    exp.setup()
+    exp.init_state()
+    metrics, seconds, same = [], [], []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(exp.train_steps(WINDOW))
+        seconds.append(time.perf_counter() - t0)
+        metrics[-1].update(exp.validate("valid"))
+        if exp.data_parallel:
+            same.append(same_on_every_rank(
+                exp.algorithm.state_leaves(exp.state), dev))
+    return exp, metrics, seconds, same
+
+
+def dp_rank(rank, world, init_method, click_json, ultra_dir, long_dir,
+            model_dirs):
+    """Phase 18 on one of two gloo ranks that share cuda:0."""
+    import torch.distributed as dist
+
+    from ultra_pytorch_tpu_torch.data.dataset import read_data
+    from ultra_pytorch_tpu_torch.parallel import (
+        all_reduce_mean, close_data_parallel, init_data_parallel,
+        shard_queries_for_host)
+    from ultra_pytorch_tpu_torch.run.experiment import create_algorithm
+    from ultra_pytorch_tpu_torch.run.launch import host_threads
+    from ultra_pytorch_tpu_torch.utils.checkpoint import tree_leaves
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(host_threads(world))
+    init_data_parallel(world, rank, dev, backend="gloo",
+                       init_method=init_method)
+    out = {}
+    try:
+        # The main path: DLA, every kernel on, counts from 0.
+        reset_counts()
+        exp, metrics, _, same = dp_window_run(
+            dla_settings(True, click_json), ultra_dir, model_dirs[rank], dev,
+            2)
+        out["dla"] = {"counts": read_counts(), "metrics": metrics,
+                      "same": same, "batch": exp.feeds["train"].batch_size}
+        exp.save({"step": exp.state.step})
+
+        # One step on this rank's half of phase 6's batch.
+        alg = create_algorithm(given_step_settings(click_json), FEATURES,
+                               2.0, dev)
+        state = alg.init_state(torch.Generator().manual_seed(1))
+        half = BATCH // world
+        batch = {k: v[rank * half:(rank + 1) * half]
+                 for k, v in fixed_batch(dev).items()}
+        alg.grad_sync = all_reduce_mean
+        state, m = alg.train_step(state, batch)
+        out["given"] = (m["loss"].item(), alg.state_leaves(state))
+
+        # The aux state of Regression-EM and PairDebias, and MGD's
+        # parameters at Lc = ONLINE_LIST with R = 4.
+        for name, settings, data_dir in (
+                ("RegressionEM", offline_settings("RegressionEM", True,
+                                                  click_json), ultra_dir),
+                ("PairDebias", offline_settings("PairDebias", True,
+                                                click_json), ultra_dir),
+                ("mgd", online_settings("mgd", True), long_dir)):
+            exp, metrics, _, same = dp_window_run(settings, data_dir,
+                                                  "unused", dev, 1)
+            out[name] = {"same": same, "metrics": metrics,
+                         "aux": len(tree_leaves(exp.state.aux))}
+
+        # --shard_data: this rank's train split is its stripe.
+        exp, _, _, same = dp_window_run(dla_settings(True, click_json),
+                                        ultra_dir, "unused", dev, 1,
+                                        shard_data=True)
+        stripe = shard_queries_for_host(read_data(ultra_dir, "train"), rank,
+                                        world)
+        out["stripe"] = {
+            "same": same,
+            "equal": bool(np.array_equal(exp.datasets["train"].features,
+                                         stripe.features)
+                          and exp.datasets["train"].qids == stripe.qids),
+            "rows": int(stripe.features.shape[0])}
+
+        # The flat gradient's all-reduce (the ranker and the tower).
+        n = sum(p.numel() for p in exp.algorithm.trainable(exp.state))
+        g = torch.randn(n, device=dev)
+        for _ in range(5):
+            all_reduce_mean(g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            all_reduce_mean(g)
+        torch.cuda.synchronize()
+        out["all_reduce"] = ((time.perf_counter() - t0) / 50 * 1e3, 4 * n)
+
+        # Queries/s in turns: one rank alone (rank 0; rank 1 waits), then
+        # two ranks, two ranks, one rank alone; the second window of each.
+        rates = []
+        for ranks in (1, 2, 2, 1):
+            dist.barrier()
+            if ranks == 1:
+                if rank == 0:
+                    _, _, seconds, _ = dp_window_run(
+                        dla_settings(True, click_json), ultra_dir, "unused",
+                        dev, 2, dp="off")
+                    rates.append((1, WINDOW * BATCH / seconds[-1]))
+                continue
+            _, _, seconds, _ = dp_window_run(
+                dla_settings(True, click_json), ultra_dir, "unused", dev, 2)
+            rates.append((2, WINDOW * (BATCH // world) / seconds[-1]))
+        dist.barrier()
+        out["rates"] = rates
+        return out
+    finally:
+        close_data_parallel()
+
+
+def phase_dp(dev, click_json, ultra_dir, long_dir):
+    """Phase 18: two gloo ranks sharing cuda:0, then NCCL at world size 1.
+    Returns the main path's launches (both ranks)."""
+    from ultra_pytorch_tpu_torch.parallel import spawn_ranks
+    from ultra_pytorch_tpu_torch.run.experiment import create_algorithm
+
+    base = os.path.join(WORK, "dp")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    model_dirs = [os.path.join(base, f"model{r}") for r in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dp_rank, DP_RANKS, (
+        f"file://{os.path.join(base, 'store')}", click_json, ultra_dir,
+        long_dir, model_dirs), timeout=600)
+    print(f"[dp] {DP_RANKS} gloo ranks on cuda:0 ran in "
+          f"{time.perf_counter() - t0:.1f} s (spawn included)", flush=True)
+
+    from ultra_pytorch_tpu_torch.data.dataset import read_data
+
+    want = cli_launches(2 * WINDOW, 2,
+                        read_data(ultra_dir, "valid").num_queries)
+    total = dict.fromkeys(counters(), 0)
+    for r, res in enumerate(ranks):
+        dla = res["dla"]
+        print(f"[dp] rank {r}: {dla['batch']} queries a step, launches "
+              f"{dla['counts']} (expected {want}); losses "
+              f"{fmt([m['loss'] for m in dla['metrics']])}; state identical "
+              f"across ranks after each window {dla['same']}; ndcg_10 "
+              f"{fmt([m['ndcg_10'] for m in dla['metrics']])}", flush=True)
+        check(dla["counts"] == want, f"rank {r} launched {dla['counts']}, "
+              f"expected {want}")
+        check(all(dla["same"]), f"rank {r}'s state differs from rank 0's")
+        check(dla["batch"] == BATCH // DP_RANKS, "a rank's batch is not B/N")
+        for k, n in dla["counts"].items():
+            total[k] += n
+    check(ranks[0]["dla"]["metrics"] == ranks[1]["dla"]["metrics"],
+          "the ranks' window metrics or validation differ")
+    check(all(math.isfinite(m["loss"]) for m in ranks[0]["dla"]["metrics"]),
+          "non-finite data-parallel loss")
+
+    # One step given the shards: the mean of the shards' gradients.
+    alg = create_algorithm(given_step_settings(click_json), FEATURES, 2.0,
+                           dev)
+    state = alg.init_state(torch.Generator().manual_seed(1))
+    leaves0 = alg.state_leaves(state)
+    batch, half = fixed_batch(dev), BATCH // DP_RANKS
+    losses, grads = [], []
+    for r in range(DP_RANKS):
+        shard = {k: v[r * half:(r + 1) * half] for k, v in batch.items()}
+        loss = alg.losses(state, shard)[0]
+        losses.append(loss.item())
+        grads.append(torch.autograd.grad(loss, alg.trainable(state)))
+    mean = [(a + b) / 2 for a, b in zip(*grads)]
+    n_rank = len(state.params.jax_leaves())
+    norms = [torch.sqrt(sum((g * g).sum() for g in part)).item()
+             for part in (mean[:n_rank], mean[n_rank:])]
+    alg.apply_gradients(state, mean)
+    want_leaves = alg.state_leaves(state)
+    n = len(want_leaves) - 1
+    want_delta = [w - w0 for w, w0 in zip(want_leaves[:n], leaves0[:n])]
+    scale = max(np.abs(d).max() for d in want_delta)
+    for r, res in enumerate(ranks):
+        loss, got = res["given"]
+        err = max(np.abs((g - w0) - d).max() for g, w0, d in zip(
+            got[:n], leaves0[:n], want_delta))
+        print(f"[dp] given shards, rank {r}: loss {loss:.6f} vs {losses[r]:.6f}"
+              f" (rel {abs(loss - losses[r]) / abs(losses[r]):.2e}, limit "
+              f"{LOSS_TOL}); update max abs err {err:.3e} ({err / scale:.2e} "
+              f"of its largest, limit {GRAD_TOL}); mean-gradient norms "
+              f"{norms[0]:.4f} (ranker), {norms[1]:.4f} (tower) against the "
+              f"clip {DP_CLIP}", flush=True)
+        check(abs(loss - losses[r]) <= LOSS_TOL * abs(losses[r]),
+              f"rank {r}'s loss on its shard differs")
+        check(err <= GRAD_TOL * scale, f"rank {r}'s update differs from the "
+              "mean-gradient step")
+    check(min(norms) > DP_CLIP, "the clip does not bind")
+
+    for name in ("RegressionEM", "PairDebias", "mgd"):
+        res = [r[name] for r in ranks]
+        print(f"[dp] {name}: one window, state ({res[0]['aux']} aux leaves "
+              f"among them) identical across ranks {res[1]['same']}; loss "
+              f"{res[0]['metrics'][0]['loss']:.5f}", flush=True)
+        check(all(all(x["same"]) for x in res)
+              and res[0]["metrics"] == res[1]["metrics"],
+              f"{name}: the ranks' state or metrics differ")
+    for r, res in enumerate(ranks):
+        st = res["stripe"]
+        print(f"[dp] --shard_data rank {r}: {st['rows']} feature rows, its "
+              f"stripe exactly {st['equal']}", flush=True)
+        check(st["equal"] and all(st["same"]),
+              f"rank {r}'s train split is not its stripe")
+    ms, nbytes = ranks[0]["all_reduce"]
+    print(f"[dp] gloo all-reduce of the flat gradient ({nbytes / 1e6:.2f} "
+          f"MB, two ranks on one card): {ms:.3f} ms a call", flush=True)
+    alone = [q for k, q in ranks[0]["rates"] if k == 1]
+    pairs = zip(*([q for k, q in r["rates"] if k == 2] for r in ranks))
+    both = [sum(pair) for pair in pairs]
+    print(f"[dp] queries/s (host clock, window 2 of 2, turns 1/2/2/1 ranks; "
+          f"two ranks summed) on {card_line()}: one rank {alone[0]:.0f} "
+          f"{alone[1]:.0f}, two ranks {both[0]:.0f} {both[1]:.0f} -- a "
+          "one-card gloo figure, not multi-card scaling", flush=True)
+
+    # The checkpoint: rank 0's alone, restored by one process.
+    names = [sorted(f for f in os.listdir(d) if f.endswith(".ckpt.npz"))
+             if os.path.isdir(d) else [] for d in model_dirs]
+    check(names == [["DLA.ckpt.npz"], []], f"checkpoints written {names}")
+    settings_file = os.path.join(base, "dla_settings.json")
+    with open(settings_file, "w") as fout:
+        json.dump(dla_settings(True, click_json), fout)
+    out = run_cli_here("dp test_only", [
+        "--data_dir", ultra_dir, "--setting_file", settings_file,
+        "--model_dir", model_dirs[0], "--output_dir", base + "/out",
+        "--batch_size", str(BATCH), "--test_only", "--device", "cuda"])
+    check("Restored checkpoint from" in out, "the data-parallel checkpoint "
+          "did not restore in one process")
+    phase_nccl(dev, click_json, ultra_dir, base)
+    return total
+
+
+def phase_nccl(dev, click_json, ultra_dir, base):
+    """NCCL at world size 1: the backend resolves to NCCL, torch.profiler
+    records NCCL's kernel, and a DLA window through the group equals the
+    same window without one, bit for bit."""
+    from ultra_pytorch_tpu_torch.parallel import (
+        close_data_parallel, init_data_parallel)
+
+    settings = dla_settings(True, click_json)
+    plain, plain_metrics, _, _ = dp_window_run(settings, ultra_dir, "unused",
+                                               dev, 1)
+    backend = init_data_parallel(
+        1, 0, dev, init_method=f"file://{os.path.join(base, 'nccl_store')}")
+    result = {}
+    try:
+        check(backend == "nccl", f"the backend on CUDA resolved to {backend}")
+
+        def window():
+            result["run"] = dp_window_run(settings, ultra_dir, "unused", dev,
+                                          1)
+
+        events = device_events(window)
+    finally:
+        close_data_parallel()
+    exp, metrics, _, _ = result["run"]
+    # NCCL's kernels (ncclDevKernel_*, or oneRankReduce at one rank), not
+    # the "nccl:all_reduce" annotation torch records beside them.
+    nccl = sorted({name for name, _ in events
+                   if ("nccl" in name.lower() and not name.startswith("nccl:"))
+                   or "onerank" in name.lower()})
+    print(f"[dp nccl] world size 1 on {backend}: data parallel "
+          f"{exp.data_parallel}; NCCL kernels seen by torch.profiler: "
+          f"{[n[:80] for n in nccl]}; loss {metrics[0]['loss']:.6f} vs "
+          f"{plain_metrics[0]['loss']:.6f} without a group", flush=True)
+    check(exp.data_parallel and exp.world_size == 1,
+          "the world-size-1 Experiment is not a rank")
+    if not nccl:
+        print("[dp nccl] device activities seen: " + "; ".join(
+            sorted({name[:60] for name, _ in events})[:60]), flush=True)
+    check(nccl, "torch.profiler recorded no NCCL kernel")
+    same = all(np.array_equal(a, b) for a, b in zip(
+        exp.algorithm.state_leaves(exp.state),
+        plain.algorithm.state_leaves(plain.state)))
+    check(metrics == plain_metrics and same, "the NCCL window differs from "
+          "the window without a group")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -2053,8 +2629,11 @@ def main() -> int:
     phase_offline_cli(mlp, dev, click_json, data, data_dir, estimator_json)
     ranker_counts = phase_rankers(dev, data)
     online_counts = phase_online(mlp, dev, data_dir)
+    libsvm_dir, format_counts = phase_formats(click_json)
+    dp_counts = phase_dp(dev, click_json, data_dir, libsvm_dir)
     counts["K1"] += serving_launches
-    for part in (offline_counts, ranker_counts, online_counts):
+    for part in (offline_counts, ranker_counts, online_counts, format_counts,
+                 dp_counts):
         for k, n in part.items():
             counts[k] += n
     sources = {

@@ -34,13 +34,20 @@ def test_read_data_equals_jax(toy_data_dir, split, rank_cut):
 
 
 def test_libsvm_and_ultre_are_not_yet_ported(toy_data_dir, tmp_path):
+    """Both loaders are ported now (``test_torch_data_formats.py`` holds
+    them to the JAX package): the format is detected as JAX's is, and a
+    split with neither file is still an error."""
     sub = tmp_path / "train"
     sub.mkdir()
     (sub / "train.txt").write_text("1 qid:1 1:0.5\n0 qid:1 1:0.1\n")
-    with pytest.raises(NotImplementedError, match="libsvm"):
-        data.read_data(str(tmp_path), "train")
-    with pytest.raises(NotImplementedError, match="ULTRE"):
-        data.read_data(toy_data_dir, "train", click_model_dir=str(tmp_path))
+    got = data.read_data(str(tmp_path), "train")
+    want = jax_data.read_data(str(tmp_path), "train")
+    assert got.dids == want.dids == ["1_0", "1_1"]
+    np.testing.assert_array_equal(got.features, want.features)
+    got = data.read_data(toy_data_dir, "train", click_model_dir=str(tmp_path))
+    want = jax_data.read_data(toy_data_dir, "train",
+                              click_model_dir=str(tmp_path))
+    assert got.num_queries == want.num_queries  # ULTRE: lists of dids
     with pytest.raises(FileNotFoundError):
         data.read_data(str(tmp_path), "valid")
 

@@ -32,7 +32,7 @@ def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(PKG_DIR):
         files += [os.path.join(dirpath, n) for n in names
-                  if n.endswith((".py", ".cu", ".cuh"))]
+                  if n.endswith((".py", ".cu", ".cuh", ".cpp"))]
     return sorted(files)
 
 
@@ -60,7 +60,9 @@ def test_every_module_imports_without_jax():
 
 def test_sources_name_neither_jax_nor_the_jax_package():
     files = _sources()
-    assert any(f.endswith("mlp_fwd.cu") for f in files)
+    for name in ("mlp_fwd.cu", "letor_parser.cpp", "data/native.py",
+                 "parallel/mesh.py", "run/launch.py"):
+        assert any(f.endswith(name) for f in files), name
     for path in files:
         with open(path) as fh:
             text = fh.read()

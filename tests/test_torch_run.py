@@ -202,13 +202,15 @@ def test_entry_points_default_to_cuda(toy_data_dir, click_model_json,
 @pytest.mark.parametrize("kwargs", [{"dp": 2}, {"dp": "4"},
                                     {"shard_data": True}])
 def test_unported_parallelism_raises(click_model_json, kwargs):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """Data parallelism is ported: an Experiment is one rank of a process
+    group, so `dp` > 1 or `shard_data` without a group is an error."""
+    with pytest.raises(ValueError, match="process group|requires a data"):
         Experiment(_settings(click_model_json), "unused", "unused",
                    device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("flags", [["--prng", "rbg"],
-                                   ["--profile_steps", "3"]])
+                                   ["--prng", "unsafe_rbg"]])
 def test_unported_cli_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["--model_dir", str(tmp_path), "--device", "cpu"] + flags)

@@ -4,12 +4,14 @@ A second package beside the JAX one, mirroring its layout: each module
 sits under the same relative path as its JAX counterpart. It imports
 ``torch`` and never JAX. Every Pallas kernel of the JAX package becomes a
 kernel written by hand for Hopper, with a plain PyTorch version beside it
-that serves CPU tensors. Ported so far, serving and the offline training
-paths:
+that serves CPU tensors. Ported: serving, every training path, the data
+formats and data parallelism:
 
 - ``utils``       settings grammar (``HParams``), registry, ``.npz``
                   checkpoints shared with the JAX trainer, metric logs.
-- ``data``        the ULTRA-format loader, device datasets, TREC ranklists.
+- ``data``        the ULTRA, ULTRE and libsvm loaders (with the native
+                  LETOR parser, ``data/native.py``), device datasets,
+                  TREC ranklists.
 - ``sim``         the PBM, UBM and cascade click models, the propensity
                   estimators and the ranking samplers.
 - ``models``      the DNN, Linear, SetRank, DLCM and GSF rankers, and the
@@ -18,12 +20,16 @@ paths:
                   and backward, K3/K4 the fused listwise softmax loss and
                   its gradient, K5 the PBM click sampler (``ops/kernels``).
 - ``metrics``     the eight ranking metrics.
-- ``algorithms``  DLA and the offline debiasing family (Naive, IPW,
-                  Regression-EM, PairDebias, LambdaRank, PRS) with the
+- ``algorithms``  DLA, the offline debiasing family (Naive, IPW,
+                  Regression-EM, PairDebias, LambdaRank, PRS) and the
+                  online family (PDGD, DBGD, MGD, NSGD) with the
                   torch-exact flat Adagrad.
-- ``input_layer`` ``ClickSimulationFeed`` and ``DirectLabelFeed``.
-- ``run``         ``Experiment`` and the training CLI
-                  (``python -m ultra_pytorch_tpu_torch.run``).
+- ``input_layer`` ``ClickSimulationFeed``, ``DirectLabelFeed`` and the
+                  online simulation feeds.
+- ``parallel``    data parallelism over ``torch.distributed``.
+- ``run``         ``Experiment``, the training CLI
+                  (``python -m ultra_pytorch_tpu_torch.run``) and the
+                  multi-process launcher (``run/launch.py``).
 - ``serve``       bucketed ``Scorer``, ``MicroBatcher``, HTTP service and
                   CLI (``python -m ultra_pytorch_tpu_torch.serve``).
 """

@@ -138,13 +138,42 @@ class FlatOptimizer:
         update, acc = adagrad_torch(g, state["sum_of_squares"], self.lr)
         return update, {"sum_of_squares": acc}
 
-    def step(self, leaves: Sequence[Leaf], grads: Sequence[torch.Tensor],
+    def step(self, leaves: Sequence[Leaf], g: torch.Tensor,
              state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Apply one update to `leaves` in place; returns the new state."""
-        g = flatten_leaves([(gr, tr) for gr, (_, tr) in zip(grads, leaves)])
+        """Apply one update from the flat gradient `g` to `leaves` in
+        place; returns the new state."""
         update, state = self.update(g, state)
         add_flat_(leaves, update)
         return state
+
+
+def flat_gradient(grads: Sequence[torch.Tensor],
+                  leaves: Sequence[Leaf]) -> torch.Tensor:
+    """`grads` (one a leaf of `leaves`, in the leaves' layouts) as one flat
+    vector in JAX's ravel order."""
+    return flatten_leaves([(gr, tr) for gr, (_, tr) in zip(grads, leaves)])
+
+
+def train_window(algorithm, feed, state: TrainState,
+                 generator: Optional[torch.Generator], num_steps: int):
+    """`num_steps` steps of `algorithm` on batches of `feed`: the feed draws
+    from ``algorithm.per_shard(generator)`` (`generator` itself on one
+    device), the window's plan in one pass where the feed can plan, else a
+    batch a step given the current state; then each step takes
+    `generator`. Returns the state, the metric names and their window
+    means as one tensor (no host read)."""
+    draws = algorithm.per_shard(generator)
+    plan = (feed.train_batch_plan(draws, state.step, num_steps)
+            if feed.can_plan() else None)
+    total, keys = None, None
+    for i in range(num_steps):
+        batch = (feed.batch_from_plan(plan, i) if plan is not None
+                 else feed.train_batch(draws, state))
+        state, metrics = algorithm.train_step(state, batch, generator)
+        keys = keys or sorted(metrics)
+        values = torch.stack([metrics[k] for k in keys])
+        total = values if total is None else total + values
+    return state, keys, total / num_steps
 
 
 def make_optimizer(grad_strategy: str, learning_rate: float,
@@ -181,6 +210,11 @@ class BaseAlgorithm:
         self.loss_fn = losses.LOSS_FUNCTIONS.get(
             self.hparams.get("loss_func", "softmax_loss"),
             losses.softmax_loss)
+        # Bound by parallel.dp_train_steps for a data-parallel window: the
+        # cross-rank mean (see sync) and this rank's shard generator (see
+        # per_shard). None on one device.
+        self.grad_sync = None
+        self.shard_generator: Optional[torch.Generator] = None
 
     def default_hparams(self) -> Dict[str, Any]:
         return {
@@ -227,10 +261,12 @@ class BaseAlgorithm:
 
     def apply_gradients(self, state: TrainState,
                         grads: Sequence[torch.Tensor]) -> TrainState:
-        """One optimizer step (`grads` in :meth:`trainable` order), in
-        place; advances the step."""
+        """One optimizer step (`grads` in :meth:`trainable` order, averaged
+        over the ranks as one flat vector before the clip), in place;
+        advances the step."""
+        leaves = state.params.jax_leaves()
         state.opt_state = self.optimizer().step(
-            state.params.jax_leaves(), grads, state.opt_state)
+            leaves, self.sync(flat_gradient(grads, leaves)), state.opt_state)
         state.step += 1
         return state
 
@@ -255,11 +291,25 @@ class BaseAlgorithm:
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One step. `generator` is the window's device generator (the one
-        the feed's plan drew from); an algorithm that draws takes its
-        draws from it, in step order, and the ranker's dropout masks come
-        after them."""
-        return self._step(state, batch, generator=generator)
+        """One step. `generator` is the window's device generator, the
+        same on every rank; the draws of one example (the ranker's dropout
+        masks, and an algorithm's own per-example draws before them) come
+        from ``per_shard(generator)``, in step order."""
+        return self._step(state, batch, generator=self.per_shard(generator))
+
+    # -- data parallelism -------------------------------------------------
+    def sync(self, x):
+        """The mean over the ranks of a tensor (or a list of tensors) under
+        data parallelism; `x` itself on one device."""
+        return x if self.grad_sync is None else self.grad_sync(x)
+
+    def per_shard(self, generator: Optional[torch.Generator]
+                  ) -> Optional[torch.Generator]:
+        """The generator of this rank's own draws: the shard generator
+        under data parallelism, `generator` itself on one device."""
+        if self.shard_generator is None:
+            return generator
+        return self.shard_generator
 
     # -- checkpoint layout ------------------------------------------------
     def _state_targets(self, state: TrainState) -> List[Leaf]:
@@ -331,8 +381,10 @@ class BaseAlgorithm:
         L = self.rank_list_size
         mask = batch["mask"][:, :L]
         clicks = batch["labels"][:, :L] * mask
-        return {"online_reward": clicks.sum(dim=1).mean(),
-                "online_ndcg": shown_ndcg(batch["relevance"][:, :L], mask)}
+        reward, ndcg = self.sync(torch.stack([
+            clicks.sum(dim=1).mean(),
+            shown_ndcg(batch["relevance"][:, :L], mask)])).unbind(0)
+        return {"online_reward": reward, "online_ndcg": ndcg}
 
     def l2_penalty(self, params: Sequence[torch.Tensor]) -> torch.Tensor:
         l2 = float(self.hparams.get("l2_loss", 0.0))

@@ -27,6 +27,10 @@ Draws come from the step's generator in this order: the noises (one
 ``torch.randn`` a perturbed leaf), each fresh candidate's initialisation
 (``fresh`` only), the rankings' Plackett-Luce uniforms (``Stochastic``
 only), the drafting order, then the 1 + 16 rounds of click uniforms.
+Under data parallelism the noises and fresh candidates come from the
+replica generator, the same on every rank, and the rest from this rank's
+shard generator (``per_shard``); the win shares, the win totals and the
+online metrics are averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -196,13 +200,19 @@ class DBGD(BaseAlgorithm):
         metrics = {}
         if self.hparams.need_interleave:
             winners, clicks, online_ndcg = self.interleave_winners(
-                scores, batch, generator)
+                scores, batch, self.per_shard(generator))
             win_share, win_totals = winners.mean(dim=0), winners.sum(dim=0)
-            metrics["online_reward"] = clicks.sum(dim=1).mean()
-            if online_ndcg is not None:
-                metrics["online_ndcg"] = online_ndcg
+            online = [clicks.sum(dim=1).mean()] + (
+                [] if online_ndcg is None else [online_ndcg])
+            metrics.update(zip(("online_reward", "online_ndcg"),
+                               self.sync(torch.stack(online)).unbind(0)))
         else:
             win_share = win_totals = self.ndcg_winners(scores, batch)
+        # Averaged over the ranks: the noises are the same on every rank,
+        # so the credit is the global batch's, and NSGD's losers (a zero
+        # total) are the same everywhere.
+        win_share, win_totals = self.sync(
+            torch.stack([win_share, win_totals])).unbind(0)
         aux = self.updated_aux(state, noises, win_totals)
         state = self.apply_noise_update(state, noises, win_share)
         state.aux = aux

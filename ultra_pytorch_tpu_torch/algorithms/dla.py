@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ultra_pytorch_tpu_torch.algorithms.base import (
-    BaseAlgorithm, TrainState, make_optimizer)
+    BaseAlgorithm, TrainState, flat_gradient, make_optimizer)
 from ultra_pytorch_tpu_torch.models import base
 from ultra_pytorch_tpu_torch.utils.registry import register
 
@@ -139,14 +139,19 @@ class DLA(BaseAlgorithm):
     def apply_gradients(self, state: TrainState,
                         grads: Sequence[torch.Tensor]) -> TrainState:
         """One optimizer step per tower (`grads` in :meth:`trainable`
-        order), in place; advances the step."""
+        order; both towers' flat gradients averaged over the ranks in one
+        collective, before each tower's clip), in place; advances the
+        step."""
         opt_r, opt_p = self._optimizers()
-        n = len(state.params.jax_leaves())
-        state.opt_state = opt_r.step(state.params.jax_leaves(), grads[:n],
-                                     state.opt_state)
+        rank_leaves = state.params.jax_leaves()
+        prop_leaves = self._prop_leaves(state.aux["propensity"])
+        n = len(rank_leaves)
+        g = self.sync(torch.cat([flat_gradient(grads[:n], rank_leaves),
+                                 flat_gradient(grads[n:], prop_leaves)]))
+        k = sum(t.numel() for t, _ in rank_leaves)
+        state.opt_state = opt_r.step(rank_leaves, g[:k], state.opt_state)
         state.aux["prop_opt_state"] = opt_p.step(
-            self._prop_leaves(state.aux["propensity"]), grads[n:],
-            state.aux["prop_opt_state"])
+            prop_leaves, g[k:], state.aux["prop_opt_state"])
         state.step += 1
         return state
 

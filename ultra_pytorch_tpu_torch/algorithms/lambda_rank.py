@@ -93,7 +93,7 @@ class LambdaRank(BaseAlgorithm):
         return loss, pair_loss.detach()
 
     def update_aux(self, state, out):
-        pair_loss = out[1]
+        pair_loss = self.sync(out[1])
         t_plus, t_minus = state.aux["t_plus"], state.aux["t_minus"]
         t_plus_loss = torch.sum(pair_loss / t_minus[None, :], dim=1)
         t_minus_loss = torch.sum(pair_loss.T / t_plus[None, :], dim=1)

@@ -10,9 +10,10 @@ The port's counterpart of the JAX package's ``algorithms/regression_em.py``:
   Bernoulli pseudo-labels ``ceil(p_r1 - u)`` trained with BCE;
 * M-step: the propensity ``[1, L]`` (``aux["propensity"]``, from 0.9)
   moves by ``EM_step_size`` toward the batch mean of
-  ``c + (1 - c) prop (1 - gamma) / (1 - prop gamma)``.
+  ``c + (1 - c) prop (1 - gamma) / (1 - prop gamma)`` (averaged over the
+  ranks under data parallelism).
 
-``train_step`` draws the uniforms ``u`` from the window's generator;
+``train_step`` draws the uniforms ``u`` from this rank's generator;
 :meth:`RegressionEM.step_with_uniforms` takes them from the caller.
 """
 
@@ -74,7 +75,7 @@ class RegressionEM(BaseAlgorithm):
     def update_aux(self, state, out):
         alpha = self.hparams.EM_step_size
         state.aux = {"propensity": (1.0 - alpha) * state.aux["propensity"]
-                     + alpha * out[1]}
+                     + alpha * self.sync(out[1])}
         return state
 
     def step_with_uniforms(self, state, batch, u, generator=None):
@@ -83,6 +84,7 @@ class RegressionEM(BaseAlgorithm):
         return self._step(state, batch, u, generator=generator)
 
     def train_step(self, state, batch, generator=None):
+        shard = self.per_shard(generator)
         shape = self.train_slice(batch)["labels"].shape
-        u = torch.rand(shape, generator=generator, device=self.device)
-        return self.step_with_uniforms(state, batch, u, generator)
+        u = torch.rand(shape, generator=shard, device=self.device)
+        return self.step_with_uniforms(state, batch, u, shard)

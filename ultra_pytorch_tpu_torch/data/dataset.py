@@ -1,20 +1,25 @@
-"""Dataset ingestion: ULTRA-format LETOR data -> fixed-shape device tensors.
+"""Dataset ingestion: LETOR data -> fixed-shape device tensors.
 
 The port's counterpart of the JAX package's ``data/dataset.py``. It reads
 the ULTRA format (``<prefix>.feature`` sparse 1-based ``did idx:val`` rows,
 ``.init_list``, ``.labels``, optional ``.initial_scores`` and
-``settings.json``) with the same semantics: queries with fewer than two
-documents or no positive label are dropped, lists are densified with -1
-sentinels, and ``pad`` extends them. Ingestion happens once into a
-:class:`DeviceDataset` of tensors on one device:
+``settings.json``), the ULTRE variant (features keyed by document id,
+``qid did did ...`` initial lists, labels optionally replaced by logged
+clicks from ``click_model_dir``) and raw libsvm ``label qid:X idx:val``
+files (``<prefix>/<prefix>.txt``, in file order), with the same
+semantics: queries with fewer than two documents or no positive label are
+dropped, lists are densified with -1 sentinels, and ``pad`` extends them.
+The ``.feature`` and ``.txt`` files go through the native parser
+(``data/native.py``) when it builds, else through the Python one.
+Ingestion happens once into a :class:`DeviceDataset` of tensors on one
+device:
 
     features  [D+1, F]  float32  (row D is the zero PAD vector)
     doc_idx   [Q, L]    int64    (PAD positions point at row D)
     labels    [Q, L]    float32  (0 at pads)
     mask      [Q, L]    float32  (1 = real doc)
 
-so a training batch is a gather on the device. The libsvm and ULTRE
-loaders are not ported yet; :func:`read_data` raises for them.
+so a training batch is a gather on the device.
 """
 
 from __future__ import annotations
@@ -27,17 +32,24 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ultra_pytorch_tpu_torch.data import native
+
 
 def _read_sparse_features(path: str, feature_size: int,
                           removed: List[int]) -> Tuple[List[str], np.ndarray]:
-    """Read a `.feature` file of `did idx:val ...` rows (1-based idx)."""
-    dids: List[str] = []
-    rows: List[np.ndarray] = []
+    """Read a `.feature` file of `did idx:val ...` rows (1-based idx),
+    natively when the parser builds."""
     keep = None
     if removed:
         drop = set(removed)
         keep = np.array([i for i in range(feature_size) if (i + 1) not in drop],
                         dtype=np.int64)
+    parsed = native.parse_letor_file(path, native.FORMAT_ULTRA, feature_size)
+    if parsed is not None:
+        feats, _, dids = parsed
+        return dids, feats if keep is None else feats[:, keep]
+    dids: List[str] = []
+    rows: List[np.ndarray] = []
     with open(path) as fin:
         for line in fin:
             arr = line.split()
@@ -254,18 +266,133 @@ def load_ultra_format(data_path: str, file_prefix: str,
         initial_scores=sc)
 
 
+def load_ultre_format(data_path: str, file_prefix: str,
+                      click_model_dir: Optional[str] = None,
+                      rank_cut: Optional[int] = None) -> RankingDataset:
+    """Load one split of ULTRE-format data: features keyed by document id,
+    ``qid did did ...`` initial lists (unknown ids dropped), and the labels
+    of ``<click_model_dir>/<prefix>.labels`` when that file exists, else
+    the split's own."""
+    with open(os.path.join(data_path, "settings.json")) as fin:
+        settings = json.load(fin)
+    feature_size = settings["feature_size"]
+    max_label = float(settings.get("max_label", 1.0))
+
+    sub = os.path.join(data_path, file_prefix)
+    raw_dids, features = _read_sparse_features(
+        os.path.join(sub, file_prefix + ".feature"), feature_size, [])
+    did_to_row = {d: i for i, d in enumerate(raw_dids)}
+    qids, str_lists = _read_indexed_lines(
+        os.path.join(sub, file_prefix + ".init_list"), str, rank_cut)
+    lists = [[did_to_row[d] for d in docs if d in did_to_row]
+             for docs in str_lists]
+
+    label_path = os.path.join(sub, file_prefix + ".labels")
+    if click_model_dir:
+        logged = os.path.join(click_model_dir, file_prefix + ".labels")
+        if os.path.isfile(logged):
+            label_path = logged
+    _, labels = _read_indexed_lines(label_path, float, rank_cut)
+
+    qids, lists, labels, _ = _remove_invalid(qids, lists, labels, None)
+    rank_list_size = max((len(docs) for docs in lists), default=0)
+    il, lb, _ = _densify(lists, labels, None, rank_list_size)
+    return RankingDataset(
+        features=features, initial_list=il, labels=lb, qids=qids,
+        dids=raw_dids, feature_size=feature_size,
+        rank_list_size=rank_list_size, max_label=max_label)
+
+
+def _assemble_libsvm(features: np.ndarray, labels_flat: np.ndarray,
+                     row_qids: List[str],
+                     rank_cut: Optional[int] = None) -> RankingDataset:
+    """Group libsvm rows (file order; a new query where the qid changes)
+    into a dataset: the first `rank_cut` rows of a query, documents named
+    ``"{qid}_{i}"``, ``max_label`` the largest label (at least 1)."""
+    qids: List[str] = []
+    lists: List[List[int]] = []
+    labels: List[List[float]] = []
+    dids: List[str] = []
+    keep_rows: List[int] = []
+    max_label = 1.0
+    cur = None
+    for row, qid in enumerate(row_qids):
+        if qid != cur:
+            qids.append(qid)
+            lists.append([])
+            labels.append([])
+            cur = qid
+        if rank_cut is not None and len(lists[-1]) >= rank_cut:
+            continue
+        lists[-1].append(len(keep_rows))
+        lab = float(labels_flat[row])
+        labels[-1].append(lab)
+        max_label = max(max_label, lab)
+        dids.append(f"{qid}_{len(lists[-1]) - 1}")
+        keep_rows.append(row)
+    if len(keep_rows) != features.shape[0]:
+        features = features[np.asarray(keep_rows, dtype=np.int64)]
+    qids, lists, labels, _ = _remove_invalid(qids, lists, labels, None)
+    rank_list_size = max((len(docs) for docs in lists), default=0)
+    il, lb, _ = _densify(lists, labels, None, rank_list_size)
+    return RankingDataset(
+        features=features, initial_list=il, labels=lb, qids=qids, dids=dids,
+        feature_size=features.shape[1], rank_list_size=rank_list_size,
+        max_label=max_label)
+
+
+def _parse_libsvm_python(path: str
+                         ) -> Tuple[np.ndarray, np.ndarray, List[str]]:
+    """(features [rows, F], labels [rows], qids) of a libsvm file, F its
+    largest 1-based index; a ``#`` token ends a row."""
+    labels, qids, rows = [], [], []
+    feature_size = 0
+    with open(path) as fin:
+        for line in fin:
+            toks = line.split()
+            if not toks:
+                continue
+            labels.append(float(toks[0]))
+            qids.append(toks[1].split(":")[1])
+            fv = {}
+            for tok in toks[2:]:
+                if tok.startswith("#"):
+                    break
+                i_s, v_s = tok.split(":")
+                fi = int(i_s)
+                feature_size = max(feature_size, fi)
+                fv[fi - 1] = float(v_s)
+            rows.append(fv)
+    features = np.zeros((len(rows), feature_size), np.float32)
+    for r, fv in enumerate(rows):
+        for k, v in fv.items():
+            features[r, k] = v
+    return features, np.asarray(labels, np.float32), qids
+
+
+def load_libsvm_format(data_path: str, file_prefix: str,
+                       rank_cut: Optional[int] = None) -> RankingDataset:
+    """Load raw libsvm ``label qid:X idx:val...`` data
+    (``<data_path>/<prefix>/<prefix>.txt``) in file order."""
+    path = os.path.join(data_path, file_prefix, file_prefix + ".txt")
+    parsed = native.parse_letor_file(path, native.FORMAT_LIBSVM, None)
+    if parsed is None:
+        parsed = _parse_libsvm_python(path)
+    return _assemble_libsvm(*parsed, rank_cut=rank_cut)
+
+
 def read_data(data_path: str, file_prefix: str, rank_cut: Optional[int] = None,
               click_model_dir: Optional[str] = None) -> RankingDataset:
-    """Format-detecting entry point: `.feature` present -> ULTRA."""
+    """Format-detecting entry point: `.feature` present -> ULTRA (ULTRE
+    with a `click_model_dir`), else `.txt` -> libsvm."""
     sub = os.path.join(data_path, file_prefix)
     if os.path.isfile(os.path.join(sub, file_prefix + ".feature")):
         if click_model_dir:
-            raise NotImplementedError(
-                "the ULTRE loader is not yet ported to ultra_pytorch_tpu_torch")
+            return load_ultre_format(
+                data_path, file_prefix, click_model_dir, rank_cut)
         return load_ultra_format(data_path, file_prefix, rank_cut)
     if os.path.isfile(os.path.join(sub, file_prefix + ".txt")):
-        raise NotImplementedError(
-            "the libsvm loader is not yet ported to ultra_pytorch_tpu_torch")
+        return load_libsvm_format(data_path, file_prefix, rank_cut)
     raise FileNotFoundError(
         f"No ULTRA (.feature) or libsvm (.txt) data under {sub}")
 

@@ -57,9 +57,18 @@ class BaseInputFeed:
     """Shared feed plumbing."""
 
     def __init__(self, algorithm, batch_size: int, hparam_str: str,
-                 dataset: DeviceDataset, list_size: Optional[int] = None):
+                 dataset: DeviceDataset, list_size: Optional[int] = None,
+                 world_size: int = 1):
+        """`batch_size` is the global batch B; with `world_size` N ranks
+        each rank's training draws take B / N queries (``batch_size``),
+        while ``eval_batches`` still walks the split B queries at a
+        time."""
+        if batch_size % world_size:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"{world_size} data-parallel ranks")
         self.algorithm = algorithm
-        self.batch_size = batch_size
+        self.batch_size = batch_size // world_size
+        self.eval_batch_size = batch_size
         self.dataset = dataset
         self.list_size = list_size or dataset.list_size
         self.rank_list_size = getattr(
@@ -93,8 +102,8 @@ class BaseInputFeed:
         """Sequential batches over the whole dataset; yields (batch,
         start index, count)."""
         q = self.dataset.num_queries
-        for start in range(0, q, self.batch_size):
-            count = min(self.batch_size, q - start)
+        for start in range(0, q, self.eval_batch_size):
+            count = min(self.eval_batch_size, q - start)
             qs = torch.arange(start, start + count, device=self.dataset.device)
             yield self.dataset.gather(qs), start, count
 

@@ -1,8 +1,9 @@
-"""Build the port's CUDA sources into plain-C shared libraries.
+"""Build the port's native sources into plain-C shared libraries.
 
 Each kernel's ``.cu`` file under ``csrc/`` is compiled at first use with
-``nvcc`` for ``sm_90a`` into ``build/ultra_pytorch_tpu_torch/`` at the
-root of the checkout, and loaded with ``ctypes``. The library's file name
+``nvcc`` for ``sm_90a`` (and the LETOR parser's ``.cpp`` with ``g++``,
+``data/native.py``) into ``build/ultra_pytorch_tpu_torch/`` at the root of
+the checkout, and loaded with ``ctypes``. The library's file name
 carries a hash of its flags, its sources and every header they include
 (``#include "..."``, recursively), so a stale build is never loaded. Nothing includes PyTorch's headers, which keeps a build to
 seconds. ``nvcc`` is found through ``CUDA_HOME``, then
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "ultra_pytorch_tpu_torch"
@@ -64,35 +65,41 @@ def with_headers(sources: Sequence[Path]) -> List[Path]:
     return files
 
 
-def library_path(name: str, sources: Sequence[Path]) -> Path:
+def library_path(name: str, sources: Sequence[Path],
+                 flags: Sequence[str] = NVCC_FLAGS) -> Path:
     """``lib<name>-<hash>.so`` under BUILD_DIR, the hash taken over the
     flags, the sources and the headers they include."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(flags).encode())
     for src in with_headers(sources):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build_library(name: str, sources: Sequence[Path]) -> BuiltLibrary:
-    """Compile `sources` into ``library_path(name, sources)`` unless it
-    exists."""
-    path = library_path(name, sources)
+def build_library(name: str, sources: Sequence[Path],
+                  compiler: Optional[str] = None,
+                  flags: Sequence[str] = NVCC_FLAGS) -> BuiltLibrary:
+    """Compile `sources` with `compiler` (default nvcc) and `flags` into
+    ``library_path(name, sources, flags)`` unless it exists. The compiler
+    writes a name of this process's own and the file is renamed into
+    place, so ranks that build at once never load half a library."""
+    path = library_path(name, sources, flags)
     log_path = path.with_suffix(".log")
     if path.is_file():
         log = log_path.read_text() if log_path.is_file() else ""
         return BuiltLibrary(path, 0.0, log)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    cmd = [compiler or find_nvcc(), *flags, "-o", str(tmp),
+           *map(str, sources)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed building {name} (exit "
+        raise RuntimeError(f"{cmd[0]} failed building {name} (exit "
                            f"{proc.returncode}):\n{proc.stderr}")
     log = proc.stdout + proc.stderr
     log_path.write_text(log)
-    os.replace(tmp, path)  # atomic: a concurrent process never loads half a file
+    os.replace(tmp, path)
     return BuiltLibrary(path, seconds, log)

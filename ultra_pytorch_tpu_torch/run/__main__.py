@@ -13,9 +13,23 @@ improves. A window whose mean loss is inf or nan stops the run before its
 checkpoint decision, so it never overwrites the best checkpoint; a run that
 diverged saves nothing at its end either. ``--test_only`` restores the
 checkpoint, prints the test metrics and writes a TREC ranklist.
+``--profile_steps N`` traces the first N steps with ``torch.profiler``
+into ``<model_dir>/profile``.
 
-Not yet ported: ``--prng`` other than the default, ``--profile_steps``,
-``--dp`` above one device and ``--shard_data`` (each raises).
+Data parallelism, one process a device:
+
+* ``--dp N`` (or ``auto``: every visible card when the batch divides by
+  their count) spawns N ranks on this host, rank i on ``cuda:i`` (or all
+  on the CPU with ``--device cpu``); only rank 0 prints.
+* ``ULTRA_COORDINATOR=host:port ULTRA_NUM_PROCESSES=N ULTRA_PROCESS_ID=i``
+  (the JAX trainer's multi-host launch; ``run/launch.py`` starts such
+  processes) makes this process rank i of N, on ``cuda:{i mod the visible
+  cards}``, and each rank keeps only its stripe of the train split.
+  ``ULTRA_COORDINATOR`` may also be a ``file://`` store.
+* ``--shard_data`` keeps only each rank's stripe of the train split; it
+  needs a group of more than one rank.
+
+Not yet ported: ``--prng`` other than the default (it raises).
 ``--sync_readback`` is accepted and changes nothing: every window is read
 back before the next starts.
 """
@@ -28,8 +42,13 @@ import math
 import os
 import time
 
-from ultra_pytorch_tpu_torch.run.experiment import PRNG_IMPL, Experiment
-from ultra_pytorch_tpu_torch.utils.logging_utils import MetricLogger
+from ultra_pytorch_tpu_torch.parallel import (
+    close_data_parallel, init_data_parallel)
+from ultra_pytorch_tpu_torch.run import launch
+from ultra_pytorch_tpu_torch.run.experiment import (
+    PRNG_IMPL, Experiment, resolve_dp)
+from ultra_pytorch_tpu_torch.utils.logging_utils import (
+    MetricLogger, profile_ctx)
 
 # The shown list's metrics that the online family's steps report.
 ONLINE_METRICS = ("online_reward", "online_ndcg")
@@ -60,7 +79,8 @@ def parse_args(argv=None):
     p.add_argument("--test_only", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dp", type=str, default="auto",
-                   help="'auto', 'off' or 1: the port runs on one device")
+                   help="data-parallel ranks: 'auto' (every visible card "
+                        "when >1 and batch_size divides), 'off', or a count")
     p.add_argument("--shard_data", action="store_true")
     p.add_argument("--log_dir", type=str, default="",
                    help="JSONL metric log (default <model_dir>/logs)")
@@ -75,7 +95,7 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_experiment(args, splits) -> Experiment:
+def build_experiment(args, splits, hosts: int = 1) -> Experiment:
     with open(args.setting_file) as fin:
         exp_settings = json.load(fin)
     if args.selection_bias_cutoff > 0:
@@ -93,7 +113,11 @@ def build_experiment(args, splits) -> Experiment:
                         "valid": args.valid_data_prefix,
                         "test": args.test_data_prefix},
         device=args.device)
-    return exp.setup(splits=splits)
+    exp.setup(splits=splits)
+    if exp.data_parallel:
+        print(f"Data parallelism: {exp.world_size}-device mesh "
+              f"({hosts} host(s))", flush=True)
+    return exp
 
 
 def _restore(exp: Experiment, args) -> bool:
@@ -110,15 +134,22 @@ def _line(summary) -> str:
     return ", ".join(f"{k}={v:.5f}" for k, v in sorted(summary.items()))
 
 
-def train(args) -> None:
+def train(args, hosts: int = 1) -> None:
     splits = ("train", "valid", "test") if args.test_while_train else (
         "train", "valid")
-    exp = build_experiment(args, splits)
+    exp = build_experiment(args, splits, hosts)
     exp.init_state()
     _restore(exp, args)
-    logger = MetricLogger(args.log_dir or os.path.join(args.model_dir, "logs"))
+    lead = exp.rank == 0   # the one rank that writes logs and traces
+    logger = MetricLogger((args.log_dir or os.path.join(
+        args.model_dir, "logs")) if lead else None)
     objective = exp.exp_settings.get("objective_metric", "ndcg_10")
     best, step, diverged = None, 0, False
+    if args.profile_steps > 0:
+        with profile_ctx(os.path.join(args.model_dir, "profile")
+                         if lead else None):
+            exp.train_steps(args.profile_steps)
+        step += args.profile_steps
     while step < args.max_train_iteration:
         window = min(args.steps_per_checkpoint,
                      args.max_train_iteration - step)
@@ -157,17 +188,27 @@ def train(args) -> None:
     print(f"Training done at step {step}; best {objective}={best}")
 
 
-def test(args) -> None:
-    exp = build_experiment(args, splits=("test",))
+def test(args, hosts: int = 1) -> None:
+    exp = build_experiment(args, ("test",), hosts)
     exp.init_state()
     if not _restore(exp, args):
         print("WARNING: no checkpoint found; testing from random init")
     summary = exp.validate("test")
     for k in sorted(summary):
         print(f"{k}: {summary[k]:.5f}")
-    os.makedirs(args.output_dir, exist_ok=True)
-    path, _ = exp.write_ranklist("test", args.output_dir)
-    print(f"Wrote {path}")
+    if exp.rank == 0:
+        os.makedirs(args.output_dir, exist_ok=True)
+        path, _ = exp.write_ranklist("test", args.output_dir)
+        print(f"Wrote {path}")
+
+
+def run(args, hosts: int = 1) -> None:
+    """Test or train in this process (a rank, when it has joined a
+    process group)."""
+    if args.test_only:
+        test(args, hosts)
+    else:
+        train(args, hosts)
 
 
 def main(argv=None) -> None:
@@ -175,14 +216,29 @@ def main(argv=None) -> None:
     if args.prng != PRNG_IMPL:
         raise NotImplementedError(
             f"--prng {args.prng} is not yet ported to ultra_pytorch_tpu_torch")
-    if args.profile_steps > 0:
-        raise NotImplementedError(
-            "--profile_steps is not yet ported to ultra_pytorch_tpu_torch")
     os.makedirs(args.model_dir, exist_ok=True)
-    if args.test_only:
-        test(args)
+    coordinated = launch.coordinated_rank()
+    if coordinated is not None:
+        rank, world, init_method = coordinated
+        if resolve_dp(args.dp, args.batch_size, "cpu") not in (1, world):
+            raise ValueError(f"--dp {args.dp} under ULTRA_NUM_PROCESSES="
+                             f"{world}: one process is one rank")
+        # Each process is a host here: it keeps its stripe of the train
+        # split, as the JAX trainer's hosts do.
+        args.shard_data = args.shard_data or world > 1
+        init_data_parallel(world, rank, launch.rank_device(args.device, rank),
+                           init_method=init_method)
+        try:
+            run(args, hosts=world)
+        finally:
+            close_data_parallel()
+        return
+    world = 1 if args.test_only else resolve_dp(args.dp, args.batch_size,
+                                                args.device)
+    if world > 1:
+        launch.spawn_cli(args, world)
     else:
-        train(args)
+        run(args)
 
 
 if __name__ == "__main__":

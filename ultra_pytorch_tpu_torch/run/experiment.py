@@ -1,7 +1,7 @@
 """Experiment assembly and the train / validation loops.
 
-The port's counterpart of the JAX package's ``run/experiment.py``, on one
-device. It reads the same experiment-JSON schema (``train/valid/
+The port's counterpart of the JAX package's ``run/experiment.py``. It
+reads the same experiment-JSON schema (``train/valid/
 test_input_feed`` with their hparam strings, ``ranking_model``,
 ``learning_algorithm``, ``metrics``/``metrics_topn``/``objective_metric``),
 resolves components through the registry and runs
@@ -28,7 +28,17 @@ cannot plan, each step draws from it the feed's batch first, then the
 algorithm's draws (the DBGD family's noises, rankings, drafting order and
 clicks).
 
-Data parallelism (``dp`` > 1) and ``shard_data`` are not ported yet.
+Data parallelism: an Experiment built in a process that has joined a
+process group (``parallel.init_data_parallel``, one process a device) is
+one rank of a data-parallel run. Its train feed draws B / N queries a
+step, the window runs through ``parallel.dp_train_steps`` (the gradient,
+the algorithms' batch statistics and the window's metrics averaged over
+the ranks), and the window's replica generator is the same on every rank
+while each rank's own draws come from its shard generator. Each rank
+holds the whole train split, or with ``shard_data`` only its stripe's
+queries and feature rows (``shard_queries_for_host``); validation and
+test splits stay whole and every rank validates all of them. Only rank 0
+writes the checkpoint; every rank restores it.
 """
 
 from __future__ import annotations
@@ -39,10 +49,13 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ultra_pytorch_tpu_torch.algorithms.base import train_window
 from ultra_pytorch_tpu_torch.data import dataset as data_lib
 from ultra_pytorch_tpu_torch.data.trec import output_ranklist
 from ultra_pytorch_tpu_torch.models.base import params_from_jax, params_to_jax
+from ultra_pytorch_tpu_torch.parallel import mesh
 from ultra_pytorch_tpu_torch.utils import checkpoint as ckpt_lib
 from ultra_pytorch_tpu_torch.utils.device import resolve_device
 from ultra_pytorch_tpu_torch.utils.registry import find_class
@@ -69,6 +82,36 @@ def create_algorithm(exp_settings: Dict[str, Any], feature_size: int,
     return algo_cls(ranker, exp_settings, max_label=max_label)
 
 
+def dp_policy(dp) -> Optional[int]:
+    """The JAX trainer's ``--dp`` values: "auto" (or None) -> None, "off"
+    -> 0, a count -> that int."""
+    if isinstance(dp, str):
+        return None if dp == "auto" else 0 if dp == "off" else int(dp)
+    return dp
+
+
+def resolve_dp(dp, batch_size: int, device) -> int:
+    """The number of data-parallel ranks for the `dp` policy on `device`'s
+    type: "auto" is every visible card when there is more than one and
+    `batch_size` divides by their count, else 1; "off", 0 and 1 are 1; a
+    count N above the visible cards, or one that does not divide
+    `batch_size`, is a ValueError. CPU ranks are processes, so on the CPU
+    "auto" is 1 and any count is allowed."""
+    dp = dp_policy(dp)
+    if dp in (0, 1):
+        return 1
+    n_visible = (torch.cuda.device_count()
+                 if torch.device(device).type == "cuda" else None)
+    if dp is None:
+        n = n_visible or 1
+        return n if n > 1 and batch_size % n == 0 else 1
+    if n_visible is not None and dp > n_visible:
+        raise ValueError(f"--dp={dp} but only {n_visible} devices visible")
+    if batch_size % dp:
+        raise ValueError(f"batch_size {batch_size} not divisible by dp={dp}")
+    return dp
+
+
 def _key_seed(key: np.ndarray) -> int:
     """The 64-bit generator seed of a two-word key."""
     return (int(key[0]) << 32) | int(key[1])
@@ -89,17 +132,26 @@ class Experiment:
                  rank_cut: Optional[int] = None, dp=None,
                  split_prefixes: Optional[Dict[str, str]] = None,
                  shard_data: bool = False, device=None):
-        """`dp` takes the JAX trainer's policy values; only one device
-        ("auto", "off", 0 or 1) is ported. `device` defaults to CUDA."""
-        if isinstance(dp, str):
-            dp = None if dp == "auto" else 0 if dp == "off" else int(dp)
-        if dp not in (None, 0, 1):
-            raise NotImplementedError(
-                f"dp={dp}: data parallelism is not yet ported to "
-                "ultra_pytorch_tpu_torch (one device only)")
-        if shard_data:
-            raise NotImplementedError(
-                "shard_data is not yet ported to ultra_pytorch_tpu_torch")
+        """`dp` takes the JAX trainer's policy values (``dp_policy``): with
+        "auto" the Experiment is a rank of whatever process group this
+        process has joined; "off", 0 and 1 run on one device; a count N
+        needs a group of N ranks. `shard_data` keeps only this rank's
+        stripe of the train split and needs a group of more than one
+        rank. `device` (this rank's) defaults to CUDA."""
+        dp = dp_policy(dp)
+        ranks = mesh.group_size()
+        if dp not in (None, 0, 1) and dp != ranks:
+            raise ValueError(
+                f"dp={dp} needs a process group of {dp} ranks "
+                f"(parallel.init_data_parallel), this process has "
+                f"{ranks or 'none'}")
+        self.data_parallel = ranks > 0 and dp not in (0, 1)
+        self.world_size = ranks if self.data_parallel else 1
+        self.rank = dist.get_rank() if self.data_parallel else 0
+        if shard_data and self.world_size < 2:
+            raise ValueError("--shard_data requires a data-parallel group "
+                             "(dp > 1)")
+        self.shard_data = shard_data
         self.exp_settings = exp_settings
         self.data_dir = data_dir
         self.model_dir = model_dir
@@ -126,8 +178,13 @@ class Experiment:
         given = datasets or {}
         self.datasets = {s: given[s] if s in given else self.load_split(s)
                          for s in splits}
+        # From the whole data, before a stripe, so every rank has the
+        # same shapes.
         max_candidate_num = max(
             d.rank_list_size for d in self.datasets.values())
+        if self.shard_data and "train" in self.datasets:
+            self.datasets["train"] = mesh.shard_queries_for_host(
+                self.datasets["train"], self.rank, self.world_size)
         self.exp_settings["max_candidate_num"] = max_candidate_num
         cutoff = self.exp_settings.get("selection_bias_cutoff",
                                        max_candidate_num)
@@ -154,7 +211,8 @@ class Experiment:
                 self.algorithm, self.batch_size,
                 self.exp_settings.get(f"{split}_input_hparams", ""),
                 self.device_data[split],
-                list_size=self.datasets[split].rank_list_size)
+                list_size=self.datasets[split].rank_list_size,
+                world_size=self.world_size if split == "train" else 1)
         return self
 
     # -- state ------------------------------------------------------------
@@ -177,7 +235,10 @@ class Experiment:
         return os.path.join(self.model_dir, f"{algo_name}.ckpt")
 
     def save(self, extra: Dict[str, Any] = None) -> None:
-        """Checkpoint the full train state and the data key."""
+        """Checkpoint the full train state and the data key (rank 0 only:
+        every rank holds the same state)."""
+        if self.rank != 0:
+            return
         meta = dict(extra or {})
         meta.setdefault("prng_impl", PRNG_IMPL)
         meta.setdefault("state_format", STATE_FORMAT)
@@ -239,23 +300,20 @@ class Experiment:
     # -- train ------------------------------------------------------------
     def train_steps(self, num_steps: int) -> Dict[str, float]:
         """Run `num_steps` steps, their draws planned in one pass where
-        the feed can plan; returns the window's mean metrics as host floats
-        (one transfer). The window's generator goes on to each step after
-        the plan has drawn from it (Regression-EM's uniforms)."""
+        the feed can plan (``algorithms.base.train_window``); returns the
+        window's mean metrics as host floats (one transfer), averaged over
+        the ranks under data parallelism. The window's generator goes on
+        to each step after the plan has drawn from it (Regression-EM's
+        uniforms)."""
         feed = self.feeds["train"]
         generator = self._window_generator()
-        plan = (feed.train_batch_plan(generator, self.state.step, num_steps)
-                if feed.can_plan() else None)
-        total, keys = None, None
-        for i in range(num_steps):
-            batch = (feed.batch_from_plan(plan, i) if plan is not None
-                     else feed.train_batch(generator, self.state))
-            self.state, metrics = self.algorithm.train_step(
-                self.state, batch, generator)
-            keys = keys or sorted(metrics)
-            values = torch.stack([metrics[k] for k in keys])
-            total = values if total is None else total + values
-        return dict(zip(keys, (total / num_steps).tolist()))
+        if self.data_parallel:
+            self.state, metrics = mesh.dp_train_steps(
+                self.algorithm, feed, self.state, generator, num_steps)
+            return metrics
+        self.state, keys, means = train_window(
+            self.algorithm, feed, self.state, generator, num_steps)
+        return dict(zip(keys, means.tolist()))
 
     # -- eval -------------------------------------------------------------
     def _metric_keys(self):
