@@ -99,10 +99,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
     through a ``MicroBatcher`` (every reply equal to direct scoring); and
     SetRank at ``rate=0.1`` for 50 steps (finite losses, eval scores
     unchanged by a second call).
-15. Kernels, after phase 18: one JSON line listing K1-K5 (launches
+15. Kernels, after phase 19: one JSON line listing K1-K5 (launches
     summed over the serving, DLA training, offline training, phase 14's,
-    phase 16's, phase 17's and both ranks' of phase 18's main runs), then
-    the result line.
+    phase 16's, phase 17's, both ranks' of phase 18's and phase 19's graph
+    and CLI runs), then the result line.
 16. The online family: the six configs ``naive_online``, ``pdgd``,
     ``dbgd``, ``dbgd_ndcg``, ``mgd`` and ``nsgd`` (each config's own
     file with the DNN at [512, 256, 128], every kernel hparam its path
@@ -153,6 +153,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
     one rank alone against two summed, in turns (1, 2, 2, 1). Then NCCL at
     world size 1: the backend resolves to NCCL, torch.profiler records its
     kernel, and a DLA window equals the window without a group.
+19. Fused windows: each of the 14 offline configs of ``configs/`` (every
+    kernel hparam its path allows) on phase 7's data and protocol, two
+    eager windows of 50 steps against two replayed CUDA graph windows
+    from the same state and data key: the state (ranker, optimizer
+    vector, aux), the data key and the window metrics bit for bit (or
+    within CAPTURE_TOL where CAPTURE_DIFFERS names the library op), the
+    graph's launches exact through the replays (phases 7's, 11's and
+    14's per-step formulas), and the graph validation pass equal to the
+    eager one, also at 30,720 rows a batch (phase 17's shape). Queries/s
+    of window 2 in turns (graph, eager, eager, graph, then the plain path
+    graph and eager) for DLA, PairDebias, ``dla_setrank`` and
+    ``dla_dlcm``, with torch.profiler's busy and idle share of a graph
+    window; then DLA through the CLI on phase 8's data, pipelined and
+    with ``--sync_readback`` (2 windows and a tail): the same lines, the
+    same checkpoint, exact launches. Every other phase's training now
+    runs through the same graphs (phases 7, 11, 14 and 17; the online
+    configs of phase 16 and the ranks of phase 18 run eager), and their
+    step breakdowns time the eager window.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -985,7 +1003,7 @@ def step_breakdown(exp, tag: str = ""):
 
     step_wall = time_parts(f"[step{tag}]", ("plan", "gather", "forward+loss",
                                             "backward", "optimizer"), window)
-    profile_steps(exp, f"[profile{tag}]", step_wall)
+    profile_steps(exp, f"[profile{tag}]", step_wall, fuse_window=False)
 
 
 def mark():
@@ -1026,14 +1044,16 @@ def time_parts(step_tag: str, parts, window) -> float:
     return wall / WINDOW
 
 
-def profile_steps(exp, prof_tag: str, step_wall: float) -> None:
+def profile_steps(exp, prof_tag: str, step_wall: float,
+                  fuse_window: bool) -> None:
     """torch.profiler's device time per kernel over WINDOW steps of
-    ``exp``, against the unprofiled step's `step_wall` seconds."""
+    ``exp`` (a replayed graph with `fuse_window`, else the eager window),
+    against the unprofiled step's `step_wall` seconds."""
     timed = {}
 
     def profiled_window():
         t0 = time.perf_counter()
-        exp.train_steps(WINDOW)   # ends with a device read
+        exp.train_steps(WINDOW, fuse_window)   # ends with a device read
         timed["wall"] = time.perf_counter() - t0
 
     kernels = device_events(profiled_window)
@@ -2013,7 +2033,7 @@ def online_step_breakdown(exp, tag: str) -> None:
 
     step_wall = time_parts(f"[step {tag}]", ("feed", "noise", "candidates",
                                              "winners", "update"), window)
-    profile_steps(exp, f"[profile {tag}]", step_wall)
+    profile_steps(exp, f"[profile {tag}]", step_wall, fuse_window=False)
 
 
 def phase_online(mlp, dev, data_dir):
@@ -2592,6 +2612,259 @@ def phase_nccl(dev, click_json, ultra_dir, base):
           "the window without a group")
 
 
+# -- phase 19: fused windows -------------------------------------------------
+# The offline configs of configs/ whose train feed can plan, so on the card
+# each window is one replayed CUDA graph (run/window.py): name -> settings
+# with every kernel hparam its path allows, at phase 7's protocol.
+FUSED_ALGOS = {"naive": "NaiveAlgorithm", "ipw_rank": "IPWrank",
+               "regression_EM": "RegressionEM",
+               "pairwise_debias": "PairDebias", "lambda_rank": "LambdaRank",
+               "prs_rank": "PRSrank"}
+# The configs whose queries/s phase 19 measures in turns and whose graph
+# window it profiles.
+FUSED_RATES = ("dla", "pairwise_debias", "dla_setrank", "dla_dlcm")
+# Configs whose graph window may differ from the eager one within
+# CAPTURE_TOL relative, with the library op that picks another algorithm
+# under capture; every other config must match bit for bit.
+CAPTURE_DIFFERS = {}
+CAPTURE_TOL = 1e-6
+
+
+def fused_settings(name: str, kernels: bool, click_json: str):
+    """Phase 7's settings for the offline config `name` of configs/."""
+    if name == "dla":
+        return dla_settings(kernels, click_json)
+    if name in RANKER_CONFIGS:
+        return ranker_settings(name, kernels)
+    settings = offline_settings(FUSED_ALGOS.get(name, "NaiveAlgorithm"),
+                                kernels, click_json)
+    if name == "naive_oracle":
+        settings["train_input_hparams"] = "oracle_mode=true"
+    return settings
+
+
+def window_launches(settings, steps: int, windows: int):
+    """The exact training launches of `windows` windows of `steps` steps
+    in all (the feed's click-rate estimate left out): phase 7's, 11's and
+    14's per-step formulas."""
+    algo = settings["learning_algorithm"]
+    dnn = settings["ranking_model"] == "DNN"
+    fused = "fused_softmax_loss" in settings["learning_algorithm_hparams"]
+    feed = settings["train_input_hparams"]
+    clicks = "use_pallas_click=true" in feed and "oracle_mode" not in feed
+    losses = (2 if algo == "DLA" else 1) * steps if fused else 0
+    return {"K1": (2 if algo == "RegressionEM" else 1) * steps if dnn
+            else 0, "K2": steps if dnn else 0, "K3": losses, "K4": losses,
+            "K5": windows if clicks else 0}
+
+
+def fused_run(settings, dev, data, fuse: bool, windows: int = 2):
+    """`windows` windows of WINDOW steps from seed 0, graph or eager; the
+    launches are counted from after the feed is built. Returns the
+    experiment, the window metrics, each window's host seconds and the
+    launches."""
+    from ultra_pytorch_tpu_torch.run.experiment import Experiment
+
+    exp = Experiment(settings, "unused", os.path.join(WORK, "fused"),
+                     batch_size=BATCH, seed=0, device=dev)
+    exp.setup(datasets=data)
+    exp.init_state()
+    reset_counts()
+    metrics, seconds = [], []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(exp.train_steps(WINDOW, fuse))   # ends with a read
+        seconds.append(time.perf_counter() - t0)
+    return exp, metrics, seconds, read_counts()
+
+
+def max_leaf_diff(a_leaves, b_leaves) -> float:
+    """The largest difference between two lists of arrays, relative to
+    each array's largest magnitude."""
+    worst = 0.0
+    for a, b in zip(a_leaves, b_leaves):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        scale = max(float(np.abs(b).max(initial=0.0)), 1e-30)
+        worst = max(worst, float(np.abs(a - b).max(initial=0.0)) / scale)
+    return worst
+
+
+def fused_against_eager(name: str, dev, data, click_json):
+    """One config: two eager windows against two graph windows from the
+    same state and data key (state, optimizer and aux leaves, the data key
+    and the window metrics bit for bit, or within CAPTURE_TOL where
+    CAPTURE_DIFFERS names the op), the graph's launches exact, then the
+    graph validation pass against the eager one. Returns the graph run's
+    launches (training and validation) and its experiment."""
+    settings = fused_settings(name, True, click_json)
+    eager, eager_metrics, _, _ = fused_run(settings, dev, data, False)
+    graph, graph_metrics, _, counts = fused_run(settings, dev, data, True)
+    check(graph.eager_reason() is None, f"{name}: its window is not "
+          f"captured ({graph.eager_reason()})")
+    want = window_launches(settings, 2 * WINDOW, 2)
+    check(counts == want, f"{name}: the graph windows launched {counts}, "
+          f"expected {want}")
+    a = graph.algorithm.state_leaves(graph.state) + [graph._data_key]
+    b = eager.algorithm.state_leaves(eager.state) + [eager._data_key]
+    same = (len(a) == len(b) and all(np.array_equal(x, y)
+                                     for x, y in zip(a, b))
+            and graph_metrics == eager_metrics)
+    diff = max(max_leaf_diff(a, b), max(
+        abs(g[k] - e[k]) / max(abs(e[k]), 1e-30)
+        for g, e in zip(graph_metrics, eager_metrics) for k in e))
+    check(same or (name in CAPTURE_DIFFERS and diff <= CAPTURE_TOL),
+          f"{name}: the graph window differs from the eager one (max rel "
+          f"{diff:.3e})")
+    reset_counts()
+    keys, replayed = graph.validate_device("valid")
+    valid_counts = read_counts()
+    direct = graph._validation_pass("valid", graph._eval_generator())
+    batches = math.ceil(data["valid"].num_queries / BATCH)
+    dnn = settings["ranking_model"] == "DNN"
+    check(torch.equal(replayed, direct), f"{name}: the graph validation "
+          "pass differs from the eager one")
+    check(valid_counts["K1"] == (batches if dnn else 0),
+          f"{name}: the validation graph launched K1 {valid_counts['K1']} "
+          f"times, expected {batches if dnn else 0}")
+    print(f"[fused] {name}: 2 x {WINDOW} steps, graph "
+          f"{'=' if same else '~'} eager (state, optimizer, aux, data key, "
+          f"metrics; max rel diff {diff:.3e}); launches {counts}; losses "
+          f"{fmt([m['loss'] for m in graph_metrics])}; validation graph = "
+          f"eager ({len(keys)} metrics, K1 {valid_counts['K1']})",
+          flush=True)
+    for k, n in valid_counts.items():
+        counts[k] += n
+    return counts, graph
+
+
+def fused_rates(name: str, dev, data, click_json):
+    """Queries/s of window 2 (the first is the capture or the warm-up) in
+    turns graph, eager, eager, graph, then the plain path graph and eager;
+    the graph run's step time and torch.profiler's busy and idle share of
+    a graph window."""
+    rates, graph_exp, graph_secs = {}, None, []
+    for fuse, kernels in ((True, True), (False, True), (False, True),
+                          (True, True), (True, False), (False, False)):
+        exp, _, seconds, _ = fused_run(fused_settings(name, kernels,
+                                                      click_json),
+                                       dev, data, fuse)
+        key = ("graph" if fuse else "eager") + ("" if kernels else " plain")
+        rates.setdefault(key, []).append(WINDOW * BATCH / seconds[-1])
+        if fuse and kernels:
+            graph_exp = exp
+            graph_secs.append(seconds[-1])
+    print(f"[fused rates] {name} queries/s of window 2 on {card_line()} "
+          f"(turns graph, eager, eager, graph; then plain graph, plain "
+          f"eager): " + json.dumps({k: [round(x) for x in v]
+                                    for k, v in rates.items()}), flush=True)
+    step_wall = sum(graph_secs) / len(graph_secs) / WINDOW
+    profile_steps(graph_exp, f"[fused profile {name}]", step_wall,
+                  fuse_window=True)
+    return rates
+
+
+def fused_validation_long(dev, click_json):
+    """The validation graph at phase 17's shape: DLA at full width on
+    lists of FORMAT_DOCS documents, so a batch is 30,720 rows through K1;
+    the replayed pass equals the eager one bit for bit, twice."""
+    from ultra_pytorch_tpu_torch.run.experiment import Experiment
+
+    data = {"train": synthetic(1024, 30),
+            "valid": synthetic(512, 31, FORMAT_DOCS)}
+    exp = Experiment(dla_settings(True, click_json), "unused",
+                     os.path.join(WORK, "fused"), batch_size=BATCH, seed=0,
+                     device=dev)
+    exp.setup(datasets=data)
+    exp.init_state()
+    reset_counts()
+    first = exp.validate_device("valid")[1]
+    again = exp.validate_device("valid")[1]
+    counts = read_counts()
+    direct = exp._validation_pass("valid", exp._eval_generator())
+    batches = math.ceil(512 / BATCH)
+    check(torch.equal(first, direct) and torch.equal(again, direct),
+          "the 30,720-row validation graph differs from the eager pass")
+    check(counts["K1"] == 2 * batches, f"the 30,720-row validation graph "
+          f"launched K1 {counts['K1']} times in two replays, expected "
+          f"{2 * batches}")
+    print(f"[fused] validation at {BATCH} x {FORMAT_DOCS} rows a batch: "
+          f"graph = eager over two replays; K1 {counts['K1']}", flush=True)
+    return counts
+
+
+def fused_cli(data_dir: str, click_json):
+    """DLA through the CLI on phase 8's data (in this process), pipelined
+    and with ``--sync_readback``: 2 windows and a tail, so two graphs. The
+    step lines without their rates, the validation metrics and the saved
+    checkpoints must be equal, and each run's launches exact."""
+    from ultra_pytorch_tpu_torch.utils import checkpoint as ckpt_lib
+
+    setting_file = os.path.join(WORK, "fused_cli_settings.json")
+    with open(setting_file, "w") as fout:
+        json.dump(dla_settings(True, click_json), fout)
+    steps, windows = 2 * WINDOW + WINDOW // 2, 3
+    want = cli_launches(steps, windows, 128)
+    lines, ckpts, total = {}, {}, dict.fromkeys(counters(), 0)
+    for mode, extra in (("pipelined", []), ("sync", ["--sync_readback"])):
+        model_dir = os.path.join(WORK, f"fused_cli_{mode}")
+        shutil.rmtree(model_dir, ignore_errors=True)
+        reset_counts()
+        out = run_cli_here(f"fused cli {mode}", [
+            "--data_dir", data_dir, "--setting_file", setting_file,
+            "--model_dir", model_dir, "--batch_size", str(BATCH),
+            "--max_train_iteration", str(steps),
+            "--steps_per_checkpoint", str(WINDOW)] + extra)
+        counts = read_counts()
+        check(counts == want, f"the {mode} CLI launched {counts}, expected "
+              f"{want}")
+        check("Training windows: captured CUDA graphs" in out,
+              f"the {mode} CLI did not capture its windows")
+        for k, n in counts.items():
+            total[k] += n
+        lines[mode] = [re.sub(r"\(\d+ queries/s\)", "", line)
+                       for line in out.splitlines() if line.startswith(
+                           ("step ", "  saved", "Training done"))]
+        path = os.path.join(model_dir, "DLA.ckpt")
+        meta = ckpt_lib.read_metadata(path)
+        with np.load(path + ".npz") as arrays:
+            ckpts[mode] = (meta.get("step"),
+                           {k: arrays[k] for k in arrays.files})
+    check(lines["pipelined"] == lines["sync"], "the pipelined and the "
+          "--sync_readback CLI printed different metrics")
+    (step_a, a), (step_b, b) = ckpts["pipelined"], ckpts["sync"]
+    check(step_a == step_b and a.keys() == b.keys()
+          and all(np.array_equal(a[k], b[k]) for k in a),
+          "the pipelined and the --sync_readback CLI saved different "
+          "checkpoints")
+    print(f"[fused cli] pipelined = --sync_readback: {len(lines['sync'])} "
+          f"lines, checkpoint of step {step_a} equal ({len(a)} arrays); "
+          f"launches each {want}", flush=True)
+    return total
+
+
+def phase_fused(dev, click_json, data, data_dir):
+    """Phase 19: every offline config's window as a replayed CUDA graph
+    against the eager window, the validation graph (also at 30,720 rows a
+    batch), queries/s in turns with the graph window's idle share for
+    FUSED_RATES, and the CLI pipelined against ``--sync_readback``.
+    Returns the graph runs' launches, summed."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(counters(), 0)
+    for name in ("dla", *FUSED_ALGOS, "naive_oracle", *RANKER_CONFIGS):
+        counts, _ = fused_against_eager(name, dev, data, click_json)
+        for k, n in counts.items():
+            total[k] += n
+    for part in (fused_validation_long(dev, click_json),
+                 fused_cli(data_dir, click_json)):
+        for k, n in part.items():
+            total[k] += n
+    for name in FUSED_RATES:
+        fused_rates(name, dev, data, click_json)
+    print(f"[fused] phase 19 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -2631,9 +2904,10 @@ def main() -> int:
     online_counts = phase_online(mlp, dev, data_dir)
     libsvm_dir, format_counts = phase_formats(click_json)
     dp_counts = phase_dp(dev, click_json, data_dir, libsvm_dir)
+    fused_counts = phase_fused(dev, click_json, data, data_dir)
     counts["K1"] += serving_launches
     for part in (offline_counts, ranker_counts, online_counts, format_counts,
-                 dp_counts):
+                 dp_counts, fused_counts):
         for k, n in part.items():
             counts[k] += n
     sources = {
@@ -2654,6 +2928,10 @@ def main() -> int:
         "replaces": replaces, "launches": counts[k],
         "max_abs_err": err[k], **timing[k]}
         for k, (name, src, replaces) in sources.items()]
+    from ultra_pytorch_tpu_torch.run.window import Replayable
+
+    print("[kernels] launches through CUDA graph replays in this run: "
+          + json.dumps(dict(zip(sources, Replayable.replayed))), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

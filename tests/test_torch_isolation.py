@@ -61,7 +61,7 @@ def test_every_module_imports_without_jax():
 def test_sources_name_neither_jax_nor_the_jax_package():
     files = _sources()
     for name in ("mlp_fwd.cu", "letor_parser.cpp", "data/native.py",
-                 "parallel/mesh.py", "run/launch.py"):
+                 "parallel/mesh.py", "run/launch.py", "run/window.py"):
         assert any(f.endswith(name) for f in files), name
     for path in files:
         with open(path) as fh:

@@ -18,6 +18,7 @@ pytest.importorskip("flax")  # its click models and algorithms need it
 from ultra_pytorch_tpu.run.experiment import Experiment as JaxExperiment
 from ultra_pytorch_tpu_torch.run import __main__ as cli
 from ultra_pytorch_tpu_torch.run.experiment import Experiment
+from ultra_pytorch_tpu_torch.utils import checkpoint as ckpt_lib
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -211,9 +212,52 @@ def test_unported_parallelism_raises(click_model_json, kwargs):
 
 @pytest.mark.parametrize("flags", [["--prng", "rbg"],
                                    ["--prng", "unsafe_rbg"]])
-def test_unported_cli_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["--model_dir", str(tmp_path), "--device", "cpu"] + flags)
+def test_prng_rbg_flags_train_and_restore(toy_data_dir, click_model_json,
+                                          tmp_path, flags):
+    """``--prng rbg`` / ``unsafe_rbg`` train through the CLI with rbg's
+    four-word data key, recorded in the checkpoint; a checkpoint the JAX
+    package wrote under that ``--prng`` restores into the port leaf for
+    leaf, and a run under another ``--prng`` refuses it, naming the
+    flag."""
+    prng = flags[1]
+    settings = _settings(click_model_json)
+    setting_file = tmp_path / "settings.json"
+    setting_file.write_text(json.dumps(settings))
+    model_dir = tmp_path / "cli"
+    cli.main(["--device", "cpu", "--data_dir", toy_data_dir,
+              "--setting_file", str(setting_file), "--model_dir",
+              str(model_dir), "--batch_size", "8", "--max_train_iteration",
+              "4", "--steps_per_checkpoint", "2"] + flags)
+    ckpt = str(model_dir / "DLA.ckpt")
+    assert ckpt_lib.read_metadata(ckpt)["prng_impl"] == prng
+    again = Experiment(dict(settings), toy_data_dir, str(model_dir),
+                       batch_size=8, device="cpu", prng_impl=prng).setup()
+    assert again.restore()
+    assert again._data_key.shape == (4,) and again.state.step > 0
+
+    try:
+        jax.config.update("jax_default_prng_impl", prng)
+        jexp = _jax(settings, toy_data_dir, str(tmp_path / "jax"))
+        jexp.train_steps(3)
+        jexp.save({"step": 3})
+        theirs = _jax_leaves(jexp)
+    finally:
+        jax.config.update("jax_default_prng_impl", "threefry2x32")
+    exp = Experiment(dict(settings), toy_data_dir, str(tmp_path / "port"),
+                     batch_size=8, device="cpu", prng_impl=prng).setup()
+    exp.init_state()
+    assert exp.restore(jexp.ckpt_path)
+    mine = _port_leaves(exp)
+    assert len(mine) == len(theirs) and theirs[-1].shape == (4,)
+    for a, b in zip(mine, theirs):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    assert exp.state.step == 3
+    exp.train_steps(2)
+    assert np.isfinite(exp.validate("valid")["ndcg_5"])
+
+    default = _port(settings, toy_data_dir, str(tmp_path / "default"))
+    with pytest.raises(ValueError, match="--prng"):
+        default.restore(jexp.ckpt_path)
 
 
 def _run(args, cwd):

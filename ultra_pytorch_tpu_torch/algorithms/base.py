@@ -14,9 +14,12 @@ batch, ..., generator=None)`` returns a tuple whose first element is the
 differentiable loss (the rest is what the aux update needs),
 ``trainable(state)`` the tensors it is differentiated in,
 ``apply_gradients`` the optimizer step and ``update_aux`` the aux state's
-update from the ``losses`` tuple. ``losses`` scores in training mode
-through :meth:`BaseAlgorithm.score_with_params`, which hands the ranker
-the step's generator for its dropout (SetRank at ``rate > 0``; every other
+update from the ``losses`` tuple. Both write into the state's tensors in
+place (``copy_``, ``add_``), never rebinding one, so a window captured as
+a CUDA graph (``run/window.py``) replays into the same tensors.
+``losses`` scores in training mode through
+:meth:`BaseAlgorithm.score_with_params`, which hands the ranker the
+step's generator for its dropout (SetRank at ``rate > 0``; every other
 ranker, and ``rate = 0``, draws nothing, so the streams are those of a
 ranker without dropout). The DBGD family takes no gradient: it overrides
 ``train_step`` with its own parts (``algorithms/dbgd.py``).
@@ -96,12 +99,12 @@ def clip_by_global_norm(g: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.where(norm < max_norm, g, (g / norm) * max_norm)
 
 
-def adagrad_torch(g: torch.Tensor, sum_of_squares: torch.Tensor,
-                  learning_rate: float
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Adagrad with torch's ``g / (sqrt(acc) + eps)``: (update, new acc)."""
-    acc = sum_of_squares + g * g
-    return -learning_rate * g / (torch.sqrt(acc) + ADAGRAD_EPS), acc
+def adagrad_torch_(g: torch.Tensor, sum_of_squares: torch.Tensor,
+                   learning_rate: float) -> torch.Tensor:
+    """Adagrad with torch's ``g / (sqrt(acc) + eps)``: adds ``g * g`` to
+    the accumulator `sum_of_squares` in place; returns the update."""
+    sum_of_squares.add_(g * g)
+    return -learning_rate * g / (torch.sqrt(sum_of_squares) + ADAGRAD_EPS)
 
 
 def adagrad_reset(g: torch.Tensor, learning_rate: float) -> torch.Tensor:
@@ -127,24 +130,23 @@ class FlatOptimizer:
         return {"sum_of_squares": torch.zeros(n, dtype=torch.float32,
                                               device=device)}
 
-    def update(self, g: torch.Tensor, state: Dict[str, torch.Tensor]
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def update_(self, g: torch.Tensor, state: Dict[str, torch.Tensor]
+                ) -> torch.Tensor:
+        """The update for the flat gradient `g`; `state` is updated in
+        place."""
         if self.max_norm > 0:
             g = clip_by_global_norm(g, self.max_norm)
         if self.strategy == "sgd":
-            return -self.lr * g, state
+            return -self.lr * g
         if self.strategy == "ada_reset":
-            return adagrad_reset(g, self.lr), state
-        update, acc = adagrad_torch(g, state["sum_of_squares"], self.lr)
-        return update, {"sum_of_squares": acc}
+            return adagrad_reset(g, self.lr)
+        return adagrad_torch_(g, state["sum_of_squares"], self.lr)
 
     def step(self, leaves: Sequence[Leaf], g: torch.Tensor,
-             state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Apply one update from the flat gradient `g` to `leaves` in
-        place; returns the new state."""
-        update, state = self.update(g, state)
-        add_flat_(leaves, update)
-        return state
+             state: Dict[str, torch.Tensor]) -> None:
+        """Apply one update from the flat gradient `g` to `leaves`, and to
+        the optimizer `state`, in place."""
+        add_flat_(leaves, self.update_(g, state))
 
 
 def flat_gradient(grads: Sequence[torch.Tensor],
@@ -154,17 +156,28 @@ def flat_gradient(grads: Sequence[torch.Tensor],
     return flatten_leaves([(gr, tr) for gr, (_, tr) in zip(grads, leaves)])
 
 
-def train_window(algorithm, feed, state: TrainState,
-                 generator: Optional[torch.Generator], num_steps: int):
-    """`num_steps` steps of `algorithm` on batches of `feed`: the feed draws
-    from ``algorithm.per_shard(generator)`` (`generator` itself on one
-    device), the window's plan in one pass where the feed can plan, else a
-    batch a step given the current state; then each step takes
-    `generator`. Returns the state, the metric names and their window
-    means as one tensor (no host read)."""
+def window_plan(algorithm, feed, generator: Optional[torch.Generator],
+                start, num_steps: int):
+    """The window's draws in one pass (``feed.train_batch_plan`` from
+    ``algorithm.per_shard(generator)``, `generator` itself on one device)
+    for steps `start`, ..., `start` + `num_steps` - 1; `start` is an int or
+    a 0-dim int64 tensor on the feed's device. None for a feed that cannot
+    plan."""
+    if not feed.can_plan():
+        return None
+    return feed.train_batch_plan(algorithm.per_shard(generator), start,
+                                 num_steps)
+
+
+def window_steps(algorithm, feed, state: TrainState,
+                 generator: Optional[torch.Generator], plan,
+                 num_steps: int):
+    """`num_steps` steps of `algorithm`: step i on
+    ``feed.batch_from_plan(plan, i)``, or, without a plan, on a batch the
+    feed draws from ``algorithm.per_shard(generator)`` given the current
+    state; each step takes `generator`. Returns the state, the metric
+    names and their window means as one tensor (no host read)."""
     draws = algorithm.per_shard(generator)
-    plan = (feed.train_batch_plan(draws, state.step, num_steps)
-            if feed.can_plan() else None)
     total, keys = None, None
     for i in range(num_steps):
         batch = (feed.batch_from_plan(plan, i) if plan is not None
@@ -174,6 +187,17 @@ def train_window(algorithm, feed, state: TrainState,
         values = torch.stack([metrics[k] for k in keys])
         total = values if total is None else total + values
     return state, keys, total / num_steps
+
+
+def train_window(algorithm, feed, state: TrainState,
+                 generator: Optional[torch.Generator], num_steps: int,
+                 start=None):
+    """:func:`window_plan` (from `start`, default ``state.step``), then
+    :func:`window_steps` on it: the window that ``run/window.py`` captures
+    as one CUDA graph."""
+    plan = window_plan(algorithm, feed, generator,
+                       state.step if start is None else start, num_steps)
+    return window_steps(algorithm, feed, state, generator, plan, num_steps)
 
 
 def make_optimizer(grad_strategy: str, learning_rate: float,
@@ -265,8 +289,8 @@ class BaseAlgorithm:
         over the ranks as one flat vector before the clip), in place;
         advances the step."""
         leaves = state.params.jax_leaves()
-        state.opt_state = self.optimizer().step(
-            leaves, self.sync(flat_gradient(grads, leaves)), state.opt_state)
+        self.optimizer().step(leaves, self.sync(flat_gradient(grads, leaves)),
+                              state.opt_state)
         state.step += 1
         return state
 
@@ -319,11 +343,22 @@ class BaseAlgorithm:
                 + [(t, False) for t in tree_leaves(state.opt_state)]
                 + [(t, False) for t in tree_leaves(state.aux)])
 
-    def state_leaves(self, state: TrainState) -> List[Any]:
-        """The state as numpy arrays in JAX's leaf order and layouts."""
+    def state_tensors(self, state: TrainState) -> List[torch.Tensor]:
+        """The state's tensors, each as it lies (the tensors that a step
+        updates in place), in the checkpoint's leaf order."""
+        return [t for t, _ in self._state_targets(state)]
+
+    def state_leaves(self, state: TrainState,
+                     snapshot: Optional[Tuple[Sequence[torch.Tensor], int]]
+                     = None) -> List[Any]:
+        """The state as numpy arrays in JAX's leaf order and layouts; with
+        `snapshot` (a copy of :meth:`state_tensors` and the step it was
+        taken at), that in place of the live state."""
+        targets = self._state_targets(state)
+        tensors, step = snapshot or ([t for t, _ in targets], state.step)
         return [(t.t() if transposed else t).detach().cpu().numpy().copy()
-                for t, transposed in self._state_targets(state)] + [
-                    np.asarray(state.step, np.int32)]
+                for t, (_, transposed) in zip(tensors, targets)] + [
+                    np.asarray(step, np.int32)]
 
     def load_state_leaves(self, state: TrainState, leaves: List[Any]
                           ) -> TrainState:

@@ -140,8 +140,8 @@ class DLA(BaseAlgorithm):
                         grads: Sequence[torch.Tensor]) -> TrainState:
         """One optimizer step per tower (`grads` in :meth:`trainable`
         order; both towers' flat gradients averaged over the ranks in one
-        collective, before each tower's clip), in place; advances the
-        step."""
+        collective, before each tower's clip), the towers and both
+        optimizer states updated in place; advances the step."""
         opt_r, opt_p = self._optimizers()
         rank_leaves = state.params.jax_leaves()
         prop_leaves = self._prop_leaves(state.aux["propensity"])
@@ -149,9 +149,8 @@ class DLA(BaseAlgorithm):
         g = self.sync(torch.cat([flat_gradient(grads[:n], rank_leaves),
                                  flat_gradient(grads[n:], prop_leaves)]))
         k = sum(t.numel() for t, _ in rank_leaves)
-        state.opt_state = opt_r.step(rank_leaves, g[:k], state.opt_state)
-        state.aux["prop_opt_state"] = opt_p.step(
-            prop_leaves, g[k:], state.aux["prop_opt_state"])
+        opt_r.step(rank_leaves, g[:k], state.opt_state)
+        opt_p.step(prop_leaves, g[k:], state.aux["prop_opt_state"])
         state.step += 1
         return state
 

@@ -4,7 +4,8 @@ The port's counterpart of the JAX package's ``algorithms/lambda_rank.py``:
 sort by score (a stable descending argsort), the pairwise targets
 ``std_p_ij = 0.5 (1 + clamp(l_i - l_j, -1, 1))`` and probabilities
 ``p_ij = sigmoid(sigma (s_i - s_j))``, each pair weighted by the |ΔNDCG|
-of swapping it, and PairDebias-style t+/t- EMA state in ``aux``. The mask
+of swapping it, and PairDebias-style t+/t- EMA state in ``aux`` (updated
+in place). The mask
 is ignored, as in the JAX package.
 
 Reference quirks kept: the BCE treats ``p_ij`` (already a sigmoid) as a
@@ -104,6 +105,8 @@ class LambdaRank(BaseAlgorithm):
             return (1 - alpha) * t + alpha * torch.pow(
                 safe_div(t_loss, t_loss[0].expand(t_loss.shape)), power)
 
-        state.aux = {"t_plus": ema(t_plus, t_plus_loss),
-                     "t_minus": ema(t_minus, t_minus_loss)}
+        new_plus, new_minus = ema(t_plus, t_plus_loss), ema(t_minus,
+                                                            t_minus_loss)
+        t_plus.copy_(new_plus)
+        t_minus.copy_(new_minus)
         return state

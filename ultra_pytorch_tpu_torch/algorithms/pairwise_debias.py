@@ -7,8 +7,8 @@ The port's counterpart of the JAX package's
   - l_j))`` per list and ``pair_loss[i, j] = sum_b valid_pair * log(1 +
   exp(s_j - s_i))``, one ``[B, L, L]`` broadcast;
 * the debiased loss ``sum_ij pair_loss / (t+_i t-_j)``;
-* EMA power updates of the position-bias ratios in ``aux`` (``t_plus``,
-  ``t_minus``, each ``[L]`` from ones): ``t <- (1 - a) t + a
+* EMA power updates, in place, of the position-bias ratios in ``aux``
+  (``t_plus``, ``t_minus``, each ``[L]`` from ones): ``t <- (1 - a) t + a
   (t_loss / t_loss[0]) ^ (1 / (p + 1))``, the ratio 1 where ``t_loss[0]``
   is not positive.
 """
@@ -86,6 +86,8 @@ class PairDebias(BaseAlgorithm):
                                 torch.ones_like(t_loss))
             return (1 - alpha) * t + alpha * torch.pow(ratio, power)
 
-        state.aux = {"t_plus": ema(t_plus, t_plus_loss),
-                     "t_minus": ema(t_minus, t_minus_loss)}
+        new_plus, new_minus = ema(t_plus, t_plus_loss), ema(t_minus,
+                                                            t_minus_loss)
+        t_plus.copy_(new_plus)
+        t_minus.copy_(new_minus)
         return state

@@ -8,8 +8,8 @@ The port's counterpart of the JAX package's ``algorithms/regression_em.py``:
   rng), ``gamma = sigmoid(scores)`` and the posterior
   relevance ``p_r1 = c + (1 - c) (1 - prop) gamma / (1 - prop gamma)``;
   Bernoulli pseudo-labels ``ceil(p_r1 - u)`` trained with BCE;
-* M-step: the propensity ``[1, L]`` (``aux["propensity"]``, from 0.9)
-  moves by ``EM_step_size`` toward the batch mean of
+* M-step: the propensity ``[1, L]`` (``aux["propensity"]``, from 0.9,
+  updated in place) moves by ``EM_step_size`` toward the batch mean of
   ``c + (1 - c) prop (1 - gamma) / (1 - prop gamma)`` (averaged over the
   ranks under data parallelism).
 
@@ -74,8 +74,9 @@ class RegressionEM(BaseAlgorithm):
 
     def update_aux(self, state, out):
         alpha = self.hparams.EM_step_size
-        state.aux = {"propensity": (1.0 - alpha) * state.aux["propensity"]
-                     + alpha * self.sync(out[1])}
+        propensity = state.aux["propensity"]
+        propensity.copy_((1.0 - alpha) * propensity
+                         + alpha * self.sync(out[1]))
         return state
 
     def step_with_uniforms(self, state, batch, u, generator=None):

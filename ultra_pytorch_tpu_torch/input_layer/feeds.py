@@ -14,7 +14,10 @@ feed init; ``rounds`` draws 1 + 8 candidates per slot and keeps each
 slot's first clicked one. Slots left without a clicked list are masked
 out of the loss. The window plan draws a whole window's queries and
 clicks in one batched pass, written out as a leading batch dimension, so
-K5 (``use_pallas_click=true``) runs once per window.
+K5 (``use_pallas_click=true``) runs once per window. The plan reads
+nothing back to the host, so a window can be captured as a CUDA graph:
+its start step may be a device scalar, and the pool size is fixed when the
+feed is built.
 
 The online feeds cannot plan: they score with the current ranker, which
 changes every step. Their ``train_batch(generator, state)`` draws, in
@@ -90,9 +93,10 @@ class BaseInputFeed:
         """One training batch for the current `state`."""
         raise NotImplementedError
 
-    def train_batch_plan(self, generator: torch.Generator, step: int,
+    def train_batch_plan(self, generator: torch.Generator, step,
                          n: int) -> Any:
-        """n steps' draws (from `step` on) in one batched pass."""
+        """n steps' draws (from `step` on, an int or a 0-dim int64 tensor
+        on the dataset's device) in one batched pass."""
         raise NotImplementedError
 
     def batch_from_plan(self, plan, i: int) -> Batch:
@@ -234,14 +238,16 @@ class ClickSimulationFeed(BaseInputFeed, _ClickFeedMixin):
                        batch_size * 9))
 
     # -- drawing ----------------------------------------------------------
-    def train_batch_plan(self, generator: torch.Generator, step: int,
+    def train_batch_plan(self, generator: torch.Generator, step,
                          n: int) -> Plan:
-        """n steps of (queries, clicks, valid) in one batched pass."""
+        """n steps of (queries, clicks, valid) in one batched pass; `step`
+        may be a device scalar (a captured window's start), so nothing here
+        reads it on the host."""
         ds = self.dataset
         Q, B = ds.num_queries, self.batch_size
         model = None
         if self.click_model is not None:
-            steps = torch.arange(step, step + n, device=ds.device)
+            steps = step + torch.arange(n, device=ds.device)
             model = self.click_model.replace(eta=self._eta_at_steps(steps))
         if not (self.check_validation and not self.hparams.oracle_mode):
             qs = _randint(generator, Q, (n, B))

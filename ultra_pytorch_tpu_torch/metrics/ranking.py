@@ -9,7 +9,9 @@ over the full list and repeated across cutoffs; DCG is the mean per-list
 discounted gain; OPA is the weighted TF-Ranking definition; Precision
 honours the cutoff. Sorting is a stable descending argsort; pass a
 ``torch.Generator`` to :func:`evaluate` to order tied scores at random.
-Everything works on ``[B, L]`` tensors on any device.
+Everything works on ``[B, L]`` tensors on any device, and nothing reads
+back to (or copies from) the host, so a validation pass can be captured
+as a CUDA graph (``run/window.py``).
 """
 
 from __future__ import annotations
@@ -63,9 +65,11 @@ def _per_list_weights(weights, relevance):
 
 
 def _cutoff_cumsum(values, topn):
-    """values [B, L] -> [B, len(topn)]: cumulative sums at each cutoff."""
+    """values [B, L] -> [B, len(topn)]: cumulative sums at each cutoff
+    (picked by integer indices, not an index list: a list would be copied
+    to the device, which a captured validation graph refuses)."""
     cum = torch.cumsum(values, dim=1)
-    return cum[:, [n - 1 for n in topn]]
+    return torch.stack([cum[:, n - 1] for n in topn], dim=1)
 
 
 def _positions(length, device):

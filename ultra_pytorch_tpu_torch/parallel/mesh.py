@@ -177,7 +177,8 @@ def dp_train_steps(algorithm, feed, state, generator: torch.Generator,
     N queries) draws from this rank's shard generator, each step's
     ``sync`` is :func:`all_reduce_mean`, and the window's mean metrics are
     averaged over the ranks. `generator` is the window's replica
-    generator. Returns the state and the metrics as host floats."""
+    generator. Returns the state, the metric names and their means as one
+    device tensor."""
     rank, world = dist.get_rank(), dist.get_world_size()
     algorithm.grad_sync = all_reduce_mean
     algorithm.shard_generator = shard_generator(generator, rank, world)
@@ -187,7 +188,7 @@ def dp_train_steps(algorithm, feed, state, generator: torch.Generator,
     finally:
         algorithm.grad_sync = None
         algorithm.shard_generator = None
-    return state, dict(zip(keys, all_reduce_mean(means).tolist()))
+    return state, keys, all_reduce_mean(means)
 
 
 def _rank_entry(fn, rank, world_size, args, results) -> None:

@@ -9,12 +9,26 @@ error, not the CPU):
 
 Training runs windows of ``--steps_per_checkpoint`` steps; after each it
 validates, logs, and checkpoints the full state when the objective
-improves. A window whose mean loss is inf or nan stops the run before its
-checkpoint decision, so it never overwrites the best checkpoint; a run that
-diverged saves nothing at its end either. ``--test_only`` restores the
-checkpoint, prints the test metrics and writes a TREC ranklist.
-``--profile_steps N`` traces the first N steps with ``torch.profiler``
-into ``<model_dir>/profile``.
+improves. On the card each window of an offline config is one replayed
+CUDA graph (``run/window.py``) and each validation pass another; the run
+prints once whether its windows are captured, or why they run eager.
+
+The loop is pipelined one window deep, as the JAX trainer's: it dispatches
+window k + 1 and its validation (and the test split's under
+``--test_while_train``) before it reads window k's results back, so the
+host waits for window k while the card already has the next one. Window
+k's checkpoint is decided then, from a device copy of its state taken at
+its end (``Experiment.snapshot_state``), so it saves exactly the state its
+validation measured. ``--sync_readback`` reads each window back before it
+dispatches the next; both loops print the same metrics and save the same
+checkpoints. A window's queries/s runs from the previous read-back to its
+own. A window whose mean loss is inf or nan stops the run before its
+checkpoint decision, so it never overwrites the best checkpoint, and the
+window already dispatched after it is never read; a run that diverged
+saves nothing at its end either. ``--test_only`` restores the checkpoint,
+prints the test metrics and writes a TREC ranklist. ``--profile_steps N``
+traces the first N steps with ``torch.profiler`` into
+``<model_dir>/profile``.
 
 Data parallelism, one process a device:
 
@@ -29,9 +43,10 @@ Data parallelism, one process a device:
 * ``--shard_data`` keeps only each rank's stripe of the train split; it
   needs a group of more than one rank.
 
-Not yet ported: ``--prng`` other than the default (it raises).
-``--sync_readback`` is accepted and changes nothing: every window is read
-back before the next starts.
+``--prng rbg`` and ``unsafe_rbg`` give the data key the JAX trainer's
+rbg shape (four 32-bit words) and are recorded in the checkpoint, which a
+run under another ``--prng`` refuses to restore; the draws are Philox
+whatever the flag.
 """
 
 from __future__ import annotations
@@ -41,12 +56,15 @@ import json
 import math
 import os
 import time
+from typing import List, Optional
+
+import torch
 
 from ultra_pytorch_tpu_torch.parallel import (
     close_data_parallel, init_data_parallel)
 from ultra_pytorch_tpu_torch.run import launch
 from ultra_pytorch_tpu_torch.run.experiment import (
-    PRNG_IMPL, Experiment, resolve_dp)
+    KEY_WORDS, PRNG_IMPL, Experiment, resolve_dp)
 from ultra_pytorch_tpu_torch.utils.logging_utils import (
     MetricLogger, profile_ctx)
 
@@ -88,7 +106,7 @@ def parse_args(argv=None):
     p.add_argument("--restore_params_only", action="store_true")
     p.add_argument("--sync_readback", action="store_true")
     p.add_argument("--prng", type=str, default=PRNG_IMPL,
-                   choices=[PRNG_IMPL, "rbg", "unsafe_rbg"])
+                   choices=list(KEY_WORDS))
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions")
@@ -112,7 +130,7 @@ def build_experiment(args, splits, hosts: int = 1) -> Experiment:
         split_prefixes={"train": args.train_data_prefix,
                         "valid": args.valid_data_prefix,
                         "test": args.test_data_prefix},
-        device=args.device)
+        device=args.device, prng_impl=args.prng)
     exp.setup(splits=splits)
     if exp.data_parallel:
         print(f"Data parallelism: {exp.world_size}-device mesh "
@@ -134,6 +152,34 @@ def _line(summary) -> str:
     return ", ".join(f"{k}={v:.5f}" for k, v in sorted(summary.items()))
 
 
+class _Fetch:
+    """Device vectors on their way to the host: the copy is enqueued at
+    once (into pinned memory on the card) and :meth:`values` waits for it
+    alone, not for the work dispatched after it."""
+
+    def __init__(self, vectors: List[Optional[torch.Tensor]]):
+        parts = [v for v in vectors if v is not None]
+        self.sizes = [None if v is None else v.numel() for v in vectors]
+        flat = torch.cat([v.reshape(-1).float() for v in parts])
+        self.done = None
+        if flat.device.type == "cuda":
+            self.host = torch.empty(flat.shape, pin_memory=True)
+            self.host.copy_(flat, non_blocking=True)
+            self.done = torch.cuda.Event()
+            self.done.record()
+        else:
+            self.host = flat
+
+    def values(self) -> List[Optional[List[float]]]:
+        if self.done is not None:
+            self.done.synchronize()
+        flat, out, off = self.host.tolist(), [], 0
+        for n in self.sizes:
+            out.append(None if n is None else flat[off: off + n])
+            off += n or 0
+        return out
+
+
 def train(args, hosts: int = 1) -> None:
     splits = ("train", "valid", "test") if args.test_while_train else (
         "train", "valid")
@@ -144,30 +190,34 @@ def train(args, hosts: int = 1) -> None:
     logger = MetricLogger((args.log_dir or os.path.join(
         args.model_dir, "logs")) if lead else None)
     objective = exp.exp_settings.get("objective_metric", "ndcg_10")
-    best, step, diverged = None, 0, False
+    best, step = None, 0
     if args.profile_steps > 0:
         with profile_ctx(os.path.join(args.model_dir, "profile")
                          if lead else None):
             exp.train_steps(args.profile_steps)
         step += args.profile_steps
-    while step < args.max_train_iteration:
-        window = min(args.steps_per_checkpoint,
-                     args.max_train_iteration - step)
-        t0 = time.perf_counter()
-        metrics = exp.train_steps(window)
-        qps = window * args.batch_size / (time.perf_counter() - t0)
-        step += window
-        summary = exp.validate("valid")
+    t_flush = time.perf_counter()
+
+    def flush(entry) -> bool:
+        """Read one window's results back, print and log them, and decide
+        its checkpoint; False when the window diverged."""
+        nonlocal best, t_flush
+        train_h, summary_h, test_h = entry["fetch"].values()
+        qps = entry["window"] * args.batch_size / (time.perf_counter()
+                                                   - t_flush)
+        metrics = dict(zip(entry["train_keys"], train_h))
+        summary = dict(zip(entry["keys"], summary_h))
+        at = entry["step"]
         online = "".join(f" {k} {metrics[k]:.5f}" for k in ONLINE_METRICS
                          if k in metrics)
-        print(f"step {step} loss {metrics.get('loss', float('nan')):.5f} "
+        print(f"step {at} loss {metrics.get('loss', float('nan')):.5f} "
               f"({qps:.0f} queries/s){online} | {_line(summary)}",
               flush=True)
-        logger.log("train", step, dict(metrics, queries_per_sec=qps))
-        logger.log("valid", step, summary)
-        if args.test_while_train:
-            test_summary = exp.validate("test")
-            logger.log("test", step, test_summary)
+        logger.log("train", at, dict(metrics, queries_per_sec=qps))
+        logger.log("valid", at, summary)
+        if test_h is not None:
+            test_summary = dict(zip(entry["keys"], test_h))
+            logger.log("test", at, test_summary)
             print("  test: " + _line(test_summary))
         # The divergence check comes before the checkpoint decision: a
         # window whose loss went inf/nan never overwrites the best one.
@@ -175,13 +225,46 @@ def train(args, hosts: int = 1) -> None:
         obj = summary.get(objective)
         if (not diverged and obj is not None and obj == obj
                 and (best is None or obj > best)
-                and step >= args.start_saving_iteration):
+                and at >= args.start_saving_iteration):
             best = obj
-            exp.save({"step": step, objective: obj})
+            exp.save({"step": at, objective: obj},
+                     state_and_rng=entry["snap"])
             print(f"  saved checkpoint ({objective}={obj:.5f})")
+        # Taken after the save, so its host time is not billed to the
+        # next window's rate.
+        t_flush = time.perf_counter()
         if diverged:
             print("Divergence detected (loss inf/nan); stopping.")
+        return not diverged
+
+    pending, diverged = None, False
+    while step < args.max_train_iteration:
+        window = min(args.steps_per_checkpoint,
+                     args.max_train_iteration - step)
+        train_keys, metrics_dev = exp.train_steps_device(window)
+        keys, summary_dev = exp.validate_device("valid")
+        test_dev = (exp.validate_device("test")[1]
+                    if args.test_while_train else None)
+        step += window
+        entry = {"step": step, "window": window, "train_keys": train_keys,
+                 "keys": keys,
+                 "fetch": _Fetch([metrics_dev, summary_dev, test_dev]),
+                 # Read back at once, the live state is the window's own.
+                 "snap": None if args.sync_readback else exp.snapshot_state()}
+        if args.sync_readback:
+            if not flush(entry):
+                diverged = True
+                break
+            continue
+        if pending is not None and not flush(pending):
+            # The window dispatched after it trained from the diverged
+            # state: it is never read, so it cannot overwrite the best
+            # checkpoint.
+            pending, diverged = None, True
             break
+        pending = entry
+    if pending is not None:
+        diverged = not flush(pending)
     if best is None and not diverged:
         exp.save({"step": step})
     logger.close()
@@ -213,9 +296,6 @@ def run(args, hosts: int = 1) -> None:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.prng != PRNG_IMPL:
-        raise NotImplementedError(
-            f"--prng {args.prng} is not yet ported to ultra_pytorch_tpu_torch")
     os.makedirs(args.model_dir, exist_ok=True)
     coordinated = launch.coordinated_rank()
     if coordinated is not None:

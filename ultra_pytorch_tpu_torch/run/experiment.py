@@ -6,27 +6,36 @@ test_input_feed`` with their hparam strings, ``ranking_model``,
 ``learning_algorithm``, ``metrics``/``metrics_topn``/``objective_metric``),
 resolves components through the registry and runs
 
-* a training window as a Python loop over steps, with the window's
-  query, click and validity draws planned once (one batched pass, so K5
-  runs once per window with ``use_pallas_click=true``), or, for a feed
-  that cannot plan (the online feeds, which score with the current
-  ranker), the feed's batch drawn step by step;
+* a training window with the window's query, click and validity draws
+  planned once (one batched pass, so K5 runs once per window with
+  ``use_pallas_click=true``), then the steps; on the card, for a feed that
+  can plan (the 14 offline configs), the window is one captured CUDA
+  graph a window length, replayed (``run/window.py``, the counterpart of
+  the JAX trainer's ``jax.jit`` of a window). Eager, as a Python loop over
+  steps: on the CPU, under data parallelism (a gloo collective cannot be
+  captured), and for a feed that cannot plan (the online feeds, which
+  score with the current ranker and draw a batch a step); the run says
+  which, once;
 * validation in one pass over the split with the count-weighted merge,
-  ties ordered at random from (seed, step);
+  ties ordered at random from (seed, step); on the card one captured
+  graph a split;
 * checkpoints of the full train state in the JAX package's leaf order and
   format (``STATE_FORMAT``), readable by either package.
 
 Randomness: the ranker and the propensity tower are drawn from a CPU
 ``torch.Generator`` seeded with ``seed``, so they are the same on every
-device. The data stream is keyed by two 32-bit words (the JAX trainer's
-``uint32[2]`` data key, which the checkpoint stores in the same place):
-each window seeds a generator on the device from them and draws the next
-two words, so a restored run continues the same stream. The feed's plan
-draws from the window's generator first, then the algorithm's own draws
-(Regression-EM's uniforms) come from it step by step. With a feed that
-cannot plan, each step draws from it the feed's batch first, then the
-algorithm's draws (the DBGD family's noises, rankings, drafting order and
-clicks).
+device. The data stream is keyed by 32-bit words in the JAX trainer's data
+key's shape (``uint32[2]`` under ``--prng threefry2x32``, ``uint32[4]``
+under ``rbg`` and ``unsafe_rbg``; the checkpoint stores the key in the
+same place and names the PRNG in its metadata): each window seeds the
+experiment's one generator on the device from them and draws the next
+words, so a restored run continues the same stream. The draws themselves
+are Philox whatever the flag (JAX's streams cannot be matched). The
+feed's plan draws from the window's generator first, then the algorithm's
+own draws (Regression-EM's uniforms) come from it step by step. With a
+feed that cannot plan, each step draws from it the feed's batch first,
+then the algorithm's draws (the DBGD family's noises, rankings, drafting
+order and clicks).
 
 Data parallelism: an Experiment built in a process that has joined a
 process group (``parallel.init_data_parallel``, one process a device) is
@@ -45,7 +54,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +65,7 @@ from ultra_pytorch_tpu_torch.data import dataset as data_lib
 from ultra_pytorch_tpu_torch.data.trec import output_ranklist
 from ultra_pytorch_tpu_torch.models.base import params_from_jax, params_to_jax
 from ultra_pytorch_tpu_torch.parallel import mesh
+from ultra_pytorch_tpu_torch.run.window import WindowGraphs, capture
 from ultra_pytorch_tpu_torch.utils import checkpoint as ckpt_lib
 from ultra_pytorch_tpu_torch.utils.device import resolve_device
 from ultra_pytorch_tpu_torch.utils.registry import find_class
@@ -63,8 +73,10 @@ from ultra_pytorch_tpu_torch.utils.registry import find_class
 # Checkpoint state-layout version, the JAX package's (optimizer state as
 # one flat vector per tower).
 STATE_FORMAT = "opt-flat-r4"
-# The JAX PRNG whose key layout (uint32[2]) the checkpoints carry.
+# The JAX PRNG whose key layout the checkpoints carry by default, and the
+# key's uint32 words under each ``--prng``.
 PRNG_IMPL = "threefry2x32"
+KEY_WORDS = {PRNG_IMPL: 2, "rbg": 4, "unsafe_rbg": 4}
 _DATA_KEY_TAG = 0xDA7A   # the initial data key's seed offset
 _NEXT_KEY_TAG = 0x4E58   # the next window key's seed offset
 _EVAL_TAG = 0x7EB7       # the validation tie-break seed offset
@@ -113,13 +125,17 @@ def resolve_dp(dp, batch_size: int, device) -> int:
 
 
 def _key_seed(key: np.ndarray) -> int:
-    """The 64-bit generator seed of a two-word key."""
-    return (int(key[0]) << 32) | int(key[1])
+    """The 64-bit generator seed of a key: its words in pairs, each pair
+    one 64-bit value, XORed."""
+    seed = 0
+    for hi, lo in zip(key[0::2], key[1::2]):
+        seed ^= (int(hi) << 32) | int(lo)
+    return seed
 
 
-def _words(seed: int) -> np.ndarray:
+def _words(seed: int, n: int = 2) -> np.ndarray:
     gen = torch.Generator().manual_seed(seed)
-    return torch.randint(0, 1 << 32, (2,), generator=gen).numpy().astype(
+    return torch.randint(0, 1 << 32, (n,), generator=gen).numpy().astype(
         np.uint32)
 
 
@@ -131,13 +147,19 @@ class Experiment:
                  data_format: str = "ULTRA", seed: int = 0,
                  rank_cut: Optional[int] = None, dp=None,
                  split_prefixes: Optional[Dict[str, str]] = None,
-                 shard_data: bool = False, device=None):
+                 shard_data: bool = False, device=None,
+                 prng_impl: str = PRNG_IMPL):
         """`dp` takes the JAX trainer's policy values (``dp_policy``): with
         "auto" the Experiment is a rank of whatever process group this
         process has joined; "off", 0 and 1 run on one device; a count N
         needs a group of N ranks. `shard_data` keeps only this rank's
         stripe of the train split and needs a group of more than one
-        rank. `device` (this rank's) defaults to CUDA."""
+        rank. `device` (this rank's) defaults to CUDA. `prng_impl` is the
+        JAX trainer's ``--prng``: it sets the data key's shape and is
+        recorded in (and checked against) the checkpoint."""
+        if prng_impl not in KEY_WORDS:
+            raise ValueError(f"--prng {prng_impl}: one of {list(KEY_WORDS)}")
+        self.prng_impl = prng_impl
         dp = dp_policy(dp)
         ranks = mesh.group_size()
         if dp not in (None, 0, 1) and dp != ranks:
@@ -161,6 +183,16 @@ class Experiment:
         self.rank_cut = rank_cut
         self.split_prefixes = split_prefixes or {}
         self.device = resolve_device(device)
+        # The window's and the validation tie-break's generators on the
+        # device, reseeded before each use (so a captured graph can keep
+        # them registered); the captured windows and validation passes,
+        # each with the state it was captured on (a new state is captured
+        # anew).
+        self._generator = torch.Generator(device=self.device)
+        self._eval_gen = torch.Generator(device=self.device)
+        self._window_graphs = None
+        self._valid_graphs: Dict[str, Any] = {}
+        self._reported = False
 
     # -- data -------------------------------------------------------------
     def load_split(self, split: str) -> data_lib.RankingDataset:
@@ -219,28 +251,64 @@ class Experiment:
     def init_state(self):
         self.state = self.algorithm.init_state(
             torch.Generator().manual_seed(self.seed))
-        self._data_key = _words(self.seed ^ _DATA_KEY_TAG)
+        self._data_key = _words(self.seed ^ _DATA_KEY_TAG,
+                                KEY_WORDS[self.prng_impl])
         return self.state
 
-    def _window_generator(self) -> torch.Generator:
-        """A generator on the device for the next window; advances the
-        data key."""
+    def _window_seed(self) -> int:
+        """The next window's generator seed; advances the data key."""
         seed = _key_seed(self._data_key)
-        self._data_key = _words(seed ^ _NEXT_KEY_TAG)
-        return torch.Generator(device=self.device).manual_seed(seed)
+        self._data_key = _words(seed ^ _NEXT_KEY_TAG, len(self._data_key))
+        return seed
+
+    def _window_generator(self) -> torch.Generator:
+        """The device generator seeded for the next window; advances the
+        data key."""
+        return self._generator.manual_seed(self._window_seed())
+
+    def snapshot_state(self):
+        """A device copy of the state's tensors, its step and the data key
+        (no host read), and on the card an event recorded after the copy:
+        the pipelined loop saves window k's checkpoint from it after
+        window k + 1 has been dispatched, and :meth:`save` reads it back
+        without waiting for window k + 1."""
+        tensors = [t.detach().clone()
+                   for t in self.algorithm.state_tensors(self.state)]
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        return tensors, self.state.step, self._data_key.copy(), ready
 
     @property
     def ckpt_path(self) -> str:
         algo_name = self.exp_settings["learning_algorithm"].rsplit(".", 1)[-1]
         return os.path.join(self.model_dir, f"{algo_name}.ckpt")
 
-    def save(self, extra: Dict[str, Any] = None) -> None:
+    def save(self, extra: Dict[str, Any] = None,
+             state_and_rng=None) -> None:
         """Checkpoint the full train state and the data key (rank 0 only:
-        every rank holds the same state)."""
+        every rank holds the same state); `state_and_rng` (a
+        :meth:`snapshot_state`) in place of the live ones."""
         if self.rank != 0:
             return
+        if state_and_rng is None:
+            leaves = self.algorithm.state_leaves(self.state)
+            key = self._data_key
+        elif state_and_rng[3] is None:
+            tensors, step, key, _ = state_and_rng
+            leaves = self.algorithm.state_leaves(self.state, (tensors, step))
+        else:
+            # Read on a stream that waits for the snapshot alone, not for
+            # the work dispatched after it.
+            tensors, step, key, ready = state_and_rng
+            side = torch.cuda.Stream(self.device)
+            side.wait_event(ready)
+            with torch.cuda.stream(side):
+                leaves = self.algorithm.state_leaves(self.state,
+                                                     (tensors, step))
         meta = dict(extra or {})
-        meta.setdefault("prng_impl", PRNG_IMPL)
+        meta.setdefault("prng_impl", self.prng_impl)
         meta.setdefault("state_format", STATE_FORMAT)
         serializable = {}
         for k, v in self.exp_settings.items():
@@ -255,9 +323,7 @@ class Experiment:
                 iter(self.datasets))].feature_size),
             "max_label": float(self.max_label),
         })
-        ckpt_lib.save_checkpoint(
-            self.ckpt_path,
-            (self.algorithm.state_leaves(self.state), self._data_key), meta)
+        ckpt_lib.save_checkpoint(self.ckpt_path, (leaves, key), meta)
 
     def restore(self, path: Optional[str] = None,
                 params_only: bool = False) -> bool:
@@ -280,10 +346,11 @@ class Experiment:
             return True
         meta = ckpt_lib.read_metadata(ckpt)
         saved_prng = meta.get("prng_impl")
-        if saved_prng and saved_prng != PRNG_IMPL:
+        if saved_prng and saved_prng != self.prng_impl:
             raise ValueError(
-                f"checkpoint {ckpt} was written with --prng {saved_prng}; "
-                f"the port reads {PRNG_IMPL} checkpoints only")
+                f"checkpoint {ckpt} was written with --prng {saved_prng} "
+                f"but this run uses --prng {self.prng_impl}; rerun with "
+                "the matching --prng (key shapes differ)")
         saved_fmt = meta.get("state_format", "opt-per-leaf-r3")
         if saved_fmt != STATE_FORMAT:
             raise ValueError(
@@ -298,21 +365,64 @@ class Experiment:
         return True
 
     # -- train ------------------------------------------------------------
-    def train_steps(self, num_steps: int) -> Dict[str, float]:
-        """Run `num_steps` steps, their draws planned in one pass where
-        the feed can plan (``algorithms.base.train_window``); returns the
-        window's mean metrics as host floats (one transfer), averaged over
-        the ranks under data parallelism. The window's generator goes on
-        to each step after the plan has drawn from it (Regression-EM's
-        uniforms)."""
-        feed = self.feeds["train"]
-        generator = self._window_generator()
+    def eager_reason(self) -> Optional[str]:
+        """Why training windows run eager here, or None when each window
+        is a replayed CUDA graph."""
+        if self.device.type != "cuda":
+            return "CUDA graphs exist only on the card"
         if self.data_parallel:
-            self.state, metrics = mesh.dp_train_steps(
-                self.algorithm, feed, self.state, generator, num_steps)
-            return metrics
+            return ("data-parallel windows are not captured (a gloo "
+                    "collective cannot be)")
+        if not self.feeds["train"].can_plan():
+            return (f"the online feed {type(self.feeds['train']).__name__} "
+                    "draws a batch a step with the current ranker; online "
+                    "windows are not captured yet")
+        return None
+
+    def _report_windows(self) -> None:
+        """Say once how training windows run."""
+        if self._reported or self.rank != 0:
+            return
+        self._reported = True
+        reason = self.eager_reason()
+        print("Training windows: " + (
+            "captured CUDA graphs, one a window length" if reason is None
+            else f"eager ({reason})"), flush=True)
+
+    def train_steps_device(self, num_steps: int, fuse_window: bool = True
+                           ) -> Tuple[List[str], torch.Tensor]:
+        """Run `num_steps` steps, their draws planned in one pass where the
+        feed can plan (``algorithms.base.train_window``): on the card a
+        captured CUDA graph for this window length, replayed (see
+        :meth:`eager_reason`; `fuse_window=False` runs the window eager).
+        Returns the metric names and the window means as one device tensor,
+        averaged over the ranks under data parallelism, without a host
+        read. The window's generator goes on to each step after the plan
+        has drawn from it (Regression-EM's uniforms)."""
+        self._report_windows()
+        feed = self.feeds["train"]
+        seed = self._window_seed()
+        if self.data_parallel:
+            self.state, keys, means = mesh.dp_train_steps(
+                self.algorithm, feed, self.state,
+                self._generator.manual_seed(seed), num_steps)
+            return keys, means
+        if fuse_window and self.eager_reason() is None:
+            graphs = self._window_graphs
+            if graphs is None or graphs.state is not self.state:
+                graphs = self._window_graphs = WindowGraphs(
+                    self.algorithm, feed, self.state, self._generator)
+            return graphs.run(seed, num_steps)
         self.state, keys, means = train_window(
-            self.algorithm, feed, self.state, generator, num_steps)
+            self.algorithm, feed, self.state,
+            self._generator.manual_seed(seed), num_steps)
+        return keys, means
+
+    def train_steps(self, num_steps: int, fuse_window: bool = True
+                    ) -> Dict[str, float]:
+        """:meth:`train_steps_device`, its window means read as host floats
+        (one transfer)."""
+        keys, means = self.train_steps_device(num_steps, fuse_window)
         return dict(zip(keys, means.tolist()))
 
     # -- eval -------------------------------------------------------------
@@ -322,30 +432,61 @@ class Experiment:
             for m in self.exp_settings.get("metrics", ["mrr", "ndcg"])
             for n in self.exp_settings.get("metrics_topn", [3, 5, 10]))
 
+    def _shuffle_ties(self) -> bool:
+        return bool(self.exp_settings.get("eval_shuffle_ties", True))
+
     def _eval_generator(self) -> Optional[torch.Generator]:
-        """Tie-break generator for this validation pass, from (seed, step);
-        None when ``eval_shuffle_ties`` is off."""
-        if not self.exp_settings.get("eval_shuffle_ties", True):
+        """The tie-break generator seeded for this validation pass from
+        (seed, step); None when ``eval_shuffle_ties`` is off."""
+        if not self._shuffle_ties():
             return None
         seed = ((self.seed ^ _EVAL_TAG) << 32) | (self.state.step & _MASK32)
-        return torch.Generator(device=self.device).manual_seed(seed)
+        return self._eval_gen.manual_seed(seed)
 
-    def validate(self, split: str = "valid") -> Dict[str, float]:
-        """Metrics over the whole split: batches of ``batch_size`` queries
-        and the tail, merged weighted by their query counts."""
+    def _validation_pass(self, split: str,
+                         generator: Optional[torch.Generator]
+                         ) -> torch.Tensor:
+        """The split's metrics in :meth:`_metric_keys` order as one device
+        tensor: batches of ``batch_size`` queries and the tail, merged
+        weighted by their query counts."""
         data = self.device_data[split]
         keys = self._metric_keys()
-        gen = self._eval_generator()
         q, total = data.num_queries, None
         for start in range(0, q, self.batch_size):
             count = min(self.batch_size, q - start)
             batch = data.gather(torch.arange(start, start + count,
                                              device=self.device))
             _, summary = self.algorithm.validation_metrics(
-                self.state, batch, generator=gen)
+                self.state, batch, generator=generator)
             part = torch.stack([summary[k] for k in keys]) * (count / q)
             total = part if total is None else total + part
-        return dict(zip(keys, total.tolist()))
+        return total
+
+    def validate_device(self, split: str = "valid"
+                        ) -> Tuple[List[str], torch.Tensor]:
+        """A full validation pass without a host read: the metric names and
+        their values as one device tensor. On the card the pass is one
+        captured CUDA graph a split, replayed with the tie-break generator
+        reseeded; elsewhere it runs eager."""
+        keys = self._metric_keys()
+        gen = self._eval_generator()
+        if self.device.type != "cuda":
+            return keys, self._validation_pass(split, gen)
+        held = self._valid_graphs.get(split)
+        if held is None or held[0] is not self.state:
+            graph, out = capture(
+                lambda: self._validation_pass(
+                    split, self._eval_gen if self._shuffle_ties() else None),
+                [self._eval_gen])
+            held = self._valid_graphs[split] = (self.state, graph, out)
+        _, graph, out = held
+        graph.replay()
+        return keys, out.clone()
+
+    def validate(self, split: str = "valid") -> Dict[str, float]:
+        """:meth:`validate_device`, read as host floats (one transfer)."""
+        keys, values = self.validate_device(split)
+        return dict(zip(keys, values.tolist()))
 
     def test_scores(self, split: str = "test") -> np.ndarray:
         """Scores over the full split in initial-list order ``[Q, L]``."""

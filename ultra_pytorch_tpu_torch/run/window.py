@@ -1,0 +1,164 @@
+"""A training window and a validation pass as captured CUDA graphs.
+
+The port's counterpart of the JAX trainer's ``_train_multi_fn`` /
+``train_steps_device`` and ``_fused_validate_fn`` / ``validate_device``
+(the JAX package's ``run/experiment.py``). JAX compiles a checkpoint
+window into one ``jax.jit`` program, the window's plan and a ``lax.scan``
+over its steps; here the window's launches (the plan with K5, each step's
+K1-K4 and every library launch between them) are recorded once into a
+``torch.cuda.CUDAGraph`` and replayed with one host call. A graph replays
+into the addresses it recorded, which is why every step updates the state
+in place (``algorithms/base.py``).
+
+What a replay needs that the recording fixed:
+
+* the window's start step, a 0-dim int64 tensor on the card refilled
+  before each replay (the dynamic-bias eta of the plan reads it);
+* the window's generator, registered with the graph
+  (``CUDAGraph.register_generator_state``): a replay draws from the
+  generator's seed and offset at replay time, so reseeding it from the
+  data key before each replay gives the draws of the eager window;
+* the launch counters. The kernel wrappers count in Python, so a capture
+  counts each launch once; :class:`Replayable` adds the count the capture
+  recorded on every replay, and the warm-up's launches are taken off.
+
+Capture refuses a host read (``.item()``, ``.tolist()``, a ``bool`` of a
+device tensor) and a copy from pageable host memory; the run then raises.
+Nothing falls back to the eager window.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ultra_pytorch_tpu_torch.algorithms.base import TrainState, train_window
+
+
+def launch_counters():
+    """The wrappers whose ``launches`` count K1-K5's launches."""
+    from ultra_pytorch_tpu_torch.ops.kernels import click_sim, listwise_loss
+    from ultra_pytorch_tpu_torch.ops.kernels import mlp
+
+    return (mlp.fused_mlp_score, mlp.mlp_backward,
+            listwise_loss.listwise_loss_forward,
+            listwise_loss.listwise_loss_backward, click_sim.pbm_clicks)
+
+
+def read_launches() -> List[int]:
+    return [fn.launches for fn in launch_counters()]
+
+
+def set_launches(counts: Sequence[int]) -> None:
+    for fn, n in zip(launch_counters(), counts):
+        fn.launches = n
+
+
+class Replayable:
+    """A captured graph (anything with ``replay()``) and the kernel
+    launches it holds, one count a counter of :func:`launch_counters`:
+    :meth:`replay` replays it and adds those counts, to the counters and
+    to ``Replayable.replayed`` (every replay's, in this process)."""
+
+    replayed = [0] * 5
+
+    def __init__(self, graph, launches: Sequence[int]):
+        self.graph = graph
+        self.launches = list(launches)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for i, (fn, n) in enumerate(zip(launch_counters(), self.launches)):
+            fn.launches += n
+            Replayable.replayed[i] += n
+
+
+def capture(fn: Callable[[], object],
+            generators: Sequence[torch.Generator] = (),
+            restore: Optional[Callable[[], None]] = None):
+    """`fn()` as one CUDA graph: returns (a :class:`Replayable`, what the
+    captured `fn()` returned, the graph's static outputs).
+
+    `fn` first runs once eagerly on a side stream, its warm-up (lazy
+    initialisation, a library's first-call set-up and the kernels' builds
+    may not happen under capture); then every generator's state is put
+    back and `restore()` undoes what else that run changed. The counters
+    end as they began: a replay adds what the capture counted. Each of
+    `generators` is registered with the graph, so reseed it before each
+    replay. A call that capture refuses inside `fn` raises here."""
+    before = read_launches()
+    states = [g.get_state() for g in generators]
+    current = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        fn()
+    current.wait_stream(side)
+    for g, state in zip(generators, states):
+        g.set_state(state)
+    if restore is not None:
+        restore()
+    warmed = read_launches()
+    graph = torch.cuda.CUDAGraph()
+    for g in generators:
+        graph.register_generator_state(g)
+    with torch.cuda.graph(graph):
+        out = fn()
+    captured = [a - b for a, b in zip(read_launches(), warmed)]
+    set_launches(before)
+    return Replayable(graph, captured), out
+
+
+class WindowGraphs:
+    """Training windows of one algorithm, feed and state as CUDA graphs,
+    one a window length (a CLI run has at most two: the checkpoint window
+    and the tail). A length seen for the first time is captured there,
+    after a warm-up window on a copy of the state that is then put back,
+    so the warm-up advances no training."""
+
+    def __init__(self, algorithm, feed, state: TrainState,
+                 generator: torch.Generator):
+        self.algorithm, self.feed, self.state = algorithm, feed, state
+        self.generator = generator
+        self.start = torch.zeros((), dtype=torch.int64,
+                                 device=generator.device)
+        self.graphs: Dict[int, Tuple[Replayable, List[str],
+                                     torch.Tensor]] = {}
+
+    def _capture(self, num_steps: int):
+        state = self.state
+        step = state.step
+        tensors = self.algorithm.state_tensors(state)
+        saved = [t.detach().clone() for t in tensors]
+
+        def restore():
+            with torch.no_grad():
+                for t, s in zip(tensors, saved):
+                    t.copy_(s)
+            state.step = step
+
+        def window():
+            _, keys, means = train_window(self.algorithm, self.feed, state,
+                                          self.generator, num_steps,
+                                          start=self.start)
+            return keys, means
+
+        graph, (keys, means) = capture(window, [self.generator], restore)
+        state.step = step   # the capture ran the Python side of the window
+        return graph, keys, means
+
+    def run(self, seed: int, num_steps: int
+            ) -> Tuple[List[str], torch.Tensor]:
+        """Replay the window of `num_steps` steps from ``state.step`` with
+        the generator seeded `seed`; advances ``state.step``. Returns the
+        metric names and a copy of their window means (the graph's own
+        output is overwritten by its next replay)."""
+        if num_steps not in self.graphs:
+            self.graphs[num_steps] = self._capture(num_steps)
+        graph, keys, means = self.graphs[num_steps]
+        self.start.fill_(self.state.step)
+        self.generator.manual_seed(seed)
+        graph.replay()
+        self.state.step += num_steps
+        return keys, means.clone()
