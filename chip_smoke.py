@@ -94,15 +94,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
     PBM, 0 for UBM and cascade; the same run plain launches nothing),
     queries/s in turns (on, plain, plain, on), phase 7's step breakdown
     for ``dla_setrank`` and ``dla_dlcm`` kernels on and plain, each
-    kernels-on run's
-    checkpoint loaded by ``Scorer.from_checkpoint`` and served over HTTP
+    kernels-on run's checkpoint loaded by ``Scorer.from_checkpoint`` and
+    served over HTTP
     through a ``MicroBatcher`` (every reply equal to direct scoring); and
     SetRank at ``rate=0.1`` for 50 steps (finite losses, eval scores
     unchanged by a second call).
-15. Kernels, after phase 19: one JSON line listing K1-K5 (launches
+15. Kernels, after phase 20: one JSON line listing K1-K5 (launches
     summed over the serving, DLA training, offline training, phase 14's,
-    phase 16's, phase 17's, both ranks' of phase 18's and phase 19's graph
-    and CLI runs), then the result line.
+    phase 16's, phase 17's, both ranks' of phase 18's and phases 19's and
+    20's graph and CLI runs), then the result line.
 16. The online family: the six configs ``naive_online``, ``pdgd``,
     ``dbgd``, ``dbgd_ndcg``, ``mgd`` and ``nsgd`` (each config's own
     file with the DNN at [512, 256, 128], every kernel hparam its path
@@ -110,19 +110,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
     list length: the online feeds score and rank the whole list every
     step. The draft on the card equals the CPU's given the same order;
     the DBGD noise has unit columns; NSGD's null-space samples keep
-    their properties on the card, and cuSOLVER's null projector is
-    printed beside the CPU's. One step of each config kernels on against
+    their properties on the card, and its null basis of a memory of each
+    rank 0-4 at the first layer's size: e_0 ... e_3 at rank 0, 4 - rank
+    orthonormal rows orthogonal to the memory. One step of each config
+    kernels on against
     plain on a fixed batch (the DBGD family with the same noises and
     winners: candidate scores within TOL, the parameter delta within
     GRAD_TOL; Naive and PDGD: phase 10's tolerances). Then each 2
     windows x 50 steps on 4,096 synthetic queries of 120 candidates in
-    turns (on, plain, plain, on): exact launch counts (K1 = 2, 3, 3, 3,
-    6, 6 a step + the validation batches; K2 = steps for Naive and PDGD;
-    K3 = K4 = steps for Naive; K5 none; plain launches nothing), losses
-    and online metrics finite, nDCG@10 in [0, 1]; phase 7's step
-    breakdown for MGD and NSGD (feed, noise with NSGD's SVDs,
-    candidates, winners, update); NSGD's checkpoint served over HTTP;
-    the CLI with ``--test_only`` for PDGD and NSGD on phase 8's data.
+    turns (on, plain; two turns, not four, to make room for phase 20),
+    through graph windows: exact launch
+    counts (K1 = 2, 3, 3, 3, 6, 6 a step + the validation batches; K2 =
+    steps for Naive and PDGD; K3 = K4 = steps for Naive; K5 none; plain
+    launches nothing), losses and online metrics finite, nDCG@10 in [0,
+    1]; phase 7's eager step breakdown for MGD and NSGD (feed, noise with
+    NSGD's null bases, candidates, winners, update); NSGD's checkpoint
+    served over HTTP; the CLI with ``--test_only`` for PDGD and NSGD on
+    phase 8's data.
 17. Data formats: libsvm data at MSLR-WEB10K's shape (F = 136, grades
     0-4, 120 documents a query; 1,024 train queries, about 180 MB of
     text, 256 valid and 256 test) written from ``--seed`` with vectorised
@@ -168,9 +172,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
     window; then DLA through the CLI on phase 8's data, pipelined and
     with ``--sync_readback`` (2 windows and a tail): the same lines, the
     same checkpoint, exact launches. Every other phase's training now
-    runs through the same graphs (phases 7, 11, 14 and 17; the online
-    configs of phase 16 and the ranks of phase 18 run eager), and their
-    step breakdowns time the eager window.
+    runs through the same graphs (phases 7, 11, 14, 16 and 17; the ranks
+    of phase 18 run eager), and their step breakdowns time the eager
+    window.
+20. The online family's fused windows: each of phase 16's six configs at
+    its shapes (Lc = 120), 2 x 50 steps in turns graph, eager, eager,
+    graph from the same seed: each graph run equal to its turn's eager run
+    bit for bit (state, optimizer vector, NSGD's memory, data key, window
+    metrics), every run's launches exact (phase 16's per-step formulas;
+    the graph's through its replays), queries/s of window 2; for MGD and
+    NSGD the eager and the graph window's ms a step, torch.profiler's busy
+    ms and idle share and the device-to-host copies in a window (a
+    replayed window may make one, its metrics' read-back). Then
+    ``naive_online`` with eta growing 0.5 every 30 steps: two graph
+    windows equal to two eager ones across the intervals and unlike the
+    fixed-eta run; and PDGD and NSGD at full width through the CLI on
+    phase 8's data, pipelined and with ``--sync_readback`` (2 windows and
+    a tail): the same lines, the same checkpoint (NSGD's memory
+    included), exact launches.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1045,10 +1064,13 @@ def time_parts(step_tag: str, parts, window) -> float:
 
 
 def profile_steps(exp, prof_tag: str, step_wall: float,
-                  fuse_window: bool) -> None:
+                  fuse_window: bool):
     """torch.profiler's device time per kernel over WINDOW steps of
     ``exp`` (a replayed graph with `fuse_window`, else the eager window),
-    against the unprofiled step's `step_wall` seconds."""
+    against the unprofiled step's `step_wall` seconds, and the
+    device-to-host copies in the window (the window's metrics come back in
+    one). Returns (busy ms a step, idle share, device-to-host copies), or
+    None when the profiler recorded no device activity."""
     timed = {}
 
     def profiled_window():
@@ -1061,7 +1083,7 @@ def profile_steps(exp, prof_tag: str, step_wall: float,
     if not kernels:
         print(f"{prof_tag} torch.profiler recorded no device activity: the "
               "device busy share is not measured in this run", flush=True)
-        return
+        return None
     by_name = {}
     for name, us in kernels:
         total, count = by_name.get(name, (0.0, 0))
@@ -1072,14 +1094,17 @@ def profile_steps(exp, prof_tag: str, step_wall: float,
           f"{100 - 100 * busy_ms / (1e3 * wall):.1f}%) under the profiler; "
           f"{len(kernels) / WINDOW:.0f} device activities a step", flush=True)
     busy_step = busy_ms / WINDOW
+    idle = 1 - busy_step / (1e3 * step_wall)
+    to_host = sum("DtoH" in name for name, _ in kernels)
     print(f"{prof_tag} busy {busy_step:.4f} ms of the unprofiled "
-          f"{1e3 * step_wall:.4f} ms step: "
-          f"{100 - 100 * busy_step / (1e3 * step_wall):.1f}% idle",
-          flush=True)
+          f"{1e3 * step_wall:.4f} ms step: {100 * idle:.1f}% idle; "
+          f"{to_host} device-to-host copies in the window "
+          f"({to_host / WINDOW:.2f} a step)", flush=True)
     for name, (us, count) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:15]:
         print(f"{prof_tag}   {us / 1e3 / WINDOW:.4f} ms a step, {count} "
               f"launches: {name[:90]}", flush=True)
+    return busy_step, idle, to_host
 
 
 def write_ultra_split(data_dir: str, split: str, num_queries: int,
@@ -1396,6 +1421,8 @@ def fmt(values) -> str:
     return ", ".join(f"{v:.5f}" for v in values)
 
 
+
+
 def check_aux(algo: str, aux) -> str:
     """The aux state stays in range: Regression-EM's propensity finite in
     [0, 1], PairDebias' and LambdaRank's t+ and t- finite and positive."""
@@ -1414,16 +1441,18 @@ def check_aux(algo: str, aux) -> str:
     return "no aux state"
 
 
-def train_in_turns(tag: str, name: str, settings_of, want, dev, data):
+def train_in_turns(tag: str, name: str, settings_of, want, dev, data,
+                   turns=(True, False, False, True)):
     """`name` for OFFLINE_WINDOWS x WINDOW steps at full width on phase 7's
-    data, four times in turns (kernels on, plain, plain, on): losses
-    finite, nDCG@10 in [0, 1], the first run's launches exactly `want`, a
-    plain run's none. Prints the first run and the queries/s of each run's
-    last window (the first is the warm-up). Returns the runs as (kernels,
-    experiment), the first run's launches and the rates by kernels."""
+    data, once for each of `turns` (kernels on or plain, by default on,
+    plain, plain, on): losses finite, nDCG@10 in [0, 1], the first run's
+    launches exactly `want`, a plain run's none. Prints the first run and
+    the queries/s of each run's last window (the first holds the capture).
+    Returns the runs as (kernels, experiment), the first run's launches
+    and the rates by kernels."""
     steps = OFFLINE_WINDOWS * WINDOW
     runs, rates = [], {True: [], False: []}
-    for turn, kernels in enumerate((True, False, False, True)):
+    for turn, kernels in enumerate(turns):
         reset_counts()
         seconds, metrics, summaries, exp = train_run(
             settings_of(name, kernels), dev, data, 0, OFFLINE_WINDOWS)
@@ -1453,15 +1482,18 @@ def train_in_turns(tag: str, name: str, settings_of, want, dev, data):
                       f"times on the training path, expected {n}")
         runs.append((kernels, exp))
     on, off = rates[True], rates[False]
+    order = "/".join("on" if k else "plain" for k in turns)
     print(f"[{tag}] {name} queries/s (host clock, window {OFFLINE_WINDOWS}, "
-          f"turns on/plain/plain/on): kernels on {on[0]:.0f} {on[1]:.0f}, "
-          f"plain {off[0]:.0f} {off[1]:.0f} ({sum(on) / sum(off):.2f}x of "
-          "the means)", flush=True)
+          f"turns {order}): kernels on "
+          f"{' '.join(f'{x:.0f}' for x in on)}, plain "
+          f"{' '.join(f'{x:.0f}' for x in off)} "
+          f"({sum(on) / len(on) / (sum(off) / len(off)):.2f}x of the means)",
+          flush=True)
     return runs, first, rates
 
 
 def print_rates(tag: str, rates) -> None:
-    print(f"[{tag}] queries/s [on, on, plain, plain] on {card_line()}: "
+    print(f"[{tag}] queries/s [on..., plain...] on {card_line()}: "
           + json.dumps({k: [round(x) for x in r[True] + r[False]]
                         for k, r in rates.items()}), flush=True)
 
@@ -1827,23 +1859,27 @@ def online_batch(dev):
             for k, v in batch.items()}
 
 
-def null_projector(bad):
-    """The projector onto the null space NSGD samples from, for a memory
-    ``[R, D]``."""
-    from ultra_pytorch_tpu_torch.algorithms.nsgd import SV_TOL
-
-    _, s, vh = torch.linalg.svd(bad, full_matrices=False)
-    null = vh * (s <= SV_TOL).to(vh.dtype)[:, None]
-    return null.t() @ null
+def null_memory(rank: int, size: int, gen) -> torch.Tensor:
+    """A ``[4, size]`` NSGD memory of rank `rank`: `rank` random unit rows,
+    then zero rows (rankers that won) and exact multiples of the random
+    rows."""
+    rows = torch.randn((4, size), generator=gen)
+    rows = rows / rows.norm(dim=1, keepdim=True)
+    for j in range(rank, 4):
+        rows[j] = 0.0 if j % 2 or not rank else -2.0 * rows[j % rank]
+    return rows
 
 
 def phase_online_checks(dev):
     """The draft on the card equals the CPU's given the same order; the
     DBGD noise of the full-width DNN has unit columns on the card; NSGD's
     samples from a rank-2 memory of every perturbed leaf have unit norm
-    and are orthogonal to the stored rows; cuSOLVER's null projector
-    against the CPU's (information)."""
-    from ultra_pytorch_tpu_torch.algorithms.nsgd import null_space_sample
+    and are orthogonal to the stored rows; NSGD's null basis of a memory
+    of each rank 0-4 at the first layer's size keeps its properties on the
+    card: e_0 ... e_3 at rank 0 exactly, 4 - rank orthonormal rows
+    orthogonal to the memory, the rest zero."""
+    from ultra_pytorch_tpu_torch.algorithms.nsgd import (
+        null_basis, null_space_sample)
     from ultra_pytorch_tpu_torch.models import base
     from ultra_pytorch_tpu_torch.sim.interleave import (
         draft, round_assignments)
@@ -1906,16 +1942,26 @@ def phase_online_checks(dev):
     check(worst_norm < 1e-5 and worst_dot < 1e-5,
           "NSGD's samples leave the null space on the card")
 
-    zero = torch.zeros((4, 64))
-    rank2 = torch.randn((4, 64), generator=gen)
-    rank2[1] = rank2[3] = 0.0
-    rank2 = rank2 / rank2.norm(dim=1, keepdim=True).clamp_min(1e-12)
-    for name, bad in (("zero", zero), ("rank-2", rank2)):
-        diff = (null_projector(bad.to(dev)).cpu()
-                - null_projector(bad)).abs().max().item()
-        print(f"[online] null projector of a {name} [4, 64] memory, "
-              f"cuSOLVER vs the CPU's LAPACK: max abs diff {diff:.3e} "
-              "(information: the null basis is the SVD's own)", flush=True)
+    size = FEATURES * 512
+    for rank in range(5):
+        bad = null_memory(rank, size, gen)
+        basis = null_basis(bad.to(dev)).cpu()
+        kept = 4 - rank
+        ortho = ((basis[:kept] @ basis[:kept].t() - torch.eye(kept))
+                 .abs().max().item() if kept else 0.0)
+        stored = bad[:rank] / bad[:rank].norm(dim=1, keepdim=True)
+        dots = (basis @ stored.t()).abs().max().item() if rank else 0.0
+        zero_rest = not basis[kept:].any().item()
+        exact = rank or torch.equal(basis, torch.eye(4, size))
+        print(f"[online] NSGD null basis of a rank-{rank} [4, {size}] memory "
+              f"on the card: {kept} rows orthonormal within {ortho:.2e}, "
+              f"largest |cos| with a stored row {dots:.2e}, the rest zero "
+              f"{zero_rest}" + ("" if rank else
+                                f", e_0 ... e_3 exactly {exact}"),
+              flush=True)
+        check(ortho < 1e-5 and dots < 1e-5 and zero_rest and exact,
+              f"NSGD's null basis of a rank-{rank} memory breaks its "
+              "properties on the card")
 
 
 def order_flips(a, b, mask, top: int):
@@ -2003,10 +2049,11 @@ def phase_online_step(dev):
 
 
 def online_step_breakdown(exp, tag: str) -> None:
-    """Phase 7's step breakdown for a DBGD-family run: the feed's batch
-    (its K1 scoring of the whole list, the ranking, the clicks), the
-    noises (NSGD's SVDs), the candidates' scoring, the winners (rankings,
-    draft, clicks) and the update (with the aux state and the loss)."""
+    """Phase 7's step breakdown for a DBGD-family run, eager: the feed's
+    batch (its K1 scoring of the whole list, the ranking, the clicks), the
+    noises (NSGD's Gram-Schmidt null bases), the candidates' scoring, the
+    winners (rankings, draft, clicks) and the update (with the aux state
+    and the loss). Phase 20 profiles the eager and the graph window."""
     feed, alg = exp.feeds["train"], exp.algorithm
 
     def window(record):
@@ -2021,9 +2068,8 @@ def online_step_breakdown(exp, tag: str) -> None:
             d = mark()
             winners = alg.interleave_winners(scores, batch, gen)[0]
             e = mark()
-            aux = alg.updated_aux(exp.state, noises, winners.sum(dim=0))
+            alg.update_aux_(exp.state, noises, winners.sum(dim=0))
             alg.apply_noise_update(exp.state, noises, winners.mean(dim=0))
-            exp.state.aux = aux
             alg.ranking_loss(scores[0], batch)
             f = mark()
             for p, x, y in (("feed", a, b), ("noise", b, c),
@@ -2031,20 +2077,21 @@ def online_step_breakdown(exp, tag: str) -> None:
                             ("update", e, f)):
                 record(p, x, y)
 
-    step_wall = time_parts(f"[step {tag}]", ("feed", "noise", "candidates",
-                                             "winners", "update"), window)
-    profile_steps(exp, f"[profile {tag}]", step_wall, fuse_window=False)
+    time_parts(f"[step {tag}]", ("feed", "noise", "candidates", "winners",
+                                 "update"), window)
 
 
 def phase_online(mlp, dev, data_dir):
     """Phase 16: the online family. Phase 16's checks, one step of each
     config kernels on vs plain, then each config 2 windows x 50 steps at
     full width on 4,096 synthetic queries of ONLINE_LIST candidates in
-    turns (on, plain, plain, on) with exact launch counts (the first run;
+    turns on, plain (two turns where the other phases take four: phase
+    20 times these configs graph against eager in four turns) with exact
+    launch counts (the first run;
     plain launches nothing) and finite online metrics; the step breakdown
     of ONLINE_BREAKDOWN kernels on; the NSGD checkpoint served over HTTP;
     the CLI for ONLINE_CLI on phase 8's data. Returns the first
-    kernels-on runs' launches, summed."""
+    kernels-on runs' launches, summed, and the data."""
     phase_online_checks(dev)
     phase_online_step(dev)
     data = {"train": synthetic(4096, 20, ONLINE_LIST),
@@ -2057,7 +2104,8 @@ def phase_online(mlp, dev, data_dir):
     for config in ONLINE:
         runs, counts, rates[config] = train_in_turns(
             "online", config, online_settings,
-            online_launches(config, steps, valid_batches), dev, data)
+            online_launches(config, steps, valid_batches), dev, data,
+            turns=(True, False))
         for k, n in counts.items():
             total[k] += n
         if config in ONLINE_BREAKDOWN:
@@ -2069,7 +2117,7 @@ def phase_online(mlp, dev, data_dir):
         run_cli(mlp, dev, online_settings(
             config, True, "hidden_layer_sizes=[64, 32]"), data_dir,
             f"online cli {config}")
-    return total
+    return total, data
 
 
 # -- phase 17: the libsvm and ULTRE formats --------------------------------
@@ -2793,24 +2841,25 @@ def fused_validation_long(dev, click_json):
     return counts
 
 
-def fused_cli(data_dir: str, click_json):
-    """DLA through the CLI on phase 8's data (in this process), pipelined
-    and with ``--sync_readback``: 2 windows and a tail, so two graphs. The
-    step lines without their rates, the validation metrics and the saved
-    checkpoints must be equal, and each run's launches exact."""
+def fused_cli(data_dir: str, settings, tag: str, want):
+    """`settings` through the CLI on phase 8's data (in this process),
+    pipelined and with ``--sync_readback``: 2 windows and a tail, so two
+    graphs. The step lines without their rates, the validation metrics and
+    the saved checkpoints must be equal, and each run's launches exactly
+    `want`. Returns both runs' launches, summed."""
     from ultra_pytorch_tpu_torch.utils import checkpoint as ckpt_lib
 
-    setting_file = os.path.join(WORK, "fused_cli_settings.json")
+    stem = os.path.join(WORK, tag.replace(" ", "_"))
+    setting_file = f"{stem}_settings.json"
     with open(setting_file, "w") as fout:
-        json.dump(dla_settings(True, click_json), fout)
-    steps, windows = 2 * WINDOW + WINDOW // 2, 3
-    want = cli_launches(steps, windows, 128)
+        json.dump(settings, fout)
+    steps = 2 * WINDOW + WINDOW // 2
     lines, ckpts, total = {}, {}, dict.fromkeys(counters(), 0)
     for mode, extra in (("pipelined", []), ("sync", ["--sync_readback"])):
-        model_dir = os.path.join(WORK, f"fused_cli_{mode}")
+        model_dir = f"{stem}_{mode}"
         shutil.rmtree(model_dir, ignore_errors=True)
         reset_counts()
-        out = run_cli_here(f"fused cli {mode}", [
+        out = run_cli_here(f"{tag} {mode}", [
             "--data_dir", data_dir, "--setting_file", setting_file,
             "--model_dir", model_dir, "--batch_size", str(BATCH),
             "--max_train_iteration", str(steps),
@@ -2825,7 +2874,8 @@ def fused_cli(data_dir: str, click_json):
         lines[mode] = [re.sub(r"\(\d+ queries/s\)", "", line)
                        for line in out.splitlines() if line.startswith(
                            ("step ", "  saved", "Training done"))]
-        path = os.path.join(model_dir, "DLA.ckpt")
+        name = settings["learning_algorithm"].rsplit(".", 1)[-1]
+        path = os.path.join(model_dir, f"{name}.ckpt")
         meta = ckpt_lib.read_metadata(path)
         with np.load(path + ".npz") as arrays:
             ckpts[mode] = (meta.get("step"),
@@ -2837,7 +2887,7 @@ def fused_cli(data_dir: str, click_json):
           and all(np.array_equal(a[k], b[k]) for k in a),
           "the pipelined and the --sync_readback CLI saved different "
           "checkpoints")
-    print(f"[fused cli] pipelined = --sync_readback: {len(lines['sync'])} "
+    print(f"[{tag}] pipelined = --sync_readback: {len(lines['sync'])} "
           f"lines, checkpoint of step {step_a} equal ({len(a)} arrays); "
           f"launches each {want}", flush=True)
     return total
@@ -2855,13 +2905,146 @@ def phase_fused(dev, click_json, data, data_dir):
         counts, _ = fused_against_eager(name, dev, data, click_json)
         for k, n in counts.items():
             total[k] += n
-    for part in (fused_validation_long(dev, click_json),
-                 fused_cli(data_dir, click_json)):
+    cli = fused_cli(data_dir, dla_settings(True, click_json), "fused cli",
+                    cli_launches(2 * WINDOW + WINDOW // 2, 3, 128))
+    for part in (fused_validation_long(dev, click_json), cli):
         for k, n in part.items():
             total[k] += n
     for name in FUSED_RATES:
         fused_rates(name, dev, data, click_json)
     print(f"[fused] phase 19 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
+# -- phase 20: the online family's fused windows -----------------------------
+# The online configs whose eager and graph windows phase 20 profiles.
+ONLINE_PROFILED = ("mgd", "nsgd")
+# Phase 20's dynamic-bias run: eta grows by 0.5 every 30 steps, so each
+# window of 50 steps crosses an interval.
+ETA_HPARAMS = "dynamic_bias_eta_change=0.5,dynamic_bias_step_interval=30"
+
+
+def run_leaves(exp):
+    """The state (ranker, optimizer, aux) and the data key of a run."""
+    return exp.algorithm.state_leaves(exp.state) + [exp._data_key]
+
+
+def same_runs(a, b) -> bool:
+    """Whether two (experiment, window metrics) runs ended bit for bit
+    alike: state, optimizer, aux, data key and window metrics."""
+    la, lb = run_leaves(a[0]), run_leaves(b[0])
+    return (len(la) == len(lb) and a[1] == b[1]
+            and all(np.array_equal(x, y) for x, y in zip(la, lb)))
+
+
+def online_graph_turns(config: str, dev, data):
+    """`config` 2 x WINDOW steps at full width in turns graph, eager,
+    eager, graph from the same seed: every graph run equal to the eager
+    run of its turn bit for bit, each run's launches exact (the graph's
+    through its replays), queries/s of window 2; for ONLINE_PROFILED each
+    way's ms a step, busy ms, idle share and device-to-host copies from a
+    profiled window. Returns a run's launches, the rates and the
+    profiles."""
+    settings = online_settings(config, True)
+    want = online_launches(config, 2 * WINDOW, 0)
+    runs = {True: [], False: []}
+    for fuse in (True, False, False, True):
+        exp, metrics, seconds, counts = fused_run(settings, dev, data, fuse)
+        check(counts == want, f"{config}: the {'graph' if fuse else 'eager'}"
+              f" windows launched {counts}, expected {want}")
+        check(all(math.isfinite(v) for m in metrics for v in m.values()),
+              f"{config}: non-finite window metrics")
+        if fuse:
+            check(exp.eager_reason() is None, f"{config}: its window is not "
+                  f"captured ({exp.eager_reason()})")
+        runs[fuse].append((exp, metrics, seconds))
+    same = all(same_runs(g, e) for g, e in zip(runs[True], runs[False]))
+    check(same, f"{config}: the graph windows differ from the eager ones")
+    rates = {("graph" if fuse else "eager"): [WINDOW * BATCH / r[2][-1]
+                                              for r in runs[fuse]]
+             for fuse in (True, False)}
+    print(f"[online fused] {config}: 2 x {WINDOW} steps, graph = eager "
+          f"(state, optimizer, aux, data key, metrics) in both turns; "
+          f"launches {want} each run; losses "
+          f"{fmt([m['loss'] for m in runs[True][0][1]])}; queries/s of "
+          f"window 2 (turns graph, eager, eager, graph): "
+          + json.dumps({k: [round(x) for x in v] for k, v in rates.items()}),
+          flush=True)
+    profiles = {}
+    if config in ONLINE_PROFILED:
+        for fuse in (False, True):
+            way = "graph" if fuse else "eager"
+            step_wall = (sum(r[2][-1] for r in runs[fuse])
+                         / len(runs[fuse]) / WINDOW)
+            profiles[way] = (1e3 * step_wall, profile_steps(
+                runs[fuse][0][0], f"[online profile {config} {way}]",
+                step_wall, fuse_window=fuse))
+        graph_profile = profiles["graph"][1]
+        if graph_profile is not None:
+            check(graph_profile[2] <= 1, f"{config}: a replayed window "
+                  f"copied {graph_profile[2]} times to the host (one is the "
+                  "window's metrics)")
+    return want, rates, profiles
+
+
+def online_eta_run(dev, data):
+    """``naive_online`` under ETA_HPARAMS: two graph windows equal two
+    eager windows bit for bit across the eta's intervals (a replay that
+    kept the captured step's eta would not), and differ from the graph
+    run without the schedule. Returns the graph run's launches."""
+    plain = online_settings("naive_online", True)
+    settings = dict(plain, train_input_hparams=(
+        plain["train_input_hparams"] + "," + ETA_HPARAMS))
+    graph = fused_run(settings, dev, data, True)
+    eager = fused_run(settings, dev, data, False)
+    still = fused_run(plain, dev, data, True)
+    same = same_runs(graph, eager)
+    moved = graph[1] != still[1]
+    print(f"[online fused] naive_online with {ETA_HPARAMS}: graph = eager "
+          f"{same} over steps 0-{2 * WINDOW - 1}; window metrics differ from "
+          f"the fixed-eta graph run {moved}; losses "
+          f"{fmt([m['loss'] for m in graph[1]])} against "
+          f"{fmt([m['loss'] for m in still[1]])}", flush=True)
+    check(same, "the dynamic-bias graph windows differ from the eager ones")
+    check(moved, "the dynamic-bias schedule did not change the clicks")
+    return graph[3]
+
+
+def phase_online_fused(dev, data, data_dir):
+    """Phase 20: each online config's windows as replayed CUDA graphs
+    against eager windows (ONLINE_LIST candidates), the dynamic-bias run,
+    and ONLINE_CLI through the CLI pipelined against ``--sync_readback``.
+    Returns the graph runs' launches, summed."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(counters(), 0)
+    summary = {}
+    for config in ONLINE:
+        counts, rates, profiles = online_graph_turns(config, dev, data)
+        for k, n in counts.items():
+            total[k] += 2 * n
+        summary[config] = rates
+        for way, (ms, prof) in profiles.items():
+            if prof is not None:
+                print(f"[online fused] {config} {way}: {ms:.4f} ms a step, "
+                      f"busy {prof[0]:.4f} ms, idle {100 * prof[1]:.1f}%, "
+                      f"{prof[2]} device-to-host copies in a window, "
+                      f"{BATCH / ms * 1e3:.0f} queries/s on {card_line()}",
+                      flush=True)
+    parts = [online_eta_run(dev, data)]
+    steps, windows = 2 * WINDOW + WINDOW // 2, 3
+    for config in ONLINE_CLI:
+        want = online_launches(config, steps, windows * math.ceil(
+            128 / BATCH))
+        parts.append(fused_cli(data_dir, online_settings(config, True),
+                               f"online fused cli {config}", want))
+    for part in parts:
+        for k, n in part.items():
+            total[k] += n
+    print(f"[online fused] queries/s of window 2 on {card_line()}: "
+          + json.dumps({c: {k: [round(x) for x in v] for k, v in r.items()}
+                        for c, r in summary.items()}), flush=True)
+    print(f"[online fused] phase 20 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return total
 
 
@@ -2879,6 +3062,11 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
     t_start = time.perf_counter()
+
+    def clock(phase: str) -> None:
+        print(f"[clock] {phase} starts at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
     phase_device()
     phase_build()
     err = {"K1": phase_parity(mlp, gen, dev),
@@ -2889,6 +3077,7 @@ def main() -> int:
     k1_timing = phase_timing(mlp, gen, dev, model_dir)[BUCKETS[-1]]
     click_json = click_model_file()
     phase_dla_step(dev, click_json)
+    clock("phase 7")
     counts, pool, data = phase_training(dev, click_json)
     data_dir = phase_cli(mlp, dev, click_json)
     timing = phase_kernel_timing(mlp, gen, dev, pool)
@@ -2897,17 +3086,25 @@ def main() -> int:
     phase_one_step(dev, "offline step", OFFLINE,
                    lambda algo, kernels: offline_settings(algo, kernels,
                                                           click_json))
+    clock("phase 11")
     offline_counts = phase_offline_training(dev, click_json, data)
     estimator_json = phase_propensity(dev, data, click_json, data_dir)
     phase_offline_cli(mlp, dev, click_json, data, data_dir, estimator_json)
+    clock("phase 14")
     ranker_counts = phase_rankers(dev, data)
-    online_counts = phase_online(mlp, dev, data_dir)
+    clock("phase 16")
+    online_counts, online_data = phase_online(mlp, dev, data_dir)
+    clock("phase 17")
     libsvm_dir, format_counts = phase_formats(click_json)
+    clock("phase 18")
     dp_counts = phase_dp(dev, click_json, data_dir, libsvm_dir)
+    clock("phase 19")
     fused_counts = phase_fused(dev, click_json, data, data_dir)
+    clock("phase 20")
+    online_fused_counts = phase_online_fused(dev, online_data, data_dir)
     counts["K1"] += serving_launches
     for part in (offline_counts, ranker_counts, online_counts, format_counts,
-                 dp_counts, fused_counts):
+                 dp_counts, fused_counts, online_fused_counts):
         for k, n in part.items():
             counts[k] += n
     sources = {

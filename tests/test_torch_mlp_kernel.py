@@ -152,12 +152,17 @@ def _smem(limit_rows):
 
 @pytest.mark.parametrize("n_rows,rows", [
     (1, 16), (1000, 16), (2112, 16), (2113, 32), (2560, 32), (4224, 32),
-    (8448, 64), (32768, 64)])
+    (6000, 64), (8448, 64), (10000, 32), (12800, 64), (25600, 32),
+    (30720, 64), (32768, 64)])
 def test_rows_per_block_balances_the_card(n_rows, rows):
-    """The tile that leaves the busiest of 132 SMs the fewest rows, the
-    larger on a tie: 2,560 rows (a training step) run 80 32-row blocks,
-    not 160 16-row ones of which 28 SMs would take two; 32,768 rows (the
-    256x128 serving bucket) 512 64-row blocks."""
+    """The tile that leaves the busiest of 132 SMs the least work (its
+    waves times rows plus a tile's fixed cost), the larger on a tie: 2,560
+    rows (a training step) run 80 32-row blocks, not 160 16-row ones of
+    which 28 SMs would take two; 30,720 rows (the online lists) 480 64-row
+    blocks, not 1,920 16-row ones (15 waves of cheaper tiles); 32,768 rows
+    (the 256x128 serving bucket) 512 64-row blocks. At 6,000, 10,000,
+    12,800 and 25,600 rows the tile's cost moves the choice from 16-row
+    tiles to 64 or 32 (timed by torch_mlp_probe.py)."""
     assert mlp.rows_per_block(n_rows, 132, _smem(64)) == rows
 
 
@@ -459,7 +464,8 @@ def test_kernel_is_deterministic_on_card(n_rows):
 @pytest.mark.gpu
 def test_kernel_tiles_fit_the_card():
     """At the full widths the caller picks 32-row tiles for a training
-    step and 64-row tiles for the serving bucket, and every tile fits."""
+    step and 64-row tiles for the online lists and the serving bucket, and
+    every tile fits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K1 has no CPU mode)")
     lib, _ = mlp._library()
@@ -467,6 +473,7 @@ def test_kernel_tiles_fit_the_card():
     sms = mlp._sm_count(torch.device("cuda"))
     smem = lambda rows: lib.ultra_mlp_fwd_smem_bytes(widths, 4, rows)
     assert mlp.rows_per_block(2560, sms, smem) == 32
+    assert mlp.rows_per_block(30720, sms, smem) == 64
     assert mlp.rows_per_block(32768, sms, smem) == 64
     assert all(0 < smem(r) <= mlp.SMEM_LIMIT for r in mlp.ROWS_PER_BLOCK)
 

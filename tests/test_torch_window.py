@@ -44,6 +44,12 @@ ALGORITHMS = ("DLA", "NaiveAlgorithm", "RegressionEM", "PairDebias",
 # of either sign; l2_loss gives the shift-invariant losses' biases a real
 # gradient. LambdaRank and PRS have no l2_loss: they take sgd.
 WITH_L2 = ("DLA", "NaiveAlgorithm", "RegressionEM", "PairDebias")
+# The windows' configs whose loss is shift-invariant take sgd: the
+# gradient of the output bias and of the last LayerNorm's bias is float
+# noise, which Adagrad turns into a full step of either sign even with
+# l2_loss (it drives those biases to zero, where the noise leads again),
+# and sgd into a step of the noise's size.
+SHIFT_INVARIANT = ("DLA", "PairDebias")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -162,8 +168,9 @@ def _window_settings(algo):
         "ranking_model": "DNN",
         "ranking_model_hparams": "hidden_layer_sizes=[16, 8],use_pallas=true",
         "learning_algorithm": algo,
-        "learning_algorithm_hparams":
-            "loss_func=fused_softmax_loss" if algo == "DLA" else "",
+        "learning_algorithm_hparams": ",".join(
+            (["loss_func=fused_softmax_loss"] if algo == "DLA" else [])
+            + (["grad_strategy=sgd"] if algo in SHIFT_INVARIANT else [])),
         "metrics": ["ndcg"], "metrics_topn": [3, 5],
         "objective_metric": "ndcg_5", "selection_bias_cutoff": L,
     }

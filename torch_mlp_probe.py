@@ -17,10 +17,13 @@ It prints, each as one line:
 * K1's device time (CUDA graph replay) at a training step's 2,560 rows and
   the 32,768-row serving bucket, as it runs, without its activation and
   without LayerNorm (the same launch with those parts switched off);
-* K1's and K2's device time at 128, 1,000, 2,560 and 32,768 rows with each
-  tile size forced (``_rows``), in two rounds of opposite order, so that the
-  gap between the rounds shows the noise, against the one
-  ``rows_per_block`` picks;
+* K1's and K2's device time at 128, 1,000, 2,560, 30,720 (the online
+  family's whole lists, 256 x 120) and 32,768 rows, and at 6,000, 10,000,
+  12,800 and 25,600 rows, where ``rows_per_block``'s tile cost moved the
+  choice from 16-row tiles to 64 or 32, with each tile size forced
+  (``_rows``), in two rounds of opposite order, so that the gap between
+  the rounds shows the noise, against the one ``rows_per_block`` picks,
+  and which tile was fastest;
 * K2's device time at 2,560 rows with 2, 4 and 8 dW blocks per SM
   (``_dw_per_sm``), and torch.profiler's split of it into its kernels;
 * the witness: on the odd widths (F = 37, hidden [300, 70, 5]) with sigmoid
@@ -178,6 +181,11 @@ def tile_sizes(mlp, model, gen, n: int) -> None:
         print(f"[tiles] {n} rows, {rows} a block ({-(-n // rows)} blocks"
               f"{', the choice' if rows == chosen else ''}): K1 {k1s} ms, "
               f"K2 {k2s} ms (two rounds)", flush=True)
+    fastest = {k: min(times, key=lambda r: sum(t[k] for t in times[r]))
+               for k in (0, 1)}
+    print(f"[tiles] {n} rows: fastest tile by the rounds' sum K1 "
+          f"{fastest[0]}, K2 {fastest[1]}; rows_per_block picks {chosen}",
+          flush=True)
 
 
 def k2_chunks(mlp, model, gen) -> None:
@@ -303,7 +311,7 @@ def main() -> int:
     mma_rate(mlp, mlp._sm_count(torch.device("cuda")))
     with torch.inference_mode():
         k1_parts(mlp, model, gen)
-    for n in (128, 1000, 2560, 32768):
+    for n in (128, 1000, 2560, 6000, 10000, 12800, 25600, 30720, 32768):
         tile_sizes(mlp, model, gen, n)
     k2_chunks(mlp, model, gen)
     witness(mlp, "this checkout")

@@ -171,17 +171,18 @@ def window_plan(algorithm, feed, generator: Optional[torch.Generator],
 
 def window_steps(algorithm, feed, state: TrainState,
                  generator: Optional[torch.Generator], plan,
-                 num_steps: int):
+                 num_steps: int, start):
     """`num_steps` steps of `algorithm`: step i on
     ``feed.batch_from_plan(plan, i)``, or, without a plan, on a batch the
     feed draws from ``algorithm.per_shard(generator)`` given the current
-    state; each step takes `generator`. Returns the state, the metric
-    names and their window means as one tensor (no host read)."""
+    state at step `start` + i (`start` as :func:`window_plan` takes it);
+    each step takes `generator`. Returns the state, the metric names and
+    their window means as one tensor (no host read)."""
     draws = algorithm.per_shard(generator)
     total, keys = None, None
     for i in range(num_steps):
         batch = (feed.batch_from_plan(plan, i) if plan is not None
-                 else feed.train_batch(draws, state))
+                 else feed.train_batch(draws, state, start + i))
         state, metrics = algorithm.train_step(state, batch, generator)
         keys = keys or sorted(metrics)
         values = torch.stack([metrics[k] for k in keys])
@@ -195,9 +196,10 @@ def train_window(algorithm, feed, state: TrainState,
     """:func:`window_plan` (from `start`, default ``state.step``), then
     :func:`window_steps` on it: the window that ``run/window.py`` captures
     as one CUDA graph."""
-    plan = window_plan(algorithm, feed, generator,
-                       state.step if start is None else start, num_steps)
-    return window_steps(algorithm, feed, state, generator, plan, num_steps)
+    start = state.step if start is None else start
+    plan = window_plan(algorithm, feed, generator, start, num_steps)
+    return window_steps(algorithm, feed, state, generator, plan, num_steps,
+                        start)
 
 
 def make_optimizer(grad_strategy: str, learning_rate: float,

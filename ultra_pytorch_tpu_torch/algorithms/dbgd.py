@@ -49,6 +49,7 @@ from ultra_pytorch_tpu_torch.sim.interleave import (
     draft, infer_winners, round_assignments)
 from ultra_pytorch_tpu_torch.sim.sampling import (
     deterministic_rank, plackett_luce_sample, rerank)
+from ultra_pytorch_tpu_torch.utils.checkpoint import tree_leaves
 from ultra_pytorch_tpu_torch.utils.registry import register
 
 NEG_INF = -1e9
@@ -194,6 +195,15 @@ class DBGD(BaseAlgorithm):
         """The aux state after a step (NSGD's memory); none here."""
         return state.aux
 
+    @torch.no_grad()
+    def update_aux_(self, state, noises: List[torch.Tensor],
+                    win_totals: torch.Tensor) -> None:
+        """:meth:`updated_aux` written into the state's aux tensors in
+        place, so a captured window replays into them."""
+        new = self.updated_aux(state, noises, win_totals)
+        if new is not state.aux:
+            torch._foreach_copy_(tree_leaves(state.aux), tree_leaves(new))
+
     def train_step(self, state, batch, generator=None):
         noises = self.sample_noises(state, generator)
         scores = self.candidate_scores(state, batch, noises, generator)
@@ -213,8 +223,7 @@ class DBGD(BaseAlgorithm):
         # total) are the same everywhere.
         win_share, win_totals = self.sync(
             torch.stack([win_share, win_totals])).unbind(0)
-        aux = self.updated_aux(state, noises, win_totals)
+        self.update_aux_(state, noises, win_totals)
         state = self.apply_noise_update(state, noises, win_share)
-        state.aux = aux
         metrics["loss"] = self.ranking_loss(scores[0], batch)
         return state, metrics

@@ -20,12 +20,16 @@ its start step may be a device scalar, and the pool size is fixed when the
 feed is built.
 
 The online feeds cannot plan: they score with the current ranker, which
-changes every step. Their ``train_batch(generator, state)`` draws, in
-this order, the B queries, the Plackett-Luce uniforms (stochastic feed
+changes every step. Their ``train_batch(generator, state, step)`` draws,
+in this order, the B queries, the Plackett-Luce uniforms (stochastic feed
 only) and the click uniforms of all 1 + 16 resample rounds in one
 ``torch.rand``; each list keeps its first round with a click (the JAX
 feed's 16-round scan keeps the same one). They sample clicks with the
-click model's sampler, never with K5, as the JAX online feed does.
+click model's sampler, never with K5, as the JAX online feed does. The
+click model's eta is that of `step`, which a captured window passes as a
+0-dim int64 tensor on the device (its start plus the step's index), so a
+replay reads the step it runs, as the JAX feed reads the traced
+``state.step``.
 """
 
 from __future__ import annotations
@@ -89,8 +93,11 @@ class BaseInputFeed:
         return (type(self).train_batch_plan
                 is not BaseInputFeed.train_batch_plan)
 
-    def train_batch(self, generator: torch.Generator, state) -> Batch:
-        """One training batch for the current `state`."""
+    def train_batch(self, generator: torch.Generator, state,
+                    step=None) -> Batch:
+        """One training batch for the current `state` at `step` (an int or
+        a 0-dim int64 tensor on the dataset's device; ``state.step`` when
+        None)."""
         raise NotImplementedError
 
     def train_batch_plan(self, generator: torch.Generator, step,
@@ -312,7 +319,8 @@ class _OnlineSimulationFeed(BaseInputFeed, _ClickFeedMixin):
     def _resampling(self) -> bool:
         return self.check_validation and not self.hparams.oracle_mode
 
-    def train_batch(self, generator: torch.Generator, state) -> Batch:
+    def train_batch(self, generator: torch.Generator, state,
+                    step=None) -> Batch:
         ds = self.dataset
         qs = _randint(generator, ds.num_queries, (self.batch_size,))
         batch = ds.gather(qs)
@@ -325,15 +333,17 @@ class _OnlineSimulationFeed(BaseInputFeed, _ClickFeedMixin):
             L = min(self.rank_list_size, ranking.shape[1])
             u = torch.rand((rounds, self.batch_size, L), generator=generator,
                            device=ds.device)
-        return self.online_batch(batch, ranking, u, state.step)
+        return self.online_batch(batch, ranking, u,
+                                 state.step if step is None else step)
 
     def online_batch(self, batch: Batch, ranking: torch.Tensor,
-                     u: Optional[torch.Tensor], step: int) -> Batch:
+                     u: Optional[torch.Tensor], step) -> Batch:
         """The batch of `ranking` ``[B, Lc]``: every tensor in ranked
         order, clicks on the top L from the uniforms ``u [rounds, B, L]``
-        (none in oracle mode) with the click model at `step`, labels past
-        L zeroed, lists that never clicked masked out, and the true labels
-        in ranked order as ``relevance``."""
+        (none in oracle mode) with the click model at `step` (an int or a
+        0-dim int64 tensor on the dataset's device), labels past L zeroed,
+        lists that never clicked masked out, and the true labels in ranked
+        order as ``relevance``."""
         feats = torch.gather(batch["features"], 1, ranking[:, :, None].expand(
             -1, -1, batch["features"].shape[-1]))
         labels = rerank(batch["labels"], ranking)
@@ -343,7 +353,7 @@ class _OnlineSimulationFeed(BaseInputFeed, _ClickFeedMixin):
             clicks = labels[:, :L] * mask[:, :L]
         else:
             model = self.click_model.replace(eta=self._eta_at_steps(
-                torch.tensor(step)))
+                torch.as_tensor(step, device=self.dataset.device)))
             clicks, valid = cm.resampled_clicks(model, labels[:, :L],
                                              mask[:, :L], u)
             if self._resampling():

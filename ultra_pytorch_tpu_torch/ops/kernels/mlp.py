@@ -38,6 +38,10 @@ from ultra_pytorch_tpu_torch.ops.kernels import build
 ACTIVATION_CODES = {"elu": 0, "relu": 1, "selu": 2, "tanh": 3, "sigmoid": 4}
 SMEM_LIMIT = 232_448  # dynamic shared memory one Hopper block can have
 ROWS_PER_BLOCK = (64, 32, 16)  # K1/K2 row-tile instances, largest first
+# A tile's fixed cost in rows' worth of work: one wave of 64-row tiles took
+# K1 0.155 ms and of 32-row tiles 0.085 ms on an H100 (torch_mlp_probe.py),
+# which a fixed cost of about 7 rows fits.
+TILE_COST_ROWS = 8
 DW_TILE = 64  # K2's dW tile (csrc/mlp_bwd.cu kTo, kTi)
 DW_ROWS = 32  # K2's rows of N a dW stage (csrc/mlp_bwd.cu kKr)
 # dW blocks per SM (four 128-thread blocks of 55 KB fit one): at 2,560
@@ -160,11 +164,15 @@ def rows_per_block(n_rows: int, n_sms: int,
                    smem_of: Callable[[int], int]) -> int:
     """Rows one K1/K2 block takes (a template instance of the kernels): of
     the ``ROWS_PER_BLOCK`` whose shared memory ``smem_of(rows)`` fits, the
-    one that leaves the busiest SM the fewest rows (rows times its waves
-    of blocks), the larger on a tie, since a larger tile shares each staged
-    weight among more rows. On an H100 (torch_mlp_probe.py) it picked the
-    fastest tile at 128, 1,000, 2,560 and 32,768 rows: at 128 and 1,000
-    rows 16-row tiles ran K1 3-9% and K2 6-7% faster than 32-row ones."""
+    one that leaves the busiest SM the least work, the larger on a tie. An
+    SM's work is its waves of blocks times each block's rows plus
+    ``TILE_COST_ROWS``, a tile's fixed cost (staging every layer's weights
+    whatever its rows): a larger tile shares each staged weight among more
+    rows. On an H100 (torch_mlp_probe.py) it picks the fastest tile at
+    128, 1,000, 2,560, 30,720 and 32,768 rows: at 128 and 1,000 rows
+    16-row tiles ran K1 3-9% and K2 6-7% faster than 32-row ones; at 30,720
+    rows (the online lists, 256 x 120) 64-row tiles ran K1 21% and K2 14%
+    faster than 16-row ones, which leave the busiest SM fewer rows."""
     fitting = [r for r in ROWS_PER_BLOCK if 0 < smem_of(r) <= SMEM_LIMIT]
     if not fitting:
         least = ROWS_PER_BLOCK[-1]
@@ -173,7 +181,8 @@ def rows_per_block(n_rows: int, n_sms: int,
                          "block has")
 
     def busiest(rows):
-        return rows * -(-(-(-n_rows // rows)) // n_sms)
+        waves = -(-(-(-n_rows // rows)) // n_sms)
+        return waves * (rows + TILE_COST_ROWS)
 
     return min(fitting, key=lambda rows: (busiest(rows), -rows))
 

@@ -7,15 +7,14 @@ test_input_feed`` with their hparam strings, ``ranking_model``,
 resolves components through the registry and runs
 
 * a training window with the window's query, click and validity draws
-  planned once (one batched pass, so K5 runs once per window with
-  ``use_pallas_click=true``), then the steps; on the card, for a feed that
-  can plan (the 14 offline configs), the window is one captured CUDA
-  graph a window length, replayed (``run/window.py``, the counterpart of
-  the JAX trainer's ``jax.jit`` of a window). Eager, as a Python loop over
-  steps: on the CPU, under data parallelism (a gloo collective cannot be
-  captured), and for a feed that cannot plan (the online feeds, which
-  score with the current ranker and draw a batch a step); the run says
-  which, once;
+  planned once where the feed can plan (one batched pass, so K5 runs once
+  per window with ``use_pallas_click=true``), then the steps; the online
+  feeds, which score with the current ranker, draw a batch a step
+  instead. On the card the window is one captured CUDA graph a window
+  length, replayed (``run/window.py``, the counterpart of the JAX
+  trainer's ``jax.jit`` of a window), for all 20 configs. Eager, as a
+  Python loop over steps: on the CPU and under data parallelism (a gloo
+  collective cannot be captured); the run says which, once;
 * validation in one pass over the split with the count-weighted merge,
   ties ordered at random from (seed, step); on the card one captured
   graph a split;
@@ -373,10 +372,6 @@ class Experiment:
         if self.data_parallel:
             return ("data-parallel windows are not captured (a gloo "
                     "collective cannot be)")
-        if not self.feeds["train"].can_plan():
-            return (f"the online feed {type(self.feeds['train']).__name__} "
-                    "draws a batch a step with the current ranker; online "
-                    "windows are not captured yet")
         return None
 
     def _report_windows(self) -> None:
@@ -392,8 +387,9 @@ class Experiment:
     def train_steps_device(self, num_steps: int, fuse_window: bool = True
                            ) -> Tuple[List[str], torch.Tensor]:
         """Run `num_steps` steps, their draws planned in one pass where the
-        feed can plan (``algorithms.base.train_window``): on the card a
-        captured CUDA graph for this window length, replayed (see
+        feed can plan, else a batch a step at the device step
+        (``algorithms.base.train_window``): on the card a captured CUDA
+        graph for this window length, replayed (see
         :meth:`eager_reason`; `fuse_window=False` runs the window eager).
         Returns the metric names and the window means as one device tensor,
         averaged over the ranks under data parallelism, without a host

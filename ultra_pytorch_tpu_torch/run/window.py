@@ -4,16 +4,19 @@ The port's counterpart of the JAX trainer's ``_train_multi_fn`` /
 ``train_steps_device`` and ``_fused_validate_fn`` / ``validate_device``
 (the JAX package's ``run/experiment.py``). JAX compiles a checkpoint
 window into one ``jax.jit`` program, the window's plan and a ``lax.scan``
-over its steps; here the window's launches (the plan with K5, each step's
-K1-K4 and every library launch between them) are recorded once into a
-``torch.cuda.CUDAGraph`` and replayed with one host call. A graph replays
-into the addresses it recorded, which is why every step updates the state
-in place (``algorithms/base.py``).
+over its steps; here the window's launches (the plan with K5, or the
+online feed's batch a step, each step's K1-K4 and every library launch
+between them) are recorded once into a ``torch.cuda.CUDAGraph`` and
+replayed with one host call. A graph replays into the addresses it
+recorded, which is why every step updates the state in place
+(``algorithms/base.py``; the DBGD family's scratch candidate is written in
+place too, and is scratch, not state).
 
 What a replay needs that the recording fixed:
 
 * the window's start step, a 0-dim int64 tensor on the card refilled
-  before each replay (the dynamic-bias eta of the plan reads it);
+  before each replay (the dynamic-bias eta of the plan reads it, and the
+  online feed's eta reads the start plus the step's index);
 * the window's generator, registered with the graph
   (``CUDAGraph.register_generator_state``): a replay draws from the
   generator's seed and offset at replay time, so reseeding it from the
@@ -78,7 +81,7 @@ def capture(fn: Callable[[], object],
             generators: Sequence[torch.Generator] = (),
             restore: Optional[Callable[[], None]] = None):
     """`fn()` as one CUDA graph: returns (a :class:`Replayable`, what the
-    captured `fn()` returned, the graph's static outputs).
+    captured `fn()` returned: the graph's static outputs).
 
     `fn` first runs once eagerly on a side stream, its warm-up (lazy
     initialisation, a library's first-call set-up and the kernels' builds

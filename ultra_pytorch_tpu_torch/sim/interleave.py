@@ -50,6 +50,9 @@ def draft(rankings: torch.Tensor, assignments: torch.Tensor,
     agree = (rankings == rankings[:, :1]).all(dim=1)             # [B, Lc]
     prefix_len = agree.long().cumprod(dim=1).sum(dim=1)           # [B]
     used = torch.zeros((B, Lc), dtype=torch.bool, device=device)
+    # A device tensor to write into `used`: a Python True would be copied
+    # from the host each step, which a captured window cannot do.
+    taken = torch.ones(B, dtype=torch.bool, device=device)
     ptrs = torch.zeros((B, R), dtype=torch.long, device=device)
     docs, teams = [], []
     for m in range(positions):
@@ -63,7 +66,7 @@ def draft(rankings: torch.Tensor, assignments: torch.Tensor,
         # the pointer is used).
         j = torch.argmax(cand.to(torch.int8), dim=1)
         doc = torch.where(in_prefix, rankings[:, 0, m], row[rows, j])
-        used[rows, doc] = True
+        used[rows, doc] = taken
         moved = ptrs.clone()
         moved[rows, team] = j + 1
         ptrs = torch.where(in_prefix[:, None], ptrs.clamp_min(m + 1), moved)
