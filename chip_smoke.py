@@ -99,10 +99,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
     through a ``MicroBatcher`` (every reply equal to direct scoring); and
     SetRank at ``rate=0.1`` for 50 steps (finite losses, eval scores
     unchanged by a second call).
-15. Kernels, after phase 20: one JSON line listing K1-K5 (launches
+15. Kernels, after phase 21: one JSON line listing K1-K5 (launches
     summed over the serving, DLA training, offline training, phase 14's,
-    phase 16's, phase 17's, both ranks' of phase 18's and phases 19's and
-    20's graph and CLI runs), then the result line.
+    phase 16's, phase 17's, both ranks' of phase 18's, phases 19's and
+    20's graph and CLI runs and phase 21's convergence runs), then the
+    result line.
 16. The online family: the six configs ``naive_online``, ``pdgd``,
     ``dbgd``, ``dbgd_ndcg``, ``mgd`` and ``nsgd`` (each config's own
     file with the DNN at [512, 256, 128], every kernel hparam its path
@@ -190,6 +191,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
     phase 8's data, pipelined and with ``--sync_readback`` (2 windows and
     a tail): the same lines, the same checkpoint (NSGD's memory
     included), exact launches.
+21. The offline experiment pipeline and the convergence study. (a)
+    ``example/torch_dataset_pipeline.sh`` at ``DEVICE=cuda`` on libsvm data
+    from ``torch_convergence.py``'s generator (512 train queries, 128 valid,
+    128 test): clean, normalize, sample, the port's initial ranker on the
+    card, ULTRA prep, DLA with every kernel on for 2 windows through the
+    CLI as CUDA graphs, ``--test_only``; the ranker's ``model.npz``, one
+    finite score a row in each ``.predict`` file and one TREC line a test
+    document checked; the ranker's Adagrad step on fixed pairs on the card
+    within 1e-6 of the CPU's. (b) The convergence study at its full
+    protocol (``torch_convergence.py``: DLA, IPWrank, RegressionEM,
+    PairDebias, NaiveAlgorithm, PDGD and MGD, 5 seeds each, the DNN at
+    [512, 256, 128] with every kernel hparam its path allows, graph
+    windows) against ``tests/torch_convergence_expected.json``: the
+    generated files' sha256s equal the fixture's, the study's launches
+    exact, one line a run with its wall time and one an algorithm (mean
+    and standard deviation of peak and final nDCG@10 on both sides, the
+    band, the verdict); an algorithm outside its band fails the run.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3048,6 +3066,162 @@ def phase_online_fused(dev, data, data_dir):
     return total
 
 
+# -- phase 21: the offline pipeline and the convergence study ----------------
+# The pipeline's generated libsvm data (the convergence generator's, at a
+# smaller size) and its training: DLA with every kernel on, 2 windows.
+PIPELINE_DATA = {"train_queries": 512, "valid_queries": 128,
+                 "test_queries": 128}
+PIPELINE_STEPS = 2 * WINDOW
+
+
+def phase_pipeline(click_json) -> None:
+    """Phase 21 (a): ``example/torch_dataset_pipeline.sh`` at
+    ``DEVICE=cuda`` on generated libsvm data: clean, normalize, sample, the
+    port's initial ranker on the card (and its re-prediction of the full
+    train file), ULTRA prep, DLA with every kernel on for 2 windows through
+    the CLI as captured CUDA graphs, ``--test_only``; the ranker's files
+    and the ranklist checked. Then the ranker's optax Adagrad step on fixed
+    pairs on the card against the CPU."""
+    import torch_convergence as conv
+    from ultra_pytorch_tpu_torch.pipeline import initial_ranking as ir
+
+    t0 = time.perf_counter()
+    base = os.path.join(WORK, "pipeline")
+    shutil.rmtree(base, ignore_errors=True)
+    gen_dir, raw, work = (os.path.join(base, d) for d in ("gen", "raw",
+                                                          "work"))
+    conv.generate(gen_dir, **PIPELINE_DATA)
+    os.makedirs(raw)
+    for src, dst in (("train", "train"), ("valid", "vali"),
+                     ("test", "test")):
+        shutil.copy(os.path.join(gen_dir, src, f"{src}.txt"),
+                    os.path.join(raw, f"{dst}.txt"))
+    setting_file = os.path.join(base, "dla_settings.json")
+    with open(setting_file, "w") as fout:
+        json.dump(dla_settings(True, click_json), fout)
+    env = dict(os.environ, PYTHONPATH=ROOT, DATA_PATH=raw, WORK=work,
+               FEATURES=str(FEATURES), SETTING=setting_file,
+               MAX_ITER=str(PIPELINE_STEPS), BATCH=str(BATCH), DEVICE="cuda")
+    proc = subprocess.run(
+        ["bash", os.path.join(ROOT, "example", "torch_dataset_pipeline.sh")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        print(f"[pipeline] {line}", flush=True)
+    check(proc.returncode == 0, "the port's pipeline failed:\n"
+          + proc.stderr[-3000:])
+    check("Training windows: captured CUDA graphs" in proc.stdout,
+          "the pipeline's training did not run as CUDA graphs")
+    with np.load(os.path.join(work, "rank", "model.npz")) as model:
+        w, b = model["w"], model["b"]
+    check(w.dtype == np.float32 and w.shape == (FEATURES,)
+          and bool(np.isfinite(w).all()) and b.shape == ()
+          and b.dtype == np.float64,
+          "the initial ranker's model.npz is not w float32 [F], b 0-d")
+    for split in ("train", "valid", "test"):
+        with open(os.path.join(work, "normalized", f"{split}.txt")) as fin:
+            rows = sum(1 for _ in fin)
+        scores = np.loadtxt(os.path.join(work, "rank", f"{split}.predict"),
+                            ndmin=1)
+        check(len(scores) == rows and bool(np.isfinite(scores).all()),
+              f"{split}.predict is not one finite score a row")
+    with open(os.path.join(work, "out", "test.ranklist")) as fin:
+        lines = fin.read().splitlines()
+    with open(os.path.join(work, "normalized", "test.txt")) as fin:
+        docs = sum(1 for _ in fin)
+    check(len(lines) == docs and all(len(x.split()) == 6 for x in lines),
+          "the pipeline's ranklist is not one TREC line per test document")
+    # The ranker's step on fixed pairs: the card against the CPU.
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(512, FEATURES)).astype(np.float32)
+    y = rng.integers(0, 5, size=512).astype(np.float32)
+    gid = np.repeat(np.arange(32), 16).astype(np.int32)
+    pairs = [(torch.from_numpy(rng.integers(0, 512, ir.PAIRS)),
+              torch.from_numpy(rng.integers(0, 512, ir.PAIRS)))
+             for _ in range(5)]
+    params = {}
+    for d in ("cpu", "cuda"):
+        w_t = torch.zeros(FEATURES, device=d, requires_grad=True)
+        b_t = torch.zeros((), device=d, requires_grad=True)
+        accs = [torch.full_like(w_t, ir.ACCUMULATOR_INIT),
+                torch.full_like(b_t, ir.ACCUMULATOR_INIT)]
+        xd, yd, gd = (torch.from_numpy(a).to(d) for a in (x, y, gid))
+        for ii, jj in pairs:
+            loss = ir.pairwise_loss(w_t, b_t, xd, yd, gd, ii.to(d), jj.to(d))
+            ir.adagrad_update([w_t, b_t], torch.autograd.grad(
+                loss, [w_t, b_t]), accs)
+        params[d] = w_t.detach().cpu()
+    err = (params["cuda"] - params["cpu"]).abs().max().item()
+    print(f"[pipeline] initial ranker: 5 Adagrad steps on fixed pairs, card "
+          f"vs CPU max abs err {err:.3e} (limit 1e-6); ranklist "
+          f"{len(lines)} lines; phase 21 (a) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(err <= 1e-6, "the initial ranker's step differs on the card")
+
+
+def convergence_launches(name: str, steps: int, valid_batches: int):
+    """The exact launches of one convergence run: training by phases 19's
+    and 20's formulas, K5's click-rate estimate, and K1 once a validation
+    batch of every pass (step 0 and every eval_every steps)."""
+    import torch_convergence as conv
+
+    passes = steps // conv.PROTOCOL["eval_every"] + 1
+    if name in conv.ONLINE:
+        return online_launches(conv.ALGORITHMS[name][0], steps,
+                               passes * valid_batches)
+    settings = conv.settings(name, conv.PROTOCOL["hidden"], True)
+    for key in ("ranking_model", "learning_algorithm"):   # registry names
+        settings[key] = settings[key].rsplit(".", 1)[-1]
+    want = window_launches(settings, steps,
+                           steps // conv.PROTOCOL["eval_every"])
+    want["K1"] += passes * valid_batches
+    want["K5"] += 1
+    return want
+
+
+def phase_convergence(dev):
+    """Phase 21 (b): the convergence study at the full protocol
+    (``torch_convergence.study``) against the JAX package's runs in
+    ``tests/torch_convergence_expected.json``: the generated files' sha256s
+    equal the fixture's; each algorithm trained for each seed as replayed
+    CUDA graph windows with K1-K5 on, the study's launches exact; one line
+    a run and one an algorithm, and any algorithm outside its band fails
+    the run. Returns the launches."""
+    import torch_convergence as conv
+
+    t0 = time.perf_counter()
+    with open(conv.EXPECTED) as fin:
+        expected = json.load(fin)
+    data_dir = os.path.join(WORK, "convergence", "data")
+    generated = conv.generate(data_dir, **expected["generator"]["args"])
+    differ = conv.check_files(generated, expected)
+    check(not differ, f"the generated files differ from the fixture's: "
+          f"{differ}")
+    print(f"[convergence] data: {len(generated['files'])} files, "
+          f"{sum(f['bytes'] for f in generated['files'].values())} bytes, "
+          f"sha256 as the fixture's; initial list nDCG@10 "
+          f"{generated['initial_ndcg_10']}", flush=True)
+    reset_counts()
+    results = conv.study(data_dir, expected, list(conv.ALGORITHMS),
+                         conv.PROTOCOL["seeds"], dev,
+                         log=lambda line: print(line, flush=True))
+    counts = read_counts()
+    valid_batches = math.ceil(generated["args"]["valid_queries"]
+                              / conv.PROTOCOL["batch"])
+    want = dict.fromkeys(counts, 0)
+    for name, (_, steps) in conv.ALGORITHMS.items():
+        for k, n in convergence_launches(name, steps, valid_batches).items():
+            want[k] += n * conv.PROTOCOL["seeds"]
+    print(f"[convergence] phase 21 (b) in {time.perf_counter() - t0:.1f} s "
+          f"on {card_line()}; launches {counts}", flush=True)
+    check(counts == want, f"the study launched {counts}, expected {want}")
+    eager = [name for name, r in results.items()
+             if any(run["windows"] != "graphs" for run in r["runs"])]
+    check(not eager, f"windows ran eager for {eager}")
+    failed = [name for name, r in results.items() if not r["verdict"]["ok"]]
+    check(not failed, f"outside the JAX band or below the gain: {failed}")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -3102,9 +3276,13 @@ def main() -> int:
     fused_counts = phase_fused(dev, click_json, data, data_dir)
     clock("phase 20")
     online_fused_counts = phase_online_fused(dev, online_data, data_dir)
+    clock("phase 21")
+    phase_pipeline(click_json)
+    convergence_counts = phase_convergence(dev)
     counts["K1"] += serving_launches
     for part in (offline_counts, ranker_counts, online_counts, format_counts,
-                 dp_counts, fused_counts, online_fused_counts):
+                 dp_counts, fused_counts, online_fused_counts,
+                 convergence_counts):
         for k, n in part.items():
             counts[k] += n
     sources = {

@@ -29,7 +29,9 @@ def _one_thread():
 
 
 def _sources():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, name) for name in (
+        "chip_smoke.py", "torch_convergence.py", "torch_mlp_probe.py",
+        "torch_loss_probe.py")]
     for dirpath, _, names in os.walk(PKG_DIR):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh", ".cpp"))]
@@ -61,7 +63,8 @@ def test_every_module_imports_without_jax():
 def test_sources_name_neither_jax_nor_the_jax_package():
     files = _sources()
     for name in ("mlp_fwd.cu", "letor_parser.cpp", "data/native.py",
-                 "parallel/mesh.py", "run/launch.py", "run/window.py"):
+                 "parallel/mesh.py", "run/launch.py", "run/window.py",
+                 "pipeline/initial_ranking.py", "torch_convergence.py"):
         assert any(f.endswith(name) for f in files), name
     for path in files:
         with open(path) as fh:
