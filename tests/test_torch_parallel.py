@@ -8,7 +8,11 @@
   algorithm's ``grad_sync`` bound to ``lax.pmean`` and ``shard_rng`` to
   the fold, as ``make_dp_train_step`` binds them. ``sgd`` with a clip
   bound that binds: clipping each rank's gradient before the average
-  would give another update.
+  would give another update. The same given batches as one window
+  (``make_dp_train_step(window=W)``'s shape: the steps, then the window
+  means averaged over the ranks), run by ``dp_train_steps`` and by the
+  body that ``run/window.WindowGraphs`` captures on the card, run eagerly
+  here: both bit-identical, and equal to JAX's steps.
 * MGD and NSGD windows through the Experiment keep their parameters and
   NSGD's memory bit-identical on both ranks; the two ranks draw different
   batches; ``shard_data`` keeps each rank's stripe.
@@ -57,6 +61,10 @@ GIVEN = {
     "PairDebias": "",
     "LambdaRank": "",
 }
+# The ones whose step draws nothing of its own, so a window on the given
+# batches is JAX's steps (Regression-EM's uniforms come from the window's
+# shard generator).
+GIVEN_WINDOWS = ("DLA", "NaiveAlgorithm", "PairDebias", "LambdaRank")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -184,8 +192,8 @@ def ranks(jax_runs, toy_data_dir, click_model_json, tmp_path_factory):
     }
     store = tmp_path_factory.mktemp("rendezvous") / "store"
     return spawn_ranks(torch_dp_ranks.rank_job, WORLD,
-                       (f"file://{store}", given, toy_data_dir, windows),
-                       timeout=120)
+                       (f"file://{store}", given, toy_data_dir, windows,
+                        "cpu", GIVEN_WINDOWS), timeout=120)
 
 
 def _toy(toy_data_dir, pkg):
@@ -281,6 +289,28 @@ def test_two_rank_step_equals_jax_shard_map(jax_runs, ranks, algo):
     assert scale > 0
     for a, b in zip(delta, want_delta):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-3 * scale)
+
+
+@pytest.mark.parametrize("algo", GIVEN_WINDOWS)
+def test_two_rank_window_equals_jax_shard_map(jax_runs, ranks, algo):
+    """The given batches as one data-parallel window on each rank: the
+    eager window and the graph's body alike bit for bit, the window's
+    mean loss JAX's mean over its steps and shards, the state JAX's."""
+    _, want_losses, want = jax_runs[algo]
+    for result in ranks:
+        runs = result[f"{algo} given window"]
+        (eager_metrics, eager), (body_metrics, body) = (
+            runs["eager"], runs["graph body"])
+        assert eager_metrics == body_metrics
+        for a, b in zip(eager, body):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(eager_metrics["loss"], want_losses.mean(),
+                                   rtol=TOL, atol=1e-6)
+        assert [np.shape(a) for a in eager] == [np.shape(b) for b in want]
+        for a, b in zip(eager, want):
+            np.testing.assert_allclose(a, b, rtol=TOL, atol=1e-6)
+    assert ranks[0][f"{algo} given window"]["eager"][0] == \
+        ranks[1][f"{algo} given window"]["eager"][0]
 
 
 # -- windows through the Experiment ---------------------------------------

@@ -1,6 +1,8 @@
 """Training windows as replayed CUDA graphs on the card (``run/window.py``):
 a graph window equals the eager window bit for bit, the launch counters
-count what the replays run, and a host read under capture raises.
+count what the replays run, a host read under capture raises, and no
+garbage collection runs under capture (one could destroy another graph,
+which capture refuses).
 
 These need a CUDA device and skip without one. The file imports nothing
 of JAX:
@@ -8,6 +10,7 @@ of JAX:
     python -m pytest --noconftest -m gpu tests/test_torch_*.py -q
 """
 
+import gc
 import os
 
 import numpy as np
@@ -16,7 +19,7 @@ import torch
 
 from ultra_pytorch_tpu_torch.data.dataset import RankingDataset
 from ultra_pytorch_tpu_torch.run.experiment import Experiment
-from ultra_pytorch_tpu_torch.run.window import read_launches
+from ultra_pytorch_tpu_torch.run.window import capture, read_launches
 
 pytestmark = pytest.mark.gpu
 
@@ -130,3 +133,24 @@ def test_a_host_read_under_capture_raises(cuda, tmp_path):
     with pytest.raises(RuntimeError):
         exp.train_steps(STEPS)
     torch.cuda.synchronize()
+
+
+def test_no_garbage_collection_under_capture(cuda):
+    """A Scorer dropped in a reference cycle holds its bucket graphs until
+    a collection; one that ran under another capture would destroy a
+    graph there and fail that capture. The warm-up runs with collections
+    on, the capture with them off, and they are on again after."""
+    x = torch.ones(4, device=cuda)
+    seen = []
+
+    def fn():
+        seen.append((torch.cuda.is_current_stream_capturing(),
+                     gc.isenabled()))
+        return x * 2
+
+    assert gc.isenabled()
+    graph, out = capture(fn)
+    assert seen == [(False, True), (True, False)] and gc.isenabled()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, x * 2)

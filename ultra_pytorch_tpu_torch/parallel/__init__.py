@@ -9,5 +9,6 @@ from ultra_pytorch_tpu_torch.parallel.mesh import (  # noqa: F401
     init_data_parallel,
     shard_generator,
     shard_queries_for_host,
+    shard_seed,
     spawn_ranks,
 )

@@ -18,9 +18,16 @@ process a device (a rank), joined in a process group:
 * two generators a step: the replica generator, the same on every rank
   (the DBGD family's candidate noises, NSGD's combinations), and the
   shard generator, seeded from the replica generator's seed and the rank
-  (the counterpart of ``fold_in(key, axis_index)``; the feed's draws,
-  Regression-EM's uniforms, the DBGD family's winners, the ranker's
-  dropout). With one rank both are the same generator.
+  (:func:`shard_seed`, the counterpart of ``fold_in(key, axis_index)``;
+  the feed's draws, Regression-EM's uniforms, the DBGD family's winners,
+  the ranker's dropout). With one rank both are the same generator.
+
+:func:`dp_train_steps` runs such a window eagerly. Under NCCL on the card
+the Experiment captures the same window as one CUDA graph instead
+(``run/window.WindowGraphs`` with ``sync=all_reduce_mean``), every
+all-reduce inside it, as ``make_dp_train_step(window=W)`` compiles the
+``pmean``s into one program; a gloo collective runs on the host, so a
+gloo window stays eager.
 
 JAX's ``host_stacked_dataset`` and ``device_sharded_dataset`` express "a
 different stripe on each device" in JAX's global-array model. With one
@@ -108,17 +115,23 @@ def all_reduce_mean(x: Union[torch.Tensor, Sequence[torch.Tensor]]
     return out
 
 
+def shard_seed(seed: int, rank: int) -> int:
+    """The seed of rank `rank`'s shard generator for a window whose replica
+    generator is seeded `seed`."""
+    return int(np.random.SeedSequence(
+        [seed & _MASK64, rank, _SHARD_TAG]).generate_state(1, np.uint64)[0])
+
+
 def shard_generator(generator: torch.Generator, rank: int,
                     world_size: int) -> torch.Generator:
     """Rank `rank`'s shard generator for a window whose replica generator
     is `generator`: a generator on the same device seeded from its seed
-    and the rank; `generator` itself when there is one rank."""
+    and the rank (:func:`shard_seed`); `generator` itself when there is
+    one rank."""
     if world_size <= 1:
         return generator
-    seed = int(np.random.SeedSequence(
-        [generator.initial_seed() & _MASK64, rank, _SHARD_TAG]
-    ).generate_state(1, np.uint64)[0])
-    return torch.Generator(device=generator.device).manual_seed(seed)
+    return torch.Generator(device=generator.device).manual_seed(
+        shard_seed(generator.initial_seed(), rank))
 
 
 def shard_queries_for_host(dataset, host_id: int, num_hosts: int):

@@ -9,9 +9,11 @@ error, not the CPU):
 
 Training runs windows of ``--steps_per_checkpoint`` steps; after each it
 validates, logs, and checkpoints the full state when the objective
-improves. On the card each window of an offline config is one replayed
-CUDA graph (``run/window.py``) and each validation pass another; the run
-prints once whether its windows are captured, or why they run eager.
+improves. On the card each window is one replayed CUDA graph
+(``run/window.py``), a data-parallel rank's under NCCL with its
+all-reduces inside, and each validation pass another; the run prints
+once whether its windows are captured, or why they run eager (the CPU, or
+a gloo group).
 
 The loop is pipelined one window deep, as the JAX trainer's: it dispatches
 window k + 1 and its validation (and the test split's under

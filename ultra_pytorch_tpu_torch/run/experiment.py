@@ -12,9 +12,10 @@ resolves components through the registry and runs
   feeds, which score with the current ranker, draw a batch a step
   instead. On the card the window is one captured CUDA graph a window
   length, replayed (``run/window.py``, the counterpart of the JAX
-  trainer's ``jax.jit`` of a window), for all 20 configs. Eager, as a
-  Python loop over steps: on the CPU and under data parallelism (a gloo
-  collective cannot be captured); the run says which, once;
+  trainer's ``jax.jit`` of a window), for all 20 configs, a
+  data-parallel rank under NCCL too. Eager, as a Python loop over steps:
+  on the CPU and on a gloo group (a gloo collective runs on the host and
+  cannot be captured); the run says which, once;
 * validation in one pass over the split with the count-weighted merge,
   ties ordered at random from (seed, step); on the card one captured
   graph a split;
@@ -41,8 +42,10 @@ process group (``parallel.init_data_parallel``, one process a device) is
 one rank of a data-parallel run. Its train feed draws B / N queries a
 step, the window runs through ``parallel.dp_train_steps`` (the gradient,
 the algorithms' batch statistics and the window's metrics averaged over
-the ranks), and the window's replica generator is the same on every rank
-while each rank's own draws come from its shard generator. Each rank
+the ranks) or, under NCCL on the card, as the same window captured with
+its all-reduces in one graph, and the window's replica generator is the
+same on every rank while each rank's own draws come from its shard
+generator. Each rank
 holds the whole train split, or with ``shard_data`` only its stripe's
 queries and feature rows (``shard_queries_for_host``); validation and
 test splits stay whole and every rank validates all of them. Only rank 0
@@ -51,6 +54,7 @@ writes the checkpoint; every rank restores it.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 from typing import Any, Dict, List, Optional, Tuple
@@ -169,6 +173,7 @@ class Experiment:
         self.data_parallel = ranks > 0 and dp not in (0, 1)
         self.world_size = ranks if self.data_parallel else 1
         self.rank = dist.get_rank() if self.data_parallel else 0
+        self.backend = dist.get_backend() if self.data_parallel else None
         if shard_data and self.world_size < 2:
             raise ValueError("--shard_data requires a data-parallel group "
                              "(dp > 1)")
@@ -369,9 +374,9 @@ class Experiment:
         is a replayed CUDA graph."""
         if self.device.type != "cuda":
             return "CUDA graphs exist only on the card"
-        if self.data_parallel:
-            return ("data-parallel windows are not captured (a gloo "
-                    "collective cannot be)")
+        if self.data_parallel and self.backend != "nccl":
+            return (f"data parallelism over {self.backend}: its "
+                    "collectives run on the host and cannot be captured")
         return None
 
     def _report_windows(self) -> None:
@@ -380,17 +385,19 @@ class Experiment:
             return
         self._reported = True
         reason = self.eager_reason()
+        captured = "captured CUDA graphs, one a window length" + (
+            ", the all-reduces inside" if self.data_parallel else "")
         print("Training windows: " + (
-            "captured CUDA graphs, one a window length" if reason is None
-            else f"eager ({reason})"), flush=True)
+            captured if reason is None else f"eager ({reason})"), flush=True)
 
     def train_steps_device(self, num_steps: int, fuse_window: bool = True
                            ) -> Tuple[List[str], torch.Tensor]:
         """Run `num_steps` steps, their draws planned in one pass where the
         feed can plan, else a batch a step at the device step
         (``algorithms.base.train_window``): on the card a captured CUDA
-        graph for this window length, replayed (see
-        :meth:`eager_reason`; `fuse_window=False` runs the window eager).
+        graph for this window length, replayed, a data-parallel one under
+        NCCL too (see :meth:`eager_reason`; `fuse_window=False` runs the
+        window eager).
         Returns the metric names and the window means as one device tensor,
         averaged over the ranks under data parallelism, without a host
         read. The window's generator goes on to each step after the plan
@@ -398,21 +405,34 @@ class Experiment:
         self._report_windows()
         feed = self.feeds["train"]
         seed = self._window_seed()
+        if fuse_window and self.eager_reason() is None:
+            graphs = self._window_graphs
+            if graphs is None or graphs.state is not self.state:
+                graphs = self._window_graphs = WindowGraphs(
+                    self.algorithm, feed, self.state, self._generator,
+                    **self._dp_hooks())
+            return graphs.run(seed, num_steps)
         if self.data_parallel:
             self.state, keys, means = mesh.dp_train_steps(
                 self.algorithm, feed, self.state,
                 self._generator.manual_seed(seed), num_steps)
             return keys, means
-        if fuse_window and self.eager_reason() is None:
-            graphs = self._window_graphs
-            if graphs is None or graphs.state is not self.state:
-                graphs = self._window_graphs = WindowGraphs(
-                    self.algorithm, feed, self.state, self._generator)
-            return graphs.run(seed, num_steps)
         self.state, keys, means = train_window(
             self.algorithm, feed, self.state,
             self._generator.manual_seed(seed), num_steps)
         return keys, means
+
+    def _dp_hooks(self) -> Dict[str, Any]:
+        """A data-parallel rank's ``WindowGraphs`` arguments: the
+        cross-rank mean, and with more than one rank this rank's shard
+        seed; none on one device."""
+        if not self.data_parallel:
+            return {}
+        hooks = {"sync": mesh.all_reduce_mean}
+        if self.world_size > 1:
+            hooks["shard_seed"] = functools.partial(mesh.shard_seed,
+                                                    rank=self.rank)
+        return hooks
 
     def train_steps(self, num_steps: int, fuse_window: bool = True
                     ) -> Dict[str, float]:

@@ -20,10 +20,20 @@ What a replay needs that the recording fixed:
 * the window's generator, registered with the graph
   (``CUDAGraph.register_generator_state``): a replay draws from the
   generator's seed and offset at replay time, so reseeding it from the
-  data key before each replay gives the draws of the eager window;
+  data key before each replay gives the draws of the eager window. A
+  data-parallel window of more than one rank has a second one, this
+  rank's shard generator: the graphs own it, register it beside the
+  replica generator and reseed it from the window's seed as
+  ``parallel.shard_generator`` seeds the eager window's fresh one;
 * the launch counters. The kernel wrappers count in Python, so a capture
   counts each launch once; :class:`Replayable` adds the count the capture
   recorded on every replay, and the warm-up's launches are taken off.
+
+A data-parallel window under NCCL is captured whole, the counterpart of
+``make_dp_train_step(window=W)``: the gradient's and the batch
+statistics' all-reduces and the final one of the window's means are NCCL
+kernels inside the graph. The warm-up creates the communicator (NCCL
+makes it at the first collective, which capture refuses).
 
 Capture refuses a host read (``.item()``, ``.tolist()``, a ``bool`` of a
 device tensor) and a copy from pageable host memory; the run then raises.
@@ -32,6 +42,7 @@ Nothing falls back to the eager window.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -79,17 +90,19 @@ class Replayable:
 
 def capture(fn: Callable[[], object],
             generators: Sequence[torch.Generator] = (),
-            restore: Optional[Callable[[], None]] = None):
+            restore: Optional[Callable[[], None]] = None, pool=None):
     """`fn()` as one CUDA graph: returns (a :class:`Replayable`, what the
     captured `fn()` returned: the graph's static outputs).
 
     `fn` first runs once eagerly on a side stream, its warm-up (lazy
     initialisation, a library's first-call set-up and the kernels' builds
     may not happen under capture); then every generator's state is put
-    back and `restore()` undoes what else that run changed. The counters
-    end as they began: a replay adds what the capture counted. Each of
-    `generators` is registered with the graph, so reseed it before each
-    replay. A call that capture refuses inside `fn` raises here."""
+    back and `restore()` undoes what else that run changed. The capture
+    runs with garbage collection off. The counters end as they began: a
+    replay adds what the capture counted. Each of `generators` is
+    registered with the graph, so reseed it before each replay. `pool` (``torch.cuda.graph_pool_handle()``) shares one memory
+    pool between graphs that never replay at once. A call that capture
+    refuses inside `fn` raises here."""
     before = read_launches()
     states = [g.get_state() for g in generators]
     current = torch.cuda.current_stream()
@@ -106,8 +119,18 @@ def capture(fn: Callable[[], object],
     graph = torch.cuda.CUDAGraph()
     for g in generators:
         graph.register_generator_state(g)
-    with torch.cuda.graph(graph):
-        out = fn()
+    # No garbage collection under capture: one may free an unreachable
+    # graph (a dropped Scorer's, held in a reference cycle), and
+    # destroying a graph is a call that capture refuses, so this capture
+    # would fail.
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            out = fn()
+    finally:
+        if collecting:
+            gc.enable()
     captured = [a - b for a, b in zip(read_launches(), warmed)]
     set_launches(before)
     return Replayable(graph, captured), out
@@ -118,16 +141,54 @@ class WindowGraphs:
     one a window length (a CLI run has at most two: the checkpoint window
     and the tail). A length seen for the first time is captured there,
     after a warm-up window on a copy of the state that is then put back,
-    so the warm-up advances no training."""
+    so the warm-up advances no training.
+
+    A data-parallel rank passes `sync`, the cross-rank mean
+    (``parallel.all_reduce_mean``): it is the algorithm's ``grad_sync``
+    while the window is captured, and the window's means go through it
+    last. With more than one rank it also passes `shard_seed`, which maps
+    the window's seed to this rank's shard generator's seed
+    (``functools.partial(parallel.shard_seed, rank=r)``); the graphs then
+    own that generator."""
 
     def __init__(self, algorithm, feed, state: TrainState,
-                 generator: torch.Generator):
+                 generator: torch.Generator,
+                 sync: Optional[Callable] = None,
+                 shard_seed: Optional[Callable[[int], int]] = None):
         self.algorithm, self.feed, self.state = algorithm, feed, state
         self.generator = generator
+        self.sync, self.shard_seed = sync, shard_seed
+        self.shard = (None if shard_seed is None
+                      else torch.Generator(device=generator.device))
+        # Registered with every graph; one when there is no shard
+        # generator (one rank's shard generator is the replica one).
+        self.generators = [generator] + (
+            [] if self.shard is None else [self.shard])
         self.start = torch.zeros((), dtype=torch.int64,
                                  device=generator.device)
         self.graphs: Dict[int, Tuple[Replayable, List[str],
                                      torch.Tensor]] = {}
+
+    def reseed(self, seed: int) -> None:
+        """Seed the generators for the window whose seed is `seed`."""
+        self.generator.manual_seed(seed)
+        if self.shard is not None:
+            self.shard.manual_seed(self.shard_seed(seed))
+
+    def window(self, num_steps: int) -> Tuple[List[str], torch.Tensor]:
+        """The window that is captured, from the step in ``self.start``:
+        the metric names and their window means (over the ranks under
+        `sync`) as one tensor. Runs eagerly where called outside a
+        capture; advances ``state.step`` on the host."""
+        alg = self.algorithm
+        alg.grad_sync, alg.shard_generator = self.sync, self.shard
+        try:
+            _, keys, means = train_window(alg, self.feed, self.state,
+                                          self.generator, num_steps,
+                                          start=self.start)
+        finally:
+            alg.grad_sync = alg.shard_generator = None
+        return keys, means if self.sync is None else self.sync(means)
 
     def _capture(self, num_steps: int):
         state = self.state
@@ -141,27 +202,22 @@ class WindowGraphs:
                     t.copy_(s)
             state.step = step
 
-        def window():
-            _, keys, means = train_window(self.algorithm, self.feed, state,
-                                          self.generator, num_steps,
-                                          start=self.start)
-            return keys, means
-
-        graph, (keys, means) = capture(window, [self.generator], restore)
+        graph, (keys, means) = capture(lambda: self.window(num_steps),
+                                       self.generators, restore)
         state.step = step   # the capture ran the Python side of the window
         return graph, keys, means
 
     def run(self, seed: int, num_steps: int
             ) -> Tuple[List[str], torch.Tensor]:
         """Replay the window of `num_steps` steps from ``state.step`` with
-        the generator seeded `seed`; advances ``state.step``. Returns the
-        metric names and a copy of their window means (the graph's own
-        output is overwritten by its next replay)."""
+        the generators seeded from `seed`; advances ``state.step``.
+        Returns the metric names and a copy of their window means (the
+        graph's own output is overwritten by its next replay)."""
         if num_steps not in self.graphs:
             self.graphs[num_steps] = self._capture(num_steps)
         graph, keys, means = self.graphs[num_steps]
         self.start.fill_(self.state.step)
-        self.generator.manual_seed(seed)
+        self.reseed(seed)
         graph.replay()
         self.state.step += num_steps
         return keys, means.clone()

@@ -7,7 +7,11 @@ Usage:
 
 Takes the flags of the JAX package's ``tools/serve.py`` plus ``--device``.
 The checkpoint (from the JAX trainer or the port) embeds its model schema,
-so ``--setting_file`` is needed only for checkpoints without it. Then:
+so ``--setting_file`` is needed only for checkpoints without it. On CUDA
+each (batch, list) bucket is one CUDA graph, captured at its first
+request; ``--warmup_batch`` / ``--warmup_list`` capture every bucket up
+to those sizes before the server starts, as the JAX server compiles them.
+Then:
 
   curl -s localhost:8000/healthz
   curl -s -X POST localhost:8000/v1/rank -d \\
@@ -31,9 +35,11 @@ def main(argv=None):
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--warmup_batch", type=int, default=0,
-                   help="score every bucket up to this batch size first")
+                   help="score every bucket up to this batch size first "
+                   "(on CUDA: capture each bucket's graph)")
     p.add_argument("--warmup_list", type=int, default=0,
-                   help="score every bucket up to this list size first")
+                   help="score every bucket up to this list size first "
+                   "(on CUDA: capture each bucket's graph)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                    "PyTorch version of every kernel)")

@@ -3,13 +3,24 @@
 The port's counterpart of the JAX package's ``serve/scorer.py``:
 
 * **Shape buckets.** Requests are padded to power-of-two (batch, list)
-  buckets, as on the TPU. Eager PyTorch compiles nothing per shape, but the
-  buckets keep the kernel's launch shapes, and so its timings, to a small
-  known set, and padding invariance is part of the contract the tests
-  hold. ``bucket_calls`` records the calls per bucket.
-* **One device call per request.** Scoring, pad masking (``-1e30``) and
-  the stable descending argsort run on the device under
-  ``torch.inference_mode()``; only scores and ranked indices come back.
+  buckets, as on the TPU, and padding invariance is part of the contract
+  the tests hold. ``bucket_calls`` records the calls per bucket.
+* **One program per bucket.** ``_ranked_fn(bq, bl)`` is the counterpart
+  of the JAX scorer's jitted ``_ranked_fn``: the ranker's forward in eval
+  mode, the mask built on the device from the lists' lengths, the
+  ``-1e30`` fill and the stable descending argsort. On CUDA it is one
+  captured CUDA graph a bucket (``run/window.capture``, all buckets in
+  one memory pool), replayed; on the CPU the same body runs eagerly.
+  ``warmup`` captures every bucket up to its maxima before the first
+  request, as JAX's compiles them.
+* **Static buffers.** A request is staged into one host buffer (pinned on
+  CUDA) the size of the largest bucket seen, each bucket a contiguous view
+  from its start; the staging first zeroes what the previous request
+  wrote, so a bucket reused by a smaller request sees zeros where JAX
+  pads with zeros (GSF ignores the mask: its scores read padded
+  positions). One copy in, the replay, two copies out into pinned
+  buffers, one stream sync. A lock serialises calls: the HTTP server's
+  threads may call the scorer directly.
 * **Checkpoints carry their schema.** The JAX trainer embeds the ranker
   name, its hparams and the feature size in the checkpoint metadata, so
   ``Scorer.from_checkpoint(model_dir)`` needs no settings file. Only the
@@ -27,12 +38,14 @@ from __future__ import annotations
 
 import glob
 import os
-from typing import Any, Dict, Optional, Sequence, Tuple
+import threading
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ultra_pytorch_tpu_torch.models.base import params_from_jax, params_to_jax
+from ultra_pytorch_tpu_torch.run.window import capture
 from ultra_pytorch_tpu_torch.utils import checkpoint as ckpt_lib
 from ultra_pytorch_tpu_torch.utils.device import resolve_device
 from ultra_pytorch_tpu_torch.utils.registry import find_class
@@ -68,13 +81,23 @@ class Scorer:
 
     def __init__(self, ranker: torch.nn.Module, feature_size: int,
                  device=None, min_batch_bucket: int = 8,
-                 min_list_bucket: int = 8):
+                 min_list_bucket: int = 8, graphs: Optional[bool] = None):
+        """`graphs`: each bucket a captured CUDA graph (None = auto: on
+        CUDA); False runs the same body eagerly."""
         self.device = resolve_device(device)
         self.ranker = ranker.to(self.device).eval()
         self.feature_size = int(feature_size)
         self.min_batch_bucket = min_batch_bucket
         self.min_list_bucket = min_list_bucket
+        cuda = self.device.type == "cuda"
+        if graphs and not cuda:
+            raise ValueError("CUDA graphs need a CUDA device")
+        self.graphs = cuda if graphs is None else graphs
         self.bucket_calls: Dict[Tuple[int, int], int] = {}
+        self._lock = threading.Lock()
+        self._rows = 0            # the buffers' capacity in bucket rows
+        self._ranked: Dict[Tuple[int, int], Callable] = {}
+        self._last = None         # the extent the last request staged
 
     # -- construction -----------------------------------------------------
     @classmethod
@@ -128,18 +151,76 @@ class Scorer:
         return cls(ranker, int(feature_size), device=device, **kwargs)
 
     # -- inference --------------------------------------------------------
-    def _pad(self, features: np.ndarray, n_valid: np.ndarray):
-        q, length, f = features.shape
-        if f != self.feature_size:
-            raise ValueError(
-                f"feature size {f} != model feature size {self.feature_size}")
-        bq = _bucket(q, self.min_batch_bucket)
-        bl = _bucket(length, self.min_list_bucket)
-        padded = np.zeros((bq, bl, f), np.float32)
-        padded[:q, :length] = features
-        mask = (np.arange(bl)[None, :]
-                < np.concatenate([n_valid, np.zeros(bq - q)])[:, None])
-        return padded, mask
+    def _reserve(self, rows: int) -> None:
+        """Buffers for buckets of up to `rows` rows (batch x list). Growing
+        them drops every bucket's program, which read the old ones."""
+        if rows <= self._rows:
+            return
+        f, pin = self.feature_size, self.device.type == "cuda"
+        max_batch = rows // self.min_list_bucket
+        self._x = torch.zeros(rows * f, device=self.device)
+        self._n = torch.zeros(max_batch, dtype=torch.int32,
+                              device=self.device)
+        self._x_host = torch.zeros(rows * f, pin_memory=pin)
+        self._n_host = torch.zeros(max_batch, dtype=torch.int32,
+                                   pin_memory=pin)
+        self._scores_host = torch.empty(rows, pin_memory=pin)
+        self._order_host = torch.empty(rows, dtype=torch.int64,
+                                       pin_memory=pin)
+        self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
+        self._rows, self._ranked, self._last = rows, {}, None
+
+    def _body(self, bq: int, bl: int):
+        """Bucket (bq, bl)'s scoring on the staged buffers: the masked
+        scores and the ranked indices, ``[bq, bl]`` each."""
+        x = self._x[:bq * bl * self.feature_size].view(
+            bq, bl, self.feature_size)
+        mask = (torch.arange(bl, device=self.device)[None, :]
+                < self._n[:bq, None])
+        scores = self.ranker(x, mask)
+        masked = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
+        return masked, torch.argsort(-masked, dim=1, stable=True)
+
+    def _ranked_fn(self, bq: int, bl: int) -> Callable:
+        """Bucket (bq, bl)'s program, made at its first call: a function of
+        no arguments that scores what is staged and returns the masked
+        scores and the ranked indices. On CUDA it replays the bucket's
+        graph (K1's launch counted a replay, as ``run/window.Replayable``
+        counts them in training); on the CPU, or with ``graphs=False``, it
+        runs the body eagerly."""
+        key = (bq, bl)
+        if key not in self._ranked:
+            self._reserve(bq * bl)
+            if self.graphs:
+                with torch.inference_mode():
+                    graph, out = capture(lambda: self._body(bq, bl),
+                                         pool=self._pool)
+
+                def ranked():
+                    graph.replay()
+                    return out
+            else:
+                def ranked():
+                    return self._body(bq, bl)
+            self._ranked[key] = ranked
+        return self._ranked[key]
+
+    def _stage(self, features: np.ndarray, n_valid: np.ndarray,
+               bq: int, bl: int) -> None:
+        """Write the request into the host buffers in bucket (bq, bl)'s
+        layout after zeroing the previous request's extent, so everything
+        outside this request is zero."""
+        f = self.feature_size
+        host = self._x_host.numpy()
+        if self._last is not None:
+            pq, pl, q0, l0 = self._last
+            host[:pq * pl * f].reshape(pq, pl, f)[:q0, :l0] = 0.0
+        q, length, _ = features.shape
+        host[:bq * bl * f].reshape(bq, bl, f)[:q, :length] = features
+        n = self._n_host.numpy()
+        n[:bq] = 0
+        n[:q] = n_valid
+        self._last = (bq, bl, q, length)
 
     def score(self, features: np.ndarray,
               n_valid: Optional[Sequence[int]] = None) -> np.ndarray:
@@ -163,29 +244,46 @@ class Scorer:
         features = np.asarray(features, np.float32)
         if features.ndim == 2:
             features = features[None]
-        q, length, _ = features.shape
+        q, length, f = features.shape
+        if f != self.feature_size:
+            raise ValueError(
+                f"feature size {f} != model feature size {self.feature_size}")
         n_valid = (np.full(q, length, np.int32) if n_valid is None
                    else np.asarray(n_valid, np.int32))
-        padded, mask = self._pad(features, n_valid)
-        with torch.inference_mode():
-            x = torch.from_numpy(padded).to(self.device)
-            m = torch.from_numpy(mask).to(self.device)
-            scores = self.ranker(x, m)
-            masked = torch.where(m, scores, torch.full_like(scores, _NEG_INF))
-            order = torch.argsort(-masked, dim=1, stable=True)
-            masked, order = masked.cpu().numpy(), order.cpu().numpy()
-        bucket = padded.shape[:2]
-        self.bucket_calls[bucket] = self.bucket_calls.get(bucket, 0) + 1
-        scores = masked[:q, :length]
-        order = order[:q]
+        bq = _bucket(q, self.min_batch_bucket)
+        bl = _bucket(length, self.min_list_bucket)
+        rows = bq * bl
+        with self._lock:
+            ranked = self._ranked_fn(bq, bl)
+            self._stage(features, n_valid, bq, bl)
+            self._x[:rows * f].copy_(self._x_host[:rows * f],
+                                     non_blocking=True)
+            self._n[:bq].copy_(self._n_host[:bq], non_blocking=True)
+            with torch.inference_mode():
+                masked, order = ranked()
+            self._scores_host[:rows].view(bq, bl).copy_(masked,
+                                                        non_blocking=True)
+            self._order_host[:rows].view(bq, bl).copy_(order,
+                                                       non_blocking=True)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            scores = self._scores_host[:rows].view(bq, bl).numpy()[
+                :q, :length].copy()
+            order = self._order_host[:rows].view(bq, bl).numpy()[:q].copy()
+            self.bucket_calls[(bq, bl)] = self.bucket_calls.get(
+                (bq, bl), 0) + 1
         # Keep only in-range candidate indices per query, in ranked order.
         keep = order < length
         order = order[keep].reshape(q, length)
         return scores, order
 
     def warmup(self, max_batch: int, max_list_size: int) -> None:
-        """Run every bucket up to the given maxima once (builds the kernel
-        and the library handles before the first request)."""
+        """Run every bucket up to the given maxima once: the buffers take
+        the largest bucket's size, and on CUDA each bucket's graph is
+        captured (the kernel and the library handles built) before the
+        first request."""
+        self._reserve(_bucket(max_batch, self.min_batch_bucket)
+                      * _bucket(max_list_size, self.min_list_bucket))
         b = self.min_batch_bucket
         while True:
             li = self.min_list_bucket
