@@ -100,12 +100,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
     through a ``MicroBatcher`` (every reply equal to direct scoring); and
     SetRank at ``rate=0.1`` for 50 steps (finite losses, eval scores
     unchanged by a second call).
-15. Kernels, after phase 22: one JSON line listing K1-K5 (launches
+15. Kernels, after phase 23: one JSON line listing K1-K5 (launches
     summed over the serving, DLA training, offline training, phase 14's,
     phase 16's, phase 17's, both ranks' of phase 18's, phases 19's and
-    20's graph and CLI runs, phase 21's convergence runs and phase 22's
-    data-parallel graph windows and replayed serving buckets), then the
-    result line.
+    20's graph and CLI runs, phase 21's convergence runs, phase 22's
+    data-parallel graph windows and replayed serving buckets, and the
+    tools' runs of phase 23), then the result line.
 16. The online family: the six configs ``naive_online``, ``pdgd``,
     ``dbgd``, ``dbgd_ndcg``, ``mgd`` and ``nsgd`` (each config's own
     file with the DNN at [512, 256, 128], every kernel hparam its path
@@ -231,6 +231,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
     DNN's ``Scorer`` call at 8x16, 256x16 and 256x128, graph against
     eager body in turns, K1's device time inside a replay, and K1
     counted once a replayed call.
+23. The tools (``ultra_pytorch_tpu_torch/tools/``) on the card, each as
+    ``python -m`` with its default device (the card) at a short length,
+    its last line read as JSON and its launches added to the kernels
+    line: ``profile_step`` (feed, train and full a step all above 0, each
+    graph below its eager twin), ``roofline`` (``mfu`` in (0, 1], the
+    kernels' count equal to ``mlp_work`` + ``mlp_bwd_work`` + twice
+    ``loss_work``'s K3 and K4, the products 3.59 GFLOP a step within 2%),
+    ``bench_serve`` (K1's scores within TOL of the plain path's and its
+    orders a ranking of the plain scores up to 2 x TOL at every bucket),
+    ``bench_serve_http`` (no error on either row, a coalescing factor
+    above 1 on the micro-batched one) and ``bench_eval`` (the graph pass,
+    the per-batch loop and both pipelines within 1e-4).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -255,12 +267,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+# The bench protocol (F = 136, the DNN at [512, 256, 128], B = 256 x L =
+# 10), its data and settings, the card's line and the H100's peaks, and
+# the work counts behind each kernel's bound: the port's tools share them.
+from ultra_pytorch_tpu_torch.tools.bench_common import (
+    BATCH, FEATURES, HIDDEN, LIST, PEAK_3XTF32, PEAK_BF16, PEAK_BYTES,
+    PEAK_F32, PEAK_TF32, card_line, device_events, dla_settings,
+    synthetic, write_click_model, write_ultra_split)
+from ultra_pytorch_tpu_torch.tools.roofline import (loss_work, mlp_bwd_work,
+                                                    mlp_work)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
-FEATURES = 136                 # MSLR-WEB10K's feature count
-HIDDEN = "hidden_layer_sizes=[512, 256, 128]"
 BUCKETS = ((8, 16), (256, 16), (256, 128))   # (queries, docs) per call
-BATCH, LIST = 256, 10          # the bench protocol's training batch
 WINDOWS, WINDOW = 4, 50        # training windows x steps
 # K1 against its plain version: the same float32 arithmetic, but each
 # dot product over K <= 512 is summed in another order (per thread in the
@@ -271,12 +290,6 @@ TOL = 2e-4
 GRAD_TOL = 2e-4
 # K3/K4: sums over a list and over the batch in another order.
 LOSS_TOL = 1e-5
-# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
-PEAK_F32 = 67e12
-PEAK_TF32 = 495e12
-PEAK_3XTF32 = PEAK_TF32 / 3   # float32 products as three TF32 ones
-PEAK_BF16 = 989e12
-PEAK_BYTES = 3.35e12
 
 
 def check(ok: bool, what: str) -> None:
@@ -296,40 +309,6 @@ def seeded_dnn(hparams: str, gen: torch.Generator, device):
             layer.norm.weight.add_(0.1 * torch.randn(n, generator=gen))
             layer.norm.bias.add_(0.1 * torch.randn(n, generator=gen))
     return model.to(device)
-
-
-def mlp_work(model, n_rows: int):
-    """(operations, bytes) of one fused forward over `n_rows` rows: per
-    layer 2*in*out + out for the Linear, 6*in for the LayerNorm (sum, sum
-    of squares, subtract, two multiplies, add) and `out` for the
-    activation; bytes read the features and weights once and write the
-    scores once."""
-    use_norm = model.hparams.norm == "layer"
-    ops = 0
-    for j, layer in enumerate(model.layers):
-        d_in, d_out = layer.linear.in_features, layer.linear.out_features
-        ops += 2 * d_in * d_out + d_out + (6 * d_in if use_norm else 0)
-        if j != len(model.layers) - 1:
-            ops += d_out
-    n_params = sum(p.numel() for p in model.parameters())
-    return n_rows * ops, 4 * (n_rows * FEATURES + n_params + n_rows)
-
-
-def mlp_bwd_work(model, n_rows: int):
-    """(operations, bytes) of K2 over `n_rows` rows: the forward recompute
-    (``mlp_work``) plus, per layer, the two backward products dz @ W^T and
-    post^T @ dz (2*in*out each), db (out), the LayerNorm backward
-    (dscale, dbias, dnhat, two means, dh: 10*in) and, on every layer but
-    the first, the activation's derivative (2*in). Bytes read x, g and the weights once and write dx and one
-    gradient per parameter once."""
-    ops, _ = mlp_work(model, n_rows)
-    for j, layer in enumerate(model.layers):
-        d_in, d_out = layer.linear.in_features, layer.linear.out_features
-        ops += n_rows * (4 * d_in * d_out + d_out + 10 * d_in)
-        if j:
-            ops += n_rows * 2 * d_in
-    n_params = sum(p.numel() for p in model.parameters())
-    return ops, 4 * (2 * n_rows * FEATURES + n_rows + 2 * n_params)
 
 
 def bound(ops: float, nbytes: float, peak_ops: float = PEAK_F32):
@@ -384,21 +363,6 @@ def graph_ms(fn, calls: int, replays: int = 5) -> float:
     return start.elapsed_time(end) / (replays * calls)
 
 
-def device_events(fn):
-    """(name, device microseconds) of every kernel, copy and set that
-    torch.profiler records on the card while `fn` runs; empty when the
-    profiler records none."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
-
-
 def max_rel_err(got, ref):
     """(max abs error, max abs error over the reference's largest
     magnitude)."""
@@ -437,17 +401,6 @@ def reset_counts() -> None:
 
 def read_counts():
     return {k: fn.launches for k, fn in counters().items()}
-
-
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0 and smi.stdout.strip(),
-          f"nvidia-smi: {smi.stderr.strip()}")
-    return smi.stdout.strip().splitlines()[0]
 
 
 def phase_device():
@@ -864,56 +817,6 @@ def library_fwd_bwd(model, x, g):
         return torch.autograd.grad(out, [xr] + params, g)
 
 
-def dla_settings(kernels: bool, click_json: str):
-    """The bench protocol's experiment settings, kernel hparams on or off."""
-    on = "true" if kernels else "false"
-    return {
-        "train_input_feed": "ClickSimulationFeed",
-        "train_input_hparams": f"click_model_json={click_json},"
-                               f"use_pallas_click={on}",
-        "valid_input_feed": "DirectLabelFeed", "valid_input_hparams": "",
-        "test_input_feed": "DirectLabelFeed", "test_input_hparams": "",
-        "ranking_model": "DNN",
-        "ranking_model_hparams": f"{HIDDEN},use_pallas={on}",
-        "learning_algorithm": "DLA",
-        "learning_algorithm_hparams":
-            "loss_func=fused_softmax_loss" if kernels else "",
-        "metrics": ["ndcg", "mrr"], "metrics_topn": [3, 5, 10],
-        "objective_metric": "ndcg_10", "selection_bias_cutoff": LIST,
-    }
-
-
-def click_model_file() -> str:
-    from ultra_pytorch_tpu_torch.sim.click_models import (
-        click_model_json_numpy)
-
-    os.makedirs(WORK, exist_ok=True)
-    path = os.path.join(WORK, "pbm_0.1_1.0_4_1.0.json")
-    with open(path, "w") as fout:
-        json.dump(click_model_json_numpy("pbm", 0.1, 1.0, 4, 1.0), fout)
-    return path
-
-
-def synthetic(num_queries: int, seed: int, length: int = LIST):
-    """The bench protocol's synthetic data (``__graft_entry__``'s
-    ``_make_synthetic``): `length` documents a query, normal features,
-    grades 0-2, a positive first document."""
-    from ultra_pytorch_tpu_torch.data.dataset import RankingDataset
-
-    rng = np.random.default_rng(seed)
-    d = num_queries * length
-    labels = rng.integers(0, 3, size=(num_queries, length)).astype(
-        np.float32)
-    labels[:, 0] = np.maximum(labels[:, 0], 1.0)
-    return RankingDataset(
-        features=rng.normal(size=(d, FEATURES)).astype(np.float32),
-        initial_list=np.arange(d, dtype=np.int64).reshape(num_queries,
-                                                          length),
-        labels=labels, qids=[str(i) for i in range(num_queries)],
-        dids=[f"d{i}" for i in range(d)], feature_size=FEATURES,
-        rank_list_size=length, max_label=2.0)
-
-
 def fixed_batch(dev):
     """Phase 6's fixed training batch: B x L lists of F features, a quarter
     of them cut to 7 documents, clicks at 0.3 and always on the first."""
@@ -1148,25 +1051,6 @@ def profile_steps(exp, prof_tag: str, step_wall: float,
     return busy_step, idle, to_host
 
 
-def write_ultra_split(data_dir: str, split: str, num_queries: int,
-                      seed: int) -> None:
-    """One split of the synthetic data in ULTRA format."""
-    ds = synthetic(num_queries, seed)
-    sub = os.path.join(data_dir, split)
-    os.makedirs(sub, exist_ok=True)
-    cols = np.arange(1, FEATURES + 1)
-    with open(os.path.join(sub, f"{split}.feature"), "w") as fout:
-        for did, row in zip(ds.dids, ds.features):
-            fout.write(did + " " + " ".join(
-                f"{i}:{v:.6g}" for i, v in zip(cols, row)) + "\n")
-    with open(os.path.join(sub, f"{split}.init_list"), "w") as fout:
-        for qid, docs in zip(ds.qids, ds.initial_list):
-            fout.write(qid + " " + " ".join(map(str, docs)) + "\n")
-    with open(os.path.join(sub, f"{split}.labels"), "w") as fout:
-        for qid, labels in zip(ds.qids, ds.labels):
-            fout.write(qid + " " + " ".join(f"{v:g}" for v in labels) + "\n")
-
-
 def write_ultra_data() -> str:
     """Phase 8's ULTRA-format dataset (train 512, valid 128, test 128
     queries of the synthetic data) under ``build/``; returns its
@@ -1309,20 +1193,6 @@ def phase_kernel_timing(mlp, gen, dev, pool):
               f"{r['bound_f32_ms']:.5f} ms "
               f"({100 * r['bound_f32_ms'] / r['ms']:.2f}%)", flush=True)
     return rows
-
-
-def loss_work(batch: int, length: int):
-    """(K3 operations, K3 bytes, K4 operations, K4 bytes) at [batch,
-    length]. K3 per element: wl (add, 2 multiplies), the masked score, the
-    running max, exp(s~ - max) (subtract, exp) and its sum, wl * (s~ - max)
-    (fused multiply-add, 2) and the denominator: ~11. K4 per element: wl
-    (3), the masked score, the label share (divide), exp(s~ - log Z)
-    (subtract, exp), the difference and two multiplies: ~10. K3 reads the
-    four inputs and writes the loss and its residual (log Z and denom a
-    list, total); K4 reads the inputs, the residual and g and writes ds."""
-    elems, stats = batch * length, 8 * batch + 4
-    return (11 * elems, 16 * elems + stats + 4, 10 * elems,
-            20 * elems + stats + 4)
 
 
 def phase_loss_timing(gen, dev):
@@ -3549,6 +3419,69 @@ def phase_graphs(dev, click_json, data, online_data):
     return total
 
 
+def run_tool(name: str, args, counts) -> dict:
+    """``python -m ultra_pytorch_tpu_torch.tools.<name> <args>`` on the card
+    (its default device) through ``run_module``: its last line as JSON,
+    its launches added to `counts`."""
+    out = run_module(f"tools {name}", f"ultra_pytorch_tpu_torch.tools.{name}",
+                     args, timeout=240)
+    result = json.loads(out.strip().splitlines()[-1])
+    for k, n in result["launches"].items():
+        counts[k] += n
+    return result
+
+
+def phase_tools():
+    """Phase 23: the port's tools on the card, each checked; returns their
+    runs' launches."""
+    from ultra_pytorch_tpu_torch.models.dnn import DNN
+
+    t0 = time.perf_counter()
+    counts = dict.fromkeys(counters(), 0)
+    prof = run_tool("profile_step", ["--steps", "100"], counts)
+    for name in ("feed", "train", "full"):
+        graph, eager = prof[f"{name}_us"], prof[f"{name}_eager_us"]
+        check(0 < graph < eager, f"profile_step: {name} {graph} us a step "
+              f"as a graph against {eager} eager")
+    roof = run_tool("roofline", ["--steps", "200"], counts)
+    n = BATCH * LIST
+    model = DNN(HIDDEN, FEATURES)
+    k3, _, k4, _ = loss_work(BATCH, LIST)
+    kernel_flops = (mlp_work(model, n)[0] + mlp_bwd_work(model, n)[0]
+                    + 2 * (k3 + k4))
+    products = sum(roof["products"].values())
+    print(f"[tools] roofline: {roof['flops_per_step'] / 1e9:.4f} GFLOP a "
+          f"step ({products / 1e9:.4f} of products, the kernels "
+          f"{roof['kernel_flops_per_step'] / 1e9:.4f}), "
+          f"{roof['step_time_us']:.2f} us a step, mfu {roof['mfu']:.4f}, "
+          f"hfu {roof['hfu']:.4f}", flush=True)
+    check(roof["kernel_flops_per_step"] == kernel_flops,
+          f"roofline counts {roof['kernel_flops_per_step']} kernel "
+          f"operations a step, mlp_work + mlp_bwd_work + loss_work "
+          f"{kernel_flops}")
+    check(abs(products / 3.59e9 - 1) <= 0.02,
+          f"roofline: {products} products a step, not 3.59 GFLOP")
+    check(0 < roof["mfu"] <= 1.0, f"roofline: mfu {roof['mfu']}")
+    serve = run_tool("bench_serve", ["--iters", "50"], counts)
+    for bucket, c in serve["k1_vs_plain"].items():
+        check(c["scores_close"] and c["order_violations"] == 0,
+              f"bench_serve {bucket}: K1 against the plain path {c}")
+    http = run_tool("bench_serve_http", [], counts)
+    for row in http["results"]:
+        check(row["errors"] == 0, f"bench_serve_http {row['mode']}: "
+              f"{row['errors']} errors {row['error_samples']}")
+    micro = http["results"][-1]
+    check(micro["mode"] == "micro_batched"
+          and micro["coalescing_factor"] > 1,
+          f"bench_serve_http: coalescing factor {micro}")
+    evals = run_tool("bench_eval", ["--repeats", "3"], counts)
+    check(evals["max_diff"] <= 1e-4,
+          f"bench_eval: the ways differ by {evals['max_diff']}")
+    print(f"[tools] phase 23 in {time.perf_counter() - t0:.1f} s; "
+          f"launches {counts}", flush=True)
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -3576,7 +3509,7 @@ def main() -> int:
     err["K5"] = phase_click_parity(dev)
     serving_launches, model_dir = phase_serving(mlp, gen, dev)
     k1_timing = phase_timing(mlp, gen, dev, model_dir)[BUCKETS[-1]]
-    click_json = click_model_file()
+    click_json = write_click_model(WORK)
     phase_dla_step(dev, click_json)
     clock("phase 7")
     counts, pool, data = phase_training(dev, click_json)
@@ -3608,10 +3541,12 @@ def main() -> int:
     convergence_counts = phase_convergence(dev)
     clock("phase 22")
     graph_counts = phase_graphs(dev, click_json, data, online_data)
+    clock("phase 23")
+    tool_counts = phase_tools()
     counts["K1"] += serving_launches
     for part in (offline_counts, ranker_counts, online_counts, format_counts,
                  dp_counts, fused_counts, online_fused_counts,
-                 convergence_counts, graph_counts):
+                 convergence_counts, graph_counts, tool_counts):
         for k, n in part.items():
             counts[k] += n
     sources = {

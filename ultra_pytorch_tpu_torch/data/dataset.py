@@ -34,6 +34,10 @@ import torch
 
 from ultra_pytorch_tpu_torch.data import native
 
+# The JAX package's label sentinel for padding. Neither package writes it:
+# padded positions carry label 0 and mask 0 (``pad``, ``to_host_arrays``).
+PAD_LABEL = -1.0
+
 
 def _read_sparse_features(path: str, feature_size: int,
                           removed: List[int]) -> Tuple[List[str], np.ndarray]:

@@ -250,3 +250,9 @@ def evaluate(labels: torch.Tensor, predictions: torch.Tensor,
             out[f"{key}_{n}"] = v
     return out
 
+
+def ndcg(labels, predictions, topn: int = 10) -> torch.Tensor:
+    """Scalar NDCG@`topn` of ``[B, L]`` lists, unweighted (the DBGD
+    reward's metric, ref ``metric_utils.py:244-274``)."""
+    return normalized_discounted_cumulative_gain(
+        labels, predictions, None, [topn])[0]

@@ -14,8 +14,9 @@ in two:
 Position m of the draft depends only on positions below m, so
 :func:`draft` stops at ``positions`` (the click cutoff, where every
 caller stops reading): the first ``positions`` entries equal the JAX
-draft over the whole list. :func:`infer_winners` gives each ranker's
-share of the clicks.
+draft over the whole list. :func:`team_draft_interleave` composes the two
+over a whole list, as the JAX package's function of that name does;
+:func:`infer_winners` gives each ranker's share of the clicks.
 """
 
 from __future__ import annotations
@@ -73,6 +74,15 @@ def draft(rankings: torch.Tensor, assignments: torch.Tensor,
         docs.append(doc)
         teams.append(torch.where(in_prefix, -1, team))
     return torch.stack(docs, dim=1), torch.stack(teams, dim=1)
+
+
+def team_draft_interleave(generator: torch.Generator, rankings: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multileave ``rankings [B, R, L]`` over all L positions, in a
+    drafting order drawn from `generator`: (multileaved ``[B, L]``
+    document slots, teams ``[B, L]`` with -1 in the common prefix)."""
+    B, R, L = rankings.shape
+    return draft(rankings, round_assignments(generator, B, R, L), L)
 
 
 def infer_winners(teams: torch.Tensor, clicks: torch.Tensor,
