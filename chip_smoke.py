@@ -100,12 +100,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
     through a ``MicroBatcher`` (every reply equal to direct scoring); and
     SetRank at ``rate=0.1`` for 50 steps (finite losses, eval scores
     unchanged by a second call).
-15. Kernels, after phase 23: one JSON line listing K1-K5 (launches
+15. Kernels, after phase 24: one JSON line listing K1-K5 (launches
     summed over the serving, DLA training, offline training, phase 14's,
     phase 16's, phase 17's, both ranks' of phase 18's, phases 19's and
     20's graph and CLI runs, phase 21's convergence runs, phase 22's
-    data-parallel graph windows and replayed serving buckets, and the
-    tools' runs of phase 23), then the result line.
+    data-parallel graph windows and replayed serving buckets, the
+    tools' runs of phase 23 and every rank's of phase 24; K1-K4 also
+    with their timing at the demo's shapes under "demo" and with the
+    cutoff at L under "demo_off_path"), then the result line.
 16. The online family: the six configs ``naive_online``, ``pdgd``,
     ``dbgd``, ``dbgd_ndcg``, ``mgd`` and ``nsgd`` (each config's own
     file with the DNN at [512, 256, 128], every kernel hparam its path
@@ -230,7 +232,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
     against a freshly zero-padded bucket (stale padding would show). The
     DNN's ``Scorer`` call at 8x16, 256x16 and 256x128, graph against
     eager body in turns, K1's device time inside a replay, and K1
-    counted once a replayed call.
+    counted once a replayed call; this part runs in a child process
+    (``python3 chip_smoke.py --serve-replays dla_ubm``) on the DNN's
+    checkpoint, because late in one long process torch.profiler keeps
+    only about one replay's device records of five, and in a fresh one
+    it keeps them all.
 23. The tools (``ultra_pytorch_tpu_torch/tools/``) on the card, each as
     ``python -m`` with its default device (the card) at a short length,
     its last line read as JSON and its launches added to the kernels
@@ -243,6 +249,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``bench_serve_http`` (no error on either row, a coalescing factor
     above 1 on the micro-batched one) and ``bench_eval`` (the graph pass,
     the per-batch loop and both pipelines within 1e-4).
+24. The JAX system's multi-device entry points (``__graft_entry__.py``,
+    ``tools/bench_scaling.py``, ``tools/shard_data_demo.py``) through the
+    port: (a) ``run/dryrun.entry()``, one K1 launch over [8, 10, 136]
+    within TOL of its plain version; (b) ``dryrun_multichip``'s 18 cases
+    as an NCCL group of one (every window a graph) and as two gloo ranks
+    sharing cuda:0, each case at step 2 with a finite loss and the state
+    bit-identical across ranks; (c) ``bench_scaling 25 4`` over the
+    visible cards and with ``--share_card 2``, each row's launches exact
+    and its ranks' state identical; (d) ``shard_data_demo`` at its full
+    default size (10M rows x 220 features, lists of 200) as two stripes
+    on cuda:0 and as the whole table on one rank: finite losses, each
+    rank's share of the table, exact launches; (e) one DLA step on a
+    batch of B = 256 lists of L = 200 documents of F = 220 features,
+    kernels on against plain (phase 6's tolerances), first at the
+    demo's own settings (cutoff 10: K1 and K2 over the 2,560 x 220 rows
+    the demo's steps run, K3 and K4 at [256, 10]), then with the cutoff
+    at L (51,200 x 220 rows, [256, 200]: no path of the slice runs it);
+    K1-K4 timed at both (the comparisons' launches are not counted).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -272,8 +296,8 @@ import torch.nn.functional as F
 # the work counts behind each kernel's bound: the port's tools share them.
 from ultra_pytorch_tpu_torch.tools.bench_common import (
     BATCH, FEATURES, HIDDEN, LIST, PEAK_3XTF32, PEAK_BF16, PEAK_BYTES,
-    PEAK_F32, PEAK_TF32, card_line, device_events, dla_settings,
-    synthetic, write_click_model, write_ultra_split)
+    PEAK_F32, PEAK_TF32, card_line, device_events, dla_launches,
+    dla_settings, synthetic, write_click_model, write_ultra_split)
 from ultra_pytorch_tpu_torch.tools.roofline import (loss_work, mlp_bwd_work,
                                                     mlp_work)
 
@@ -2260,18 +2284,6 @@ DP_RANKS = 2
 DP_CLIP = 0.05        # binds: the mean gradient's norm is above it (printed)
 
 
-def same_on_every_rank(leaves, dev) -> bool:
-    """Rank 0's leaves broadcast and compared bit for bit on this rank
-    (gloo on CUDA tensors has broadcast but no all_gather)."""
-    import torch.distributed as dist
-
-    mine = torch.from_numpy(np.concatenate(
-        [np.asarray(a, np.float32).reshape(-1) for a in leaves])).to(dev)
-    theirs = mine.clone()
-    dist.broadcast(theirs, 0)
-    return bool(torch.equal(mine, theirs))
-
-
 def given_step_settings(click_json):
     settings = dla_settings(True, click_json)
     settings.update(max_candidate_num=LIST, learning_algorithm_hparams=(
@@ -2287,6 +2299,7 @@ def dp_window_run(settings, data_dir, model_dir, dev, windows: int,
     validated after each, as the CLI does: (experiment, per-window
     metrics, seconds, and whether the state was the same on every rank
     after each window)."""
+    from ultra_pytorch_tpu_torch.parallel import same_on_every_rank
     from ultra_pytorch_tpu_torch.run.experiment import Experiment
 
     exp = Experiment(dict(settings), data_dir, model_dir, batch_size=BATCH,
@@ -3365,7 +3378,9 @@ def serve_graph_ranker(ranker: str, config: str, dev, data):
 def serve_graph_timing(graph, eager):
     """The DNN's ``Scorer`` call at BUCKETS, graph against eager body in
     turns, and K1's device time inside a replay; K1 counted once a
-    replayed call. Returns the K1 launches of the replayed calls."""
+    replayed call. Returns the K1 launches of the replayed calls. Run in
+    a fresh process (``serve_replays``): late in a long one torch.profiler
+    keeps only some of a session's device records."""
     rng = np.random.default_rng(8)
     launches = 0
     for q, docs in BUCKETS:
@@ -3381,6 +3396,13 @@ def serve_graph_timing(graph, eager):
         counted = read_counts()["K1"]
         launches += counted
         k1 = [us for name, us in events if "mlp_fwd" in name]
+        if len(k1) < calls:
+            seen = {}
+            for name, _ in events:
+                seen[name[:60]] = seen.get(name[:60], 0) + 1
+            print(f"[serve graph] {q}x{docs}: torch.profiler saw {len(k1)} "
+                  f"of {calls} K1 launches; device events seen by name: "
+                  f"{seen}", flush=True)
         check(counted == calls, f"{q}x{docs}: {calls} replayed calls "
               f"counted K1 {counted} times")
         check(k1, f"{q}x{docs}: torch.profiler saw no K1 inside a replay")
@@ -3399,12 +3421,33 @@ def phase_serve_graph(dev, data):
     DNN's call times. Returns the K1 launches of the DNN's replays."""
     k1 = 0
     for ranker, config in SERVE_RANKERS.items():
-        graph, eager, launched = serve_graph_ranker(ranker, config, dev,
-                                                    data)
+        _, _, launched = serve_graph_ranker(ranker, config, dev, data)
         k1 += launched
         if ranker == "DNN":
-            k1 += serve_graph_timing(graph, eager)
+            out = run_module("phase 22 child", "chip_smoke",
+                             ["--serve-replays", config], timeout=300)
+            k1 += json.loads(out.strip().splitlines()[-1])["launches"]
     return k1
+
+
+def serve_replays(config: str) -> int:
+    """The child of phase 22: the DNN's graph and eager ``Scorer`` on the
+    checkpoint that ``serve_graph_ranker`` wrote for `config`, every
+    bucket up to SERVE_MAX captured, then ``serve_graph_timing``. Prints
+    its K1 launches as the last line."""
+    from ultra_pytorch_tpu_torch.serve import Scorer
+
+    dev = torch.device("cuda")
+    phase_device()
+    model_dir = os.path.join(WORK, "serve_graph", config)
+    graph = Scorer.from_checkpoint(model_dir, device=dev)
+    eager = Scorer.from_checkpoint(model_dir, device=dev, graphs=False)
+    check(type(graph.ranker).__name__ == "DNN" and graph.graphs
+          and not eager.graphs, f"{config}: the Scorers are not as asked")
+    graph.warmup(*SERVE_MAX)
+    print(json.dumps({"launches": serve_graph_timing(graph, eager)}),
+          flush=True)
+    return 0
 
 
 def phase_graphs(dev, click_json, data, online_data):
@@ -3482,15 +3525,285 @@ def phase_tools():
     return counts
 
 
+# -- phase 24: the multi-device entry points ---------------------------------
+DEMO_FEATURES, DEMO_LIST = 220, 200   # the demo's table: Istella's width
+DEMO_CUTOFF = 10                      # the demo's selection_bias_cutoff
+DRYRUN_CASES = 18                     # __graft_entry__.py's table
+
+
+def demo_batch(dev):
+    """A fixed batch at the demo's table width and list length: B x 200
+    lists of 220 features, a quarter cut to 150 documents, clicks at 0.3
+    and always on the first."""
+    rng = np.random.default_rng(5)
+    mask = np.ones((BATCH, DEMO_LIST), np.float32)
+    mask[: BATCH // 4, 150:] = 0.0
+    clicks = (rng.random((BATCH, DEMO_LIST)) < 0.3).astype(np.float32) * mask
+    clicks[:, 0] = 1.0
+    return {"features": torch.from_numpy(rng.normal(
+        size=(BATCH, DEMO_LIST, DEMO_FEATURES)).astype(np.float32)).to(dev),
+        "labels": torch.from_numpy(clicks).to(dev),
+        "mask": torch.from_numpy(mask).to(dev)}
+
+
+def demo_step(dev, cutoff: int):
+    """(e) One DLA step on ``demo_batch`` with the demo's settings at
+    `cutoff` (the demo's own is DEMO_CUTOFF), kernels on against the plain
+    path, from the same initialisation: K1 and K2 over B x cutoff rows of
+    220 features, K3 and K4 at [B, cutoff]."""
+    from ultra_pytorch_tpu_torch.run.experiment import create_algorithm
+    from ultra_pytorch_tpu_torch.tools.shard_data_demo import demo_settings
+
+    batch = demo_batch(dev)
+    out, launches = {}, None
+    for kernels in (True, False):
+        settings = demo_settings(DEMO_LIST, kernels=kernels)
+        check(settings["selection_bias_cutoff"] == DEMO_CUTOFF,
+              "the demo's cutoff moved")
+        settings["selection_bias_cutoff"] = cutoff
+        alg = create_algorithm(settings, DEMO_FEATURES, 4.0, dev)
+        state = alg.init_state(torch.Generator().manual_seed(1))
+        before = read_counts()
+        losses = alg.losses(state, batch)
+        grads = torch.autograd.grad(losses[0], alg.trainable(state))
+        torch.cuda.synchronize()
+        if kernels:
+            launches = {k: n - before[k] for k, n in read_counts().items()}
+        n = len(state.params.jax_leaves())
+        out[kernels] = (losses[0].item(),
+                        torch.cat([g.reshape(-1) for g in grads[:n]]),
+                        torch.cat([g.reshape(-1) for g in grads[n:]]))
+    (loss_k, rank_k, prop_k), (loss_p, rank_p, prop_p) = out[True], out[False]
+    rank_err, rank_rel = max_rel_err(rank_k, rank_p)
+    prop_err, prop_rel = max_rel_err(prop_k, prop_p)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    where = ("the demo's settings" if cutoff == DEMO_CUTOFF
+             else "off the slice's paths")
+    print(f"[multi-device] (e) DLA step at B {BATCH} x L {DEMO_LIST} x F "
+          f"{DEMO_FEATURES}, cutoff {cutoff} ({where}: K1/K2 over "
+          f"{BATCH * cutoff} x {DEMO_FEATURES} rows, K3/K4 at [{BATCH}, "
+          f"{cutoff}]), kernels on vs plain: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f} (rel {rel:.2e}, limit {LOSS_TOL}); ranker gradient "
+          f"max abs {rank_err:.3e} ({rank_rel:.3e} of its largest), "
+          f"propensity gradient {prop_err:.3e} ({prop_rel:.3e}) (limit "
+          f"{GRAD_TOL}); launches {launches}", flush=True)
+    check(math.isfinite(loss_k) and rel <= LOSS_TOL,
+          f"the DLA loss at cutoff {cutoff} differs between kernels and "
+          "plain")
+    check(rank_rel <= GRAD_TOL and prop_rel <= GRAD_TOL,
+          f"the DLA gradients at cutoff {cutoff} differ between kernels "
+          "and plain")
+    check(launches == {"K1": 1, "K2": 1, "K3": 2, "K4": 2, "K5": 0},
+          f"the DLA step at cutoff {cutoff} launched {launches}")
+
+
+def demo_timing(dev, gen, cutoff: int):
+    """K1-K4 at the demo's width with lists cut to `cutoff` (B x cutoff
+    rows of 220 features; [B, cutoff]), each held against its plain
+    version: device time a call (``graph_ms``) of the kernel, its plain
+    version and the library chain (none for K3/K4), and the bound."""
+    from ultra_pytorch_tpu_torch.models.dnn import DNN
+    from ultra_pytorch_tpu_torch.ops import losses
+    from ultra_pytorch_tpu_torch.ops.kernels import listwise_loss as ll
+    from ultra_pytorch_tpu_torch.ops.kernels import mlp
+
+    n = BATCH * cutoff
+    model = DNN(HIDDEN, DEMO_FEATURES, generator=gen).to(dev)
+    x = torch.randn(n, DEMO_FEATURES, generator=gen).to(dev)
+    g = torch.randn(n, generator=gen).to(dev)
+    s, y, w, m = loss_inputs(BATCH, cutoff, gen, dev)
+    _, stats = ll.listwise_loss_forward(s, y, w, m, return_stats=True)
+    ref_stats = ll.listwise_loss_stats_reference(s, y, w, m)
+    one = torch.tensor(1.0, device=dev)
+    k3_ops, k3_bytes, k4_ops, k4_bytes = loss_work(BATCH, cutoff)
+    def no_grad(fn):
+        def call():
+            with torch.no_grad():
+                return fn()
+        return call
+
+    cases = {
+        "K1": (no_grad(lambda: mlp.fused_mlp_score(model.layers, x)),
+               no_grad(lambda: mlp.fused_mlp_score_reference(model.layers,
+                                                             x)),
+               no_grad(lambda: library_chain(model, x)), *mlp_work(model, n),
+               PEAK_3XTF32, f"{n} x {DEMO_FEATURES}"),
+        "K2": (lambda: mlp.mlp_backward(model.layers, x, g, "elu", True),
+               lambda: mlp.mlp_backward_reference(model.layers, x, g, "elu",
+                                                  True),
+               lambda: library_fwd_bwd(model, x, g), *mlp_bwd_work(model, n),
+               PEAK_3XTF32, f"{n} x {DEMO_FEATURES}"),
+        "K3": (lambda: ll.listwise_loss_forward(s, y, w, m,
+                                                return_stats=True),
+               lambda: (losses.softmax_loss(s, y, w, m),
+                        ll.listwise_loss_stats_reference(s, y, w, m)),
+               None, k3_ops, k3_bytes, PEAK_F32, f"[{BATCH}, {cutoff}]"),
+        "K4": (lambda: ll.listwise_loss_backward(s, y, w, m, one, stats),
+               lambda: ll.listwise_loss_backward_reference(
+                   s, y, w, m, one, ref_stats),
+               None, k4_ops, k4_bytes, PEAK_F32, f"[{BATCH}, {cutoff}]"),
+    }
+    with torch.no_grad():
+        got, ref = cases["K1"][0](), cases["K1"][1]()
+        check(torch.allclose(got, ref, rtol=TOL, atol=TOL),
+              "K1 at the demo's width disagrees with its plain version")
+        dx, grads = cases["K2"][0]()
+        ref_dx, ref_grads = cases["K2"][1]()
+        k2_rel = max(max_rel_err(a, b)[1] for a, b in
+                     zip([dx] + grads, [ref_dx] + ref_grads))
+        check(k2_rel <= GRAD_TOL, f"K2 at the demo's width off by {k2_rel}")
+        loss = ll.listwise_loss_forward(s, y, w, m)
+        check(abs(loss.item() - losses.softmax_loss(s, y, w, m).item())
+              <= LOSS_TOL * abs(loss.item()),
+              f"K3 at [{BATCH}, {cutoff}] differs")
+        k4_err = max_rel_err(cases["K4"][0](), cases["K4"][1]())[1]
+        check(k4_err <= LOSS_TOL, f"K4 at [{BATCH}, {cutoff}] off by "
+              f"{k4_err}")
+    rows = {}
+    for name, (fn, plain, lib, n_ops, n_bytes, peak, shape) in cases.items():
+        b_ms, by = bound(n_ops, n_bytes, peak)
+        calls = 10 if name in ("K1", "K2") else 50
+        rows[name] = r = dict(
+            shape=shape, ms=graph_ms(fn, calls), plain_ms=graph_ms(plain, 5),
+            library_ms=None if lib is None else graph_ms(lib, calls),
+            bound_ms=b_ms, bound_by=by)
+        lib_text = ("none" if lib is None
+                    else f"{r['library_ms']:.4f} ms")
+        print(f"[multi-device timing] {name} {shape}: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{lib_text} (device time a call) | {n_ops / 1e9:.4f} GFLOP, "
+              f"{n_bytes / 1e6:.3f} MB | bound {b_ms:.5f} ms ({by}), kernel "
+              f"at {100 * b_ms / r['ms']:.2f}% of it", flush=True)
+    return rows
+
+
+def add_launches(total, part) -> None:
+    for k, n in part.items():
+        total[k] += n
+
+
+def phase_multi_device(dev, gen):
+    """Phase 24: the JAX system's multi-device entry points over the port.
+    Returns the main paths' launches and the kernels' timing at the demo's
+    widths."""
+    from ultra_pytorch_tpu_torch.ops.kernels import mlp
+    from ultra_pytorch_tpu_torch.run import dryrun
+    from ultra_pytorch_tpu_torch.run.launch import shared_card
+    from ultra_pytorch_tpu_torch.tools import bench_scaling, shard_data_demo
+
+    t0 = time.perf_counter()
+    counts = dict.fromkeys(counters(), 0)
+
+    # (a) The flagship forward: one K1 launch over [8, 10, 136].
+    fn, (ranker, feats, mask) = dryrun.entry()
+    before = read_counts()["K1"]
+    scores = fn(ranker, feats, mask)
+    torch.cuda.synchronize()
+    k1 = read_counts()["K1"] - before
+    counts["K1"] += k1
+    with torch.no_grad():
+        ref = mlp.fused_mlp_score_reference(ranker.layers, feats)
+    err = (scores - ref).abs().max().item()
+    print(f"[multi-device] (a) entry(): scores {tuple(scores.shape)}, K1 "
+          f"launches {k1}, max abs err against the plain version {err:.3e} "
+          f"(limit rtol=atol={TOL})", flush=True)
+    check(scores.shape == (8, 10) and k1 == 1
+          and torch.allclose(scores, ref, rtol=TOL, atol=TOL),
+          "entry(): K1 disagrees with its plain version")
+
+    # (b) The dry run: NCCL at world size 1, then two gloo ranks on cuda:0.
+    for label, group in (("NCCL, 1 rank", (1, dev, None)),
+                         ("gloo, 2 ranks on cuda:0", shared_card(2, dev))):
+        t1 = time.perf_counter()
+        ranks = dryrun.dryrun_multichip(*group)
+        seconds = time.perf_counter() - t1
+        for results in ranks:
+            check(len(results) == DRYRUN_CASES and all(
+                r["same"] and r["step"] == 2 and math.isfinite(r["loss"])
+                for r in results), f"dry run ({label}): a case failed")
+            for r in results:
+                add_launches(counts, r["launches"])
+        graphs = sum(r["graph"] for r in ranks[0])
+        print(f"[multi-device] (b) dry run ({label}): {len(ranks[0])} cases "
+              f"ok in {seconds:.1f} s with the spawn "
+              f"({seconds / len(ranks[0]):.2f} s a case); graph windows "
+              f"{graphs}/{len(ranks[0])}", flush=True)
+        check(graphs == (DRYRUN_CASES if group[0] == 1 else 0),
+              f"dry run ({label}): {graphs} graph windows")
+
+    # (c) bench_scaling 25 4 over the visible cards, then two ranks that
+    # share cuda:0.
+    t1 = time.perf_counter()
+    rows = bench_scaling.main(["25", "4"])
+    shared = bench_scaling.main(["25", "4", "--share_card", "2"])
+    for row in rows + shared:
+        want = dla_launches(25 * 5, 5, row["devices"])
+        check(row["same_state"] and row["launches"] == want,
+              f"bench_scaling: {row}, launches expected {want}")
+        check(row["windows"] == ("eager" if row["shared_card"] else "graph"),
+              f"bench_scaling: windows {row['windows']}")
+        add_launches(counts, row["launches"])
+    print(f"[multi-device] (c) bench_scaling in "
+          f"{time.perf_counter() - t1:.1f} s on {card_line()}: "
+          + "; ".join(f"{r['devices']} rank(s)"
+                      f"{' sharing cuda:0' if r['shared_card'] else ''} "
+                      f"{r['queries_per_sec']:.1f} queries/s, efficiency "
+                      f"{r['scaling_efficiency']:.4f} ({r['windows']})"
+                      for r in rows + shared), flush=True)
+
+    # (d) The demo at the full default size: two stripes on cuda:0, then
+    # the whole table on one rank.
+    for args in (["--share_card", "2"], ["--ranks", "1"]):
+        t1 = time.perf_counter()
+        res = shard_data_demo.main(args)
+        ranks = res["ranks"]
+        want = dla_launches(res["steps"], res["steps"], ranks)
+        print(f"[multi-device] (d) shard_data_demo {' '.join(args)} in "
+              f"{time.perf_counter() - t1:.1f} s on {card_line()}: "
+              f"{res['gb_per_device_sharded']:.4f} GB a rank of "
+              f"{res['gb_replicated']:.4f}, max_memory_allocated "
+              f"{res['max_memory_allocated_gb']} GB, loss "
+              f"{res['loss_first']:.5f} -> {res['loss_last']:.5f}, "
+              f"{res['queries_per_s']:.1f} queries/s ({res['windows']}), "
+              f"stripes built in {res['build_s']} s; launches "
+              f"{res['launches']}", flush=True)
+        check(math.isfinite(res["loss_first"])
+              and math.isfinite(res["loss_last"]), "demo: non-finite loss")
+        check(res["launches"] == want, f"demo: launches {res['launches']}, "
+              f"expected {want}")
+        check(res["windows"] == ("eager" if ranks > 1 else "graph"),
+              f"demo: windows {res['windows']}")
+        check(abs(res["gb_per_device_sharded"] * ranks
+                  - res["gb_replicated"]) < 1e-6, "demo: a stripe is not "
+              "its share of the table")
+        add_launches(counts, res["launches"])
+
+    # (e) K1-K4 at the demo's shapes, then with the cutoff at L.
+    timing = {}
+    for cutoff, key in ((DEMO_CUTOFF, "demo"), (DEMO_LIST, "demo_off_path")):
+        demo_step(dev, cutoff)
+        for k, row in demo_timing(dev, gen, cutoff).items():
+            timing.setdefault(k, {})[key] = row
+    print(f"[multi-device] phase 24 in {time.perf_counter() - t0:.1f} s; "
+          f"launches {counts}", flush=True)
+    return counts, timing
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of every weight and input")
+    parser.add_argument("--serve-replays", metavar="CONFIG",
+                        help="only phase 22's timing of the DNN Scorer's "
+                        "replays on the checkpoint that phase 22 wrote for "
+                        "CONFIG (phase 22 runs this as a child process)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if args.serve_replays:
+        return serve_replays(args.serve_replays)
     from ultra_pytorch_tpu_torch.ops.kernels import mlp
 
     dev = torch.device("cuda")
@@ -3543,10 +3856,14 @@ def main() -> int:
     graph_counts = phase_graphs(dev, click_json, data, online_data)
     clock("phase 23")
     tool_counts = phase_tools()
+    clock("phase 24")
+    multi_counts, multi_timing = phase_multi_device(dev, gen)
+    for k, rows in multi_timing.items():
+        timing[k].update(rows)
     counts["K1"] += serving_launches
     for part in (offline_counts, ranker_counts, online_counts, format_counts,
                  dp_counts, fused_counts, online_fused_counts,
-                 convergence_counts, graph_counts, tool_counts):
+                 convergence_counts, graph_counts, tool_counts, multi_counts):
         for k, n in part.items():
             counts[k] += n
     sources = {

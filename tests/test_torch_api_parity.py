@@ -9,8 +9,11 @@ or a row of ``COUNTERPARTS`` that names the port's counterpart or the
 idiom that replaces it. Every file of the JAX side's ``tools/`` must have
 a port module of the same name under ``ultra_pytorch_tpu_torch/tools/``
 or a row of ``TOOLS`` that names the port file doing its job or the
-ROADMAP item it waits for. A name or a tool that the JAX package gains
-and the port lacks fails here; so does a row that is no longer needed.
+ROADMAP item it waits for; so must every script at the root of the JAX
+system (``ROOT_SCRIPTS``), and the dry run's case table in
+``__graft_entry__.py`` is the port's ``run/dryrun.py`` table, read by
+AST. A name or a tool that the JAX package gains and the port lacks
+fails here; so does a row that is no longer needed.
 """
 
 import ast
@@ -127,8 +130,6 @@ TOOLS = {
                      "--features, --list-size; the bench itself is item 11"),
     "bench_pallas.py": ("torch_mlp_probe.py", "K1/K2 (torch_loss_probe.py "
                         "K3/K4) against their plain versions"),
-    "bench_scaling.py": ("item 17", "scaling needs more than one card"),
-    "shard_data_demo.py": ("item 17", "sharded data across cards"),
     "serve.py": ("ultra_pytorch_tpu_torch/serve/__main__.py",
                  "python -m ultra_pytorch_tpu_torch.serve"),
     "run_multihost.py": ("ultra_pytorch_tpu_torch/run/launch.py",
@@ -141,6 +142,16 @@ TOOLS = {
         "ultra_pytorch_tpu_torch/tools/bench_common.py",
         "numpy only: its files load in either package; the port's own "
         "generators are bench_common.synthetic and torch_convergence.py"),
+}
+# The JAX system's root scripts -> (the port file that does its job, or a
+# ROADMAP item "item N"), why. The port's own root scripts are
+# chip_smoke.py and torch_*.py.
+ROOT_SCRIPTS = {
+    "main.py": ("ultra_pytorch_tpu_torch/run/__main__.py",
+                "python -m ultra_pytorch_tpu_torch.run"),
+    "bench.py": ("item 11", "the bench script comes with BENCHMARK.json"),
+    "__graft_entry__.py": ("ultra_pytorch_tpu_torch/run/dryrun.py",
+                           "entry and dryrun_multichip"),
 }
 # Tools that drive the upstream ULTRA_pytorch toolbox (not in this repo),
 # not the JAX package: torch_convergence.py holds the port to JAX.
@@ -299,9 +310,7 @@ def test_every_jax_tool_has_a_counterpart():
         assert name in jax_tools and name in ported, name
 
 
-@pytest.mark.parametrize("name", sorted(TOOLS))
-def test_tool_rows_name_what_exists(name):
-    target, why = TOOLS[name]
+def _names_what_exists(target, why):
     assert why
     item = re.fullmatch(r"item (\d+)", target)
     if item:
@@ -310,6 +319,78 @@ def test_tool_rows_name_what_exists(name):
                              re.M), target
     else:
         assert os.path.isfile(os.path.join(ROOT, target)), target
+
+
+@pytest.mark.parametrize("name", sorted(TOOLS))
+def test_tool_rows_name_what_exists(name):
+    _names_what_exists(*TOOLS[name])
+
+
+def test_every_jax_root_script_has_a_counterpart():
+    scripts = sorted(f for f in os.listdir(ROOT) if f.endswith(".py")
+                     and f != "chip_smoke.py" and not f.startswith("torch_"))
+    assert scripts == sorted(ROOT_SCRIPTS)
+
+
+@pytest.mark.parametrize("name", sorted(ROOT_SCRIPTS))
+def test_root_script_rows_name_what_exists(name):
+    _names_what_exists(*ROOT_SCRIPTS[name])
+
+
+def test_the_graft_entry_points_are_there():
+    names = _public_names(os.path.join(ROOT, "__graft_entry__.py"))
+    assert names == ["entry", "dryrun_multichip"]
+    from ultra_pytorch_tpu_torch.run import dryrun
+
+    for name in names:
+        assert inspect.isfunction(getattr(dryrun, name)), name
+        assert getattr(dryrun, name).__module__ == dryrun.__name__
+
+
+def _jax_dryrun_body():
+    with open(os.path.join(ROOT, "__graft_entry__.py")) as fin:
+        tree = ast.parse(fin.read())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "dryrun_multichip")
+    return list(ast.walk(fn))
+
+
+def _assigned(node):
+    return {t.id for t in ast.walk(node) if isinstance(t, ast.Name)
+            and isinstance(t.ctx, ast.Store)}
+
+
+def test_the_dry_run_cases_are_the_jax_ones():
+    """``__graft_entry__.py``'s own statements that build its case table
+    (``offline``, ``online``, ``dnn``, ``cases``) and name each case
+    (``tag``, ``label``), run on placeholder hparam strings: the same
+    cases in the same order as ``run/dryrun.py``, named alike."""
+    from ultra_pytorch_tpu_torch.run import dryrun
+
+    nodes = _jax_dryrun_body()
+    table = [n for n in nodes if isinstance(n, ast.Assign)
+             and _assigned(n) & {"offline", "online", "dnn", "cases"}]
+    assert len(table) == 4
+    ns = {"est_hp": "EST", "cm_hp": "CM"}
+    exec(compile(ast.Module(body=table, type_ignores=[]), "<jax cases>",
+                 "exec"), ns)
+    port = dryrun.cases("EST", "CM")
+    assert ns["cases"] == port and len(port) == 18
+
+    loop = next(n for n in nodes if isinstance(n, ast.For)
+                and _assigned(n.target) >= {"algo", "ranker_hp"})
+    naming = [n for n in loop.body if isinstance(n, (ast.Assign, ast.If,
+                                                     ast.AugAssign))
+              and _assigned(n) and _assigned(n) <= {"tag", "label"}]
+    assert len(naming) == 4
+    code = compile(ast.Module(body=naming, type_ignores=[]), "<jax names>",
+                   "exec")
+    keys = ("algo", "feed_name", "algo_hparams", "host_stacked",
+            "shard_data", "ranker", "ranker_hp")
+    for case in port:
+        names = dict(zip(keys, case))
+        exec(code, names)
+        assert dryrun.case_names(case) == (names["tag"], names["label"])
 
 
 def test_the_walk_sees_names_of_every_kind():

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
 its entry points run on the card unless the caller asks for the CPU."""
 
+import inspect
 import os
 import pkgutil
 import re
@@ -21,6 +22,10 @@ PKG_DIR = os.path.dirname(ultra_pytorch_tpu_torch.__file__)
 # path that a comment cites as the reference, not a module.
 JAX_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
 JAX_PACKAGE = re.compile(r"\bultra_pytorch_tpu\b(?!/)")
+# The JAX system's root module and scripts directory, which the port's
+# counterparts of them (run/dryrun.py, tools/) must not import either.
+JAX_SCRIPTS = re.compile(
+    r"^\s*(import|from)\s+(__graft_entry__|tools)\b", re.M)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -64,12 +69,16 @@ def test_sources_name_neither_jax_nor_the_jax_package():
     files = _sources()
     for name in ("mlp_fwd.cu", "letor_parser.cpp", "data/native.py",
                  "parallel/mesh.py", "run/launch.py", "run/window.py",
-                 "pipeline/initial_ranking.py", "torch_convergence.py"):
+                 "pipeline/initial_ranking.py", "torch_convergence.py",
+                 "run/dryrun.py", "tools/bench_scaling.py",
+                 "tools/shard_data_demo.py"):
         assert any(f.endswith(name) for f in files), name
     for path in files:
         with open(path) as fh:
             text = fh.read()
         assert not JAX_IMPORT.search(text), f"{path} imports jax"
+        assert not JAX_SCRIPTS.search(text), (
+            f"{path} imports the JAX system's __graft_entry__ or tools/")
         hit = JAX_PACKAGE.search(text)
         assert hit is None, (
             f"{path} names the JAX package: "
@@ -84,6 +93,12 @@ def test_scan_patterns_catch_what_they_should():
     assert JAX_PACKAGE.search("import ultra_pytorch_tpu\n")
     assert not JAX_PACKAGE.search("from ultra_pytorch_tpu_torch import x")
     assert not JAX_PACKAGE.search("see ultra_pytorch_tpu/ops/pallas/mlp.py")
+    assert JAX_SCRIPTS.search("from __graft_entry__ import entry")
+    assert JAX_SCRIPTS.search("    from tools.make_toy_data import main")
+    assert JAX_SCRIPTS.search("import tools.bench_common")
+    assert not JAX_SCRIPTS.search(
+        "from ultra_pytorch_tpu_torch.tools import bench_common")
+    assert not JAX_SCRIPTS.search("from toolsy import x")
 
 
 def test_scorer_defaults_to_cuda_and_raises_without_it(tmp_path,
@@ -116,3 +131,37 @@ def test_serve_cli_defaults_to_cuda(tmp_path, monkeypatch):
     (tmp_path / "x.ckpt.npz").write_bytes(b"")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--model_dir", str(tmp_path)])
+
+
+def _starters():
+    """Every public function that starts ranks or processes, called with
+    its default device: name -> a call."""
+    from ultra_pytorch_tpu_torch.run import __main__ as cli
+    from ultra_pytorch_tpu_torch.run import dryrun, launch
+    from ultra_pytorch_tpu_torch.tools import bench_scaling, shard_data_demo
+
+    return {
+        "launch": lambda: launch.launch(["--batch_size", "8"]),
+        "spawn_cli": lambda: launch.spawn_cli(cli.parse_args([]), 2),
+        "dryrun_multichip": lambda: dryrun.dryrun_multichip(2),
+        "dryrun.main": lambda: dryrun.main(["--ranks", "2"]),
+        "dryrun.entry": dryrun.entry,
+        "bench_scaling.main": lambda: bench_scaling.main([]),
+        "shard_data_demo.main": lambda: shard_data_demo.main([]),
+    }
+
+
+def test_rank_starters_default_to_cuda():
+    from ultra_pytorch_tpu_torch.run import __main__ as cli
+    from ultra_pytorch_tpu_torch.run import dryrun, launch
+
+    for fn in (launch.launch, dryrun.dryrun_multichip, dryrun.entry):
+        assert inspect.signature(fn).parameters["device"].default is None
+    assert cli.parse_args([]).device == "cuda"   # spawn_cli's args
+
+
+@pytest.mark.parametrize("name", sorted(_starters()))
+def test_rank_starters_raise_without_a_card(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _starters()[name]()

@@ -16,6 +16,16 @@
 * MGD and NSGD windows through the Experiment keep their parameters and
   NSGD's memory bit-identical on both ranks; the two ranks draw different
   batches; ``shard_data`` keeps each rank's stripe.
+* The rankers and the estimator-driven algorithms the same way: IPWrank
+  and PRSrank with the estimator's JSON, DLA + DLCM, Naive + GSF and
+  DLA + SetRank at dropout rate 0, given batches against ``shard_map``.
+* The steps that draw from their own generators cannot match JAX's
+  threefry streams, so they are held by properties (``RECORDED``: PDGD
+  on both feeds, DBGD, DLA + SetRank at rate 0.1, PDGD with
+  ``shard_data`` on the stochastic online feed): the state bit-identical
+  across ranks, each rank's own draws (its batches, its dropout) unlike
+  the other's, the replica draws (DBGD's noises) alike, and a group of
+  one rank bit for bit the run without a group.
 
 All the port's ranks run in one process group (one spawn, a ``file://``
 rendezvous in ``tmp_path``, joined with a time limit).
@@ -31,6 +41,8 @@ jax = pytest.importorskip("jax")   # the JAX package is the reference here
 pytest.importorskip("flax")        # its algorithms need it
 
 from jax.sharding import PartitionSpec as P  # noqa: E402
+
+import os  # noqa: E402
 
 from ultra_pytorch_tpu.data import dataset as jax_data  # noqa: E402
 from ultra_pytorch_tpu.parallel import make_mesh  # noqa: E402
@@ -54,17 +66,32 @@ STEPS = 2
 MAX_NORM = 0.01            # binds: the mean gradient's norm is above it
 LR = 1.0
 TOL = 1e-5
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ESTIMATOR = ("propensity_estimator_json=" + os.path.join(
+    ROOT, "example", "PropensityEstimator",
+    "randomized_pbm_0.1_1.0_4_1.0.json"))
+DNN = ("DNN", "hidden_layer_sizes=[16, 8]")
+SETRANK = "d_model=16,num_heads=2,num_layers=1,diff=8,rate={}"
+# name -> (algorithm, its hparams beyond the step's, ranker, its hparams)
 GIVEN = {
-    "DLA": "",
-    "NaiveAlgorithm": "loss_func=sigmoid_loss",
-    "RegressionEM": "",
-    "PairDebias": "",
-    "LambdaRank": "",
+    "DLA": ("DLA", "") + DNN,
+    "NaiveAlgorithm": ("NaiveAlgorithm", "loss_func=sigmoid_loss") + DNN,
+    "RegressionEM": ("RegressionEM", "") + DNN,
+    "PairDebias": ("PairDebias", "") + DNN,
+    "LambdaRank": ("LambdaRank", "") + DNN,
+    "IPWrank": ("IPWrank", ESTIMATOR) + DNN,
+    "PRSrank": ("PRSrank", ESTIMATOR) + DNN,
+    "DLA+DLCM": ("DLA", "", "DLCM", "embed_size=8,hidden_size=8"),
+    "NaiveAlgorithm+GSF": ("NaiveAlgorithm", "", "GSF",
+                           "group_size=2,hidden_layer_sizes=[16]"),
+    "DLA+SetRank": ("DLA", "", "SetRank", SETRANK.format(0)),
 }
 # The ones whose step draws nothing of its own, so a window on the given
 # batches is JAX's steps (Regression-EM's uniforms come from the window's
 # shard generator).
-GIVEN_WINDOWS = ("DLA", "NaiveAlgorithm", "PairDebias", "LambdaRank")
+GIVEN_WINDOWS = ("DLA", "NaiveAlgorithm", "PairDebias", "LambdaRank",
+                 "IPWrank", "PRSrank", "DLA+DLCM", "NaiveAlgorithm+GSF",
+                 "DLA+SetRank")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -72,11 +99,11 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def _settings(algo, extra=""):
+def _settings(algo, extra="", ranker=DNN[0], ranker_hparams=DNN[1]):
     hp = [f"grad_strategy=sgd,learning_rate={LR},"
           f"max_gradient_norm={MAX_NORM}"] + ([extra] if extra else [])
-    return {"ranking_model": "DNN",
-            "ranking_model_hparams": "hidden_layer_sizes=[16, 8]",
+    return {"ranking_model": ranker,
+            "ranking_model_hparams": ranker_hparams,
             "learning_algorithm": algo,
             "learning_algorithm_hparams": ",".join(hp),
             "max_candidate_num": L, "selection_bias_cutoff": L,
@@ -123,12 +150,13 @@ def _perturbed_norms(params):
     return {"layers": layers}
 
 
-def _jax_dp_run(algo):
+def _jax_dp_run(name):
     """JAX's data-parallel steps on the given shard batches: (initial
     leaves, per-shard losses [STEPS, WORLD], final leaves)."""
-    alg = jax_create_algorithm(_settings(algo, GIVEN[algo]), F, 1.0)
+    alg = jax_create_algorithm(_settings(*GIVEN[name]), F, 1.0)
     state = alg.init_state(jax.random.PRNGKey(0), F)
-    state = state.replace(params=_perturbed_norms(state.params))
+    if GIVEN[name][2] == "DNN":
+        state = state.replace(params=_perturbed_norms(state.params))
     init = [np.asarray(x) for x in jax.tree_util.tree_leaves(state)]
 
     def body(state, rng, batch):
@@ -153,35 +181,59 @@ def _jax_dp_run(algo):
                                    jax.tree_util.tree_leaves(state)]
 
 
-def _window_settings(algo, click_model_json, feed="ClickSimulationFeed"):
+def _window_settings(algo, click_model_json, feed="ClickSimulationFeed",
+                     ranker="DNN", ranker_hparams="hidden_layer_sizes=[8]"):
     return {"train_input_feed": feed,
             "train_input_hparams": f"click_model_json={click_model_json}",
             "valid_input_feed": "DirectLabelFeed", "valid_input_hparams": "",
             "test_input_feed": "DirectLabelFeed", "test_input_hparams": "",
-            "ranking_model": "DNN",
-            "ranking_model_hparams": "hidden_layer_sizes=[8]",
+            "ranking_model": ranker,
+            "ranking_model_hparams": ranker_hparams,
             "learning_algorithm": algo,
             "learning_algorithm_hparams":
                 f"click_model_json={click_model_json}"
-                if algo in ("MGD", "NSGD") else "",
+                if algo in ("MGD", "NSGD", "DBGD") else "",
             "metrics": ["ndcg"], "metrics_topn": [5],
             "objective_metric": "ndcg_5", "selection_bias_cutoff": 5}
 
 
+def _recorded(click_model_json):
+    """The steps that draw from their own generators: name -> (settings,
+    steps, shard_data)."""
+    online = "StochasticOnlineSimulationFeed"
+    return {
+        "PDGD": (_window_settings("PDGD", click_model_json), 2, False),
+        "PDGD online": (_window_settings("PDGD", click_model_json, online),
+                        2, False),
+        "DBGD": (_window_settings("DBGD", click_model_json,
+                                  "DeterministicOnlineSimulationFeed"),
+                 2, False),
+        "DLA+SetRank rate 0.1": (_window_settings(
+            "DLA", click_model_json, ranker="SetRank",
+            ranker_hparams=SETRANK.format(0.1)), 2, False),
+        "PDGD online shard_data": (_window_settings(
+            "PDGD", click_model_json, online), 2, True),
+    }
+
+
+RECORDED = ("PDGD", "PDGD online", "DBGD", "DLA+SetRank rate 0.1",
+            "PDGD online shard_data")
+
+
 @pytest.fixture(scope="module")
 def jax_runs():
-    return {algo: _jax_dp_run(algo) for algo in GIVEN}
+    return {name: _jax_dp_run(name) for name in GIVEN}
 
 
 @pytest.fixture(scope="module")
 def ranks(jax_runs, toy_data_dir, click_model_json, tmp_path_factory):
     """Both ranks' results of every job, from one process group."""
     given = {}
-    for algo, (init, _, _) in jax_runs.items():
+    for name, (init, _, _) in jax_runs.items():
         steps = [(_shard_batches(i),
-                  _shard_uniforms(i) if algo == "RegressionEM" else None)
+                  _shard_uniforms(i) if name == "RegressionEM" else None)
                  for i in range(STEPS)]
-        given[algo] = (_settings(algo, GIVEN[algo]), init, steps, F)
+        given[name] = (_settings(*GIVEN[name]), init, steps, F)
     online = "StochasticOnlineSimulationFeed"
     windows = {
         "MGD": (_window_settings("MGD", click_model_json, online), 2, False),
@@ -193,7 +245,18 @@ def ranks(jax_runs, toy_data_dir, click_model_json, tmp_path_factory):
     store = tmp_path_factory.mktemp("rendezvous") / "store"
     return spawn_ranks(torch_dp_ranks.rank_job, WORLD,
                        (f"file://{store}", given, toy_data_dir, windows,
-                        "cpu", GIVEN_WINDOWS), timeout=120)
+                        "cpu", GIVEN_WINDOWS, None,
+                        _recorded(click_model_json)), timeout=240)
+
+
+@pytest.fixture(scope="module")
+def one_rank(toy_data_dir, click_model_json, tmp_path_factory):
+    """Each recorded job as the one rank of a gloo group and without a
+    group."""
+    store = tmp_path_factory.mktemp("rendezvous1") / "store"
+    return spawn_ranks(torch_dp_ranks.one_rank_job, 1,
+                       (f"file://{store}", toy_data_dir,
+                        _recorded(click_model_json)), timeout=240)[0]
 
 
 def _toy(toy_data_dir, pkg):
@@ -344,3 +407,50 @@ def test_shard_data_keeps_each_ranks_stripe(ranks, toy_data_dir):
         assert got["qids"] == want.qids
         np.testing.assert_array_equal(got["features"], want.features)
         assert got["features"].shape[0] < full.features.shape[0]
+
+
+# -- steps that draw from their own generators ----------------------------
+
+def _same(a, b):
+    return len(a) == len(b) and all(np.array_equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("name", RECORDED)
+def test_own_draws_keep_ranks_bit_identical(ranks, name):
+    a, b = (r[name] for r in ranks)
+    assert _same(a["leaves"], b["leaves"])
+    assert a["metrics"] == b["metrics"]
+    assert np.isfinite(a["metrics"]["loss"])
+    assert int(a["leaves"][-1]) == 2
+
+
+@pytest.mark.parametrize("name", RECORDED)
+def test_each_rank_draws_its_own_batches(ranks, name):
+    a, b = (r[name] for r in ranks)
+    assert len(a["batches"]) == len(b["batches"]) > 0
+    assert not _same(a["batches"], b["batches"])
+
+
+def test_dbgd_noises_are_replica_draws(ranks):
+    a, b = (r["DBGD"] for r in ranks)
+    assert len(a["noises"]) == 2      # one draw a step
+    for x, y in zip(a["noises"], b["noises"]):
+        assert _same(x, y)
+
+
+def test_setrank_dropout_draws_from_the_shard_generator(ranks):
+    a, b = (r["DLA+SetRank rate 0.1"] for r in ranks)
+    assert len(a["dropout"]) == len(b["dropout"]) > 0
+    assert not _same(a["dropout"], b["dropout"])
+
+
+@pytest.mark.parametrize("name", RECORDED)
+def test_a_group_of_one_equals_no_group(one_rank, name):
+    group, none = one_rank[name]["group"], one_rank[name]["none"]
+    assert _same(group["leaves"], none["leaves"])
+    assert group["metrics"] == none["metrics"]
+    assert _same(group["batches"], none["batches"])
+    assert _same(group["dropout"], none["dropout"])
+    for x, y in zip(group["noises"], none["noises"]):
+        assert _same(x, y)

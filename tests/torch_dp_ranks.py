@@ -137,14 +137,93 @@ def experiment_windows(rank, world, data_dir, settings, steps, shard_data):
             "batch_size": feed.batch_size}
 
 
+def recorded_window(data_dir, settings, steps, shard_data, dp="auto"):
+    """One window of `steps` steps of an Experiment (a rank of this
+    process's group unless `dp` is "off") that records its own draws:
+    the state leaves and window metrics; each plan's query indices, or
+    each drawn batch's features where the feed cannot plan; the DBGD
+    family's noises (replica draws); and the first 8 uniforms of the
+    generator each training forward of the ranker gets (its dropout's
+    draws; none when it gets no generator)."""
+    exp = Experiment(dict(settings), data_dir, "unused", batch_size=8,
+                     seed=3, dp=dp, shard_data=shard_data, device="cpu")
+    exp.setup()
+    exp.init_state()
+    alg, feed = exp.algorithm, exp.feeds["train"]
+    rec = {"batches": [], "noises": [], "dropout": []}
+    if feed.can_plan():
+        plan_fn = feed.train_batch_plan
+
+        def plan(*args):
+            out = plan_fn(*args)
+            rec["batches"].append(out[0].numpy().copy())
+            return out
+
+        feed.train_batch_plan = plan
+    else:
+        batch_fn = feed.train_batch
+
+        def batch(*args):
+            out = batch_fn(*args)
+            rec["batches"].append(out["features"].numpy().copy())
+            return out
+
+        feed.train_batch = batch
+    if hasattr(alg, "sample_noises"):
+        noise_fn = alg.sample_noises
+
+        def noises(*args):
+            out = noise_fn(*args)
+            rec["noises"].append([n.numpy().copy() for n in out])
+            return out
+
+        alg.sample_noises = noises
+    ranker = exp.state.params
+    forward = ranker.forward
+
+    def probed(*args, generator=None, training=False, **kwargs):
+        if training and generator is not None:
+            probe = torch.Generator(device=generator.device)
+            probe.set_state(generator.get_state())
+            rec["dropout"].append(torch.rand(8, generator=probe).numpy())
+        return forward(*args, generator=generator, training=training,
+                       **kwargs)
+
+    ranker.forward = probed
+    metrics = exp.train_steps(steps)
+    return dict(rec, leaves=exp.algorithm.state_leaves(exp.state),
+                metrics=metrics)
+
+
+def one_rank_job(rank, world, init_method, data_dir, jobs):
+    """Each of `jobs` (name -> (settings, steps, shard_data)) as the one
+    rank of a gloo group, then, the group closed, without a group (and
+    without ``shard_data``, which needs one): ``recorded_window`` of
+    each, under "group" and "none"."""
+    torch.set_num_threads(1)
+    init_data_parallel(world, rank, "cpu", backend="gloo",
+                       init_method=init_method)
+    try:
+        grouped = {name: recorded_window(data_dir, *job)
+                   for name, job in jobs.items()}
+    finally:
+        close_data_parallel()
+    return {name: {"group": grouped[name],
+                   "none": recorded_window(data_dir, settings, steps, False,
+                                           dp="off")}
+            for name, (settings, steps, _) in jobs.items()}
+
+
 def rank_job(rank, world, init_method, given, data_dir, windows,
-             device="cpu", given_windows=(), body_windows=None):
+             device="cpu", given_windows=(), body_windows=None,
+             recorded=None):
     """Every parity job of one gloo group: `given` maps a name to
     (settings, initial leaves, steps, feature size), `windows` a name to
     (settings, steps, shard_data); the names in `given_windows` also run
     their given batches as one window (``given_batch_window``, under
     "<name> given window"), and `body_windows` maps a name to (settings,
-    steps, windows) for ``graph_body_windows``. Every rank on
+    steps, windows) for ``graph_body_windows``, `recorded` a name to
+    (settings, steps, shard_data) for ``recorded_window``. Every rank on
     `device`."""
     torch.set_num_threads(1)
     init_data_parallel(world, rank, device, backend="gloo",
@@ -160,6 +239,8 @@ def rank_job(rank, world, init_method, given, data_dir, windows,
         for name, (settings, steps, shard_data) in windows.items():
             out[name] = experiment_windows(rank, world, data_dir, settings,
                                            steps, shard_data)
+        for name, job in (recorded or {}).items():
+            out[name] = recorded_window(data_dir, *job)
         return out
     finally:
         close_data_parallel()

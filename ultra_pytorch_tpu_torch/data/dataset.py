@@ -27,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -134,35 +134,46 @@ class RankingDataset:
             self.initial_scores = join(self.initial_scores, zl)
         self.rank_list_size = rank_list_size
 
-    def to_host_arrays(self, list_size: Optional[int] = None
-                       ) -> Dict[str, np.ndarray]:
-        """Densified numpy arrays in DeviceDataset layout (PAD row
-        appended, pads remapped to it)."""
+    def _list_arrays(self, list_size: Optional[int]) -> Dict[str, Any]:
+        """The lists' arrays of :meth:`to_host_arrays` (all but the feature
+        table): pads point at the PAD row, the table's row count."""
         L = list_size or self.rank_list_size
         doc_idx = self.initial_list[:, :L].astype(np.int64)
         labels = self.labels[:, :L].astype(np.float32)
         mask = (doc_idx >= 0).astype(np.float32)
-        d = self.features.shape[0]
-        doc_idx = np.where(doc_idx >= 0, doc_idx, d)
+        doc_idx = np.where(doc_idx >= 0, doc_idx, self.features.shape[0])
         labels = labels * mask
-        feats = np.concatenate(
-            [self.features.astype(np.float32),
-             np.zeros((1, self.features.shape[1]), np.float32)], 0)
         scores = (self.initial_scores[:, :L].astype(np.float32)
                   if self.initial_scores is not None
                   and self.initial_scores.shape[1] >= L
                   else np.zeros_like(labels))
-        return {"features": feats, "doc_idx": doc_idx, "labels": labels,
-                "mask": mask, "initial_scores": scores,
-                "max_label": float(self.max_label)}
+        return {"doc_idx": doc_idx, "labels": labels, "mask": mask,
+                "initial_scores": scores, "max_label": float(self.max_label)}
+
+    def to_host_arrays(self, list_size: Optional[int] = None
+                       ) -> Dict[str, np.ndarray]:
+        """Densified numpy arrays in DeviceDataset layout (PAD row
+        appended, pads remapped to it)."""
+        feats = np.concatenate(
+            [self.features.astype(np.float32),
+             np.zeros((1, self.features.shape[1]), np.float32)], 0)
+        return {"features": feats, **self._list_arrays(list_size)}
 
     def to_device(self, device, list_size: Optional[int] = None
                   ) -> "DeviceDataset":
-        """The dataset as tensors on `device`, cut to `list_size`."""
-        arrs = self.to_host_arrays(list_size)
+        """The dataset as tensors on `device`, cut to `list_size`. The
+        feature table is copied once, straight into its device tensor
+        beside the PAD row: a table of many GB gets no host copy."""
+        d, f = self.features.shape
+        features = torch.empty((d + 1, f), dtype=torch.float32,
+                               device=device)
+        features[:d].copy_(torch.from_numpy(
+            np.ascontiguousarray(self.features, np.float32)))
+        features[d].zero_()
+        arrs = self._list_arrays(list_size)
         put = lambda k: torch.from_numpy(arrs[k]).to(device)  # noqa: E731
         return DeviceDataset(
-            features=put("features"), doc_idx=put("doc_idx"),
+            features=features, doc_idx=put("doc_idx"),
             labels=put("labels"), mask=put("mask"),
             initial_scores=put("initial_scores"),
             max_label=arrs["max_label"])

@@ -134,6 +134,20 @@ def shard_generator(generator: torch.Generator, rank: int,
         shard_seed(generator.initial_seed(), rank))
 
 
+def same_on_every_rank(leaves, device) -> bool:
+    """Whether `leaves` (numpy arrays, e.g. ``state_leaves``) hold the same
+    bytes on this rank as on rank 0: rank 0's bytes are broadcast on
+    `device` and compared bit for bit (gloo on CUDA tensors has broadcast
+    but no all_gather)."""
+    raw = np.concatenate([np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+                          for a in leaves])
+    raw = np.concatenate([raw, np.zeros(-raw.size % 4, np.uint8)])
+    mine = torch.from_numpy(raw.view(np.int32)).to(device)
+    theirs = mine.clone()
+    dist.broadcast(theirs, 0)
+    return bool(torch.equal(mine, theirs))
+
+
 def shard_queries_for_host(dataset, host_id: int, num_hosts: int):
     """Stripe `host_id` of `num_hosts` of a RankingDataset (a new one).
 

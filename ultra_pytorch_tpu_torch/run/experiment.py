@@ -156,10 +156,11 @@ class Experiment:
         "auto" the Experiment is a rank of whatever process group this
         process has joined; "off", 0 and 1 run on one device; a count N
         needs a group of N ranks. `shard_data` keeps only this rank's
-        stripe of the train split and needs a group of more than one
-        rank. `device` (this rank's) defaults to CUDA. `prng_impl` is the
-        JAX trainer's ``--prng``: it sets the data key's shape and is
-        recorded in (and checked against) the checkpoint."""
+        stripe of the train split and needs a group (with one rank the
+        stripe is the whole split). `device` (this rank's) defaults to
+        CUDA. `prng_impl` is the JAX trainer's ``--prng``: it sets the
+        data key's shape and is recorded in (and checked against) the
+        checkpoint."""
         if prng_impl not in KEY_WORDS:
             raise ValueError(f"--prng {prng_impl}: one of {list(KEY_WORDS)}")
         self.prng_impl = prng_impl
@@ -174,9 +175,9 @@ class Experiment:
         self.world_size = ranks if self.data_parallel else 1
         self.rank = dist.get_rank() if self.data_parallel else 0
         self.backend = dist.get_backend() if self.data_parallel else None
-        if shard_data and self.world_size < 2:
+        if shard_data and not self.data_parallel:
             raise ValueError("--shard_data requires a data-parallel group "
-                             "(dp > 1)")
+                             "(dp > 1, or a process group of one)")
         self.shard_data = shard_data
         self.exp_settings = exp_settings
         self.data_dir = data_dir

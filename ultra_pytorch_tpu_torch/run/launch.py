@@ -36,6 +36,7 @@ import torch
 
 from ultra_pytorch_tpu_torch.parallel import (
     close_data_parallel, init_data_parallel, spawn_ranks)
+from ultra_pytorch_tpu_torch.utils.device import resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -71,6 +72,15 @@ def rank_device(device: str, rank: int) -> torch.device:
     return torch.device("cuda", rank % max(torch.cuda.device_count(), 1))
 
 
+def shared_card(ranks: int, device) -> Tuple[int, torch.device, str]:
+    """(ranks, device, backend) of `ranks` ranks sharing ``cuda:0``, the
+    tools' ``--share_card N``: gloo, since NCCL refuses two ranks on one
+    card. Raises unless `device` is CUDA."""
+    if torch.device(device).type != "cuda":
+        raise ValueError("--share_card puts ranks on one card")
+    return ranks, torch.device("cuda", 0), "gloo"
+
+
 def host_threads(ranks_on_host: int) -> int:
     """Intra-op threads a rank when `ranks_on_host` ranks share this host's
     cores: ranks that each take every core oversubscribe them, and CPU
@@ -95,7 +105,9 @@ def _cli_rank(rank: int, world_size: int, args, init_method: str) -> None:
 
 def spawn_cli(args, world_size: int) -> None:
     """Run the parsed CLI `args` as `world_size` ranks on this host, each
-    a spawned process; only rank 0 prints."""
+    a spawned process on ``args.device`` (the CLI's default is CUDA;
+    without a card that raises here); only rank 0 prints."""
+    resolve_device(args.device)
     store = tempfile.mkdtemp(prefix="ultra_dp_")
     try:
         spawn_ranks(_cli_rank, world_size,
@@ -105,14 +117,17 @@ def spawn_cli(args, world_size: int) -> None:
         shutil.rmtree(store, ignore_errors=True)
 
 
-def launch(cli_args: Sequence[str], processes: int = 2, device: str = "cpu",
-           log_dir: Optional[str] = None, timeout: float = 600.0
-           ) -> Dict[str, List]:
+def launch(cli_args: Sequence[str], processes: int = 2,
+           device: Optional[str] = None, log_dir: Optional[str] = None,
+           timeout: float = 600.0) -> Dict[str, List]:
     """Run the CLI with `cli_args` in `processes` processes under the
     ``ULTRA_*`` variables (and ``OMP_NUM_THREADS``, unless set, at
-    ``host_threads``); returns ``{"returncodes", "logs", "tails"}`` (each
-    process's output in ``<log_dir>/rank<i>.log``). A run past `timeout`
-    seconds kills every process and raises RuntimeError."""
+    ``host_threads``), each with ``--device`` `device` (default CUDA;
+    without a card that raises before any process starts); returns
+    ``{"returncodes", "logs", "tails"}`` (each process's output in
+    ``<log_dir>/rank<i>.log``). A run past `timeout` seconds kills every
+    process and raises RuntimeError."""
+    device = str(resolve_device(device))
     log_dir = log_dir or tempfile.mkdtemp(prefix="ultra_launch_")
     os.makedirs(log_dir, exist_ok=True)
     store = os.path.join(log_dir, "rendezvous")

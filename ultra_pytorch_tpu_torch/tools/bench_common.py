@@ -194,6 +194,16 @@ def launches_since(before: Dict[str, int]) -> Dict[str, int]:
     return {k: now[k] - before[k] for k in KERNELS}
 
 
+def dla_launches(steps: int, windows: int, ranks: int = 1
+                 ) -> Dict[str, int]:
+    """A DLA run's launches with every kernel on and no validation: K1 =
+    K2 = steps, K3 = K4 = 2 x steps, K5 = windows + 1 (the feed's
+    click-rate estimate), on each rank."""
+    return {"K1": ranks * steps, "K2": ranks * steps,
+            "K3": 2 * ranks * steps, "K4": 2 * ranks * steps,
+            "K5": ranks * (windows + 1)}
+
+
 def device_events(fn):
     """(name, device microseconds) of every kernel, copy and set that
     torch.profiler records on the card while `fn` runs; empty when the
