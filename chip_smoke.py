@@ -69,7 +69,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     Naive and IPW and 0 for the others, K5 = windows + 1; losses finite,
     nDCG@10 in [0, 1], Regression-EM's propensity in [0, 1], t+ and t-
     finite and positive. The same run plain launches nothing. Queries/s
-    both ways in turns (on, plain, plain, on), and phase 7's step
+    both ways in turns (on, plain), and phase 7's step
     breakdown for PairDebias.
 12. Propensity estimation: the randomized estimator at the reference's
     10M sessions over phase 7's train split (PBM, eta 1), every weight
@@ -93,7 +93,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     (the DNN configs K1 = steps + the validation batches and K2 = steps;
     K3 = K4 = 2 x steps for DLA, steps for Naive; K5 = windows + 1 for
     PBM, 0 for UBM and cascade; the same run plain launches nothing),
-    queries/s in turns (on, plain, plain, on), phase 7's step breakdown
+    queries/s in turns (on, plain), phase 7's step breakdown
     for ``dla_setrank`` and ``dla_dlcm`` kernels on and plain, each
     kernels-on run's checkpoint loaded by ``Scorer.from_checkpoint`` and
     served over HTTP
@@ -105,9 +105,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
     phase 16's, phase 17's, both ranks' of phase 18's, phases 19's and
     20's graph and CLI runs, phase 21's convergence runs, phase 22's
     data-parallel graph windows and replayed serving buckets, the
-    tools' runs of phase 23 and every rank's of phase 24; K1-K4 also
-    with their timing at the demo's shapes under "demo" and with the
-    cutoff at L under "demo_off_path"), then the result line.
+    tools' runs of phase 23, every rank's of phase 24 and the bench
+    scripts' of phase 25; K1-K4 also with their timing at the demo's
+    shapes under "demo" and with the cutoff at L under "demo_off_path",
+    K1/K2 at bench_exp's Yahoo-like shape under "bench_exp"), then the
+    result line.
 16. The online family: the six configs ``naive_online``, ``pdgd``,
     ``dbgd``, ``dbgd_ndcg``, ``mgd`` and ``nsgd`` (each config's own
     file with the DNN at [512, 256, 128], every kernel hparam its path
@@ -181,11 +183,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
     of phase 18 run eager), and their step breakdowns time the eager
     window.
 20. The online family's fused windows: each of phase 16's six configs at
-    its shapes (Lc = 120), 2 x 50 steps in turns graph, eager, eager,
-    graph from the same seed: each graph run equal to its turn's eager run
-    bit for bit (state, optimizer vector, NSGD's memory, data key, window
-    metrics), every run's launches exact (phase 16's per-step formulas;
-    the graph's through its replays), queries/s of window 2; for MGD and
+    its shapes (Lc = 120), 2 x 50 steps in turns graph, eager from the
+    same seed (two turns, not four, to make room for phase 25): the
+    graph run equal to the eager run bit for bit (state, optimizer
+    vector, NSGD's memory, data key, window metrics), every run's
+    launches exact (phase 16's per-step formulas; the graph's through its
+    replays), queries/s of window 2; for MGD and
     NSGD the eager and the graph window's ms a step, torch.profiler's busy
     ms and idle share and the device-to-host copies in a window (a
     replayed window may make one, its metrics' read-back). Then
@@ -237,8 +240,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     checkpoint, because late in one long process torch.profiler keeps
     only about one replay's device records of five, and in a fresh one
     it keeps them all.
-23. The tools (``ultra_pytorch_tpu_torch/tools/``) on the card, each as
-    ``python -m`` with its default device (the card) at a short length,
+23. The tools (``ultra_pytorch_tpu_torch/tools/``) on the card, each
+    through its ``main(argv)`` (what ``python -m`` runs), all in one
+    child process, with its default device (the card) at a short length,
     its last line read as JSON and its launches added to the kernels
     line: ``profile_step`` (feed, train and full a step all above 0, each
     graph below its eager twin), ``roofline`` (``mfu`` in (0, 1], the
@@ -267,6 +271,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
     the demo's steps run, K3 and K4 at [256, 10]), then with the cutoff
     at L (51,200 x 220 rows, [256, 200]: no path of the slice runs it);
     K1-K4 timed at both (the comparisons' launches are not counted).
+25. The JAX system's benchmark scripts (``bench.py``,
+    ``tools/bench_exp.py``, ``tools/bench_pallas.py``'s part 3) through
+    the port, each through its ``main(argv)`` (what ``python -m`` runs),
+    all in one child process, with its default device (the card), on
+    JAX's protocol (``bench_common.make_bench_setup``:
+    JAX's synthetic data and settings, the kernel hparams off unless an
+    extra turns one on): (a) ``bench`` at its defaults, 2,400 steps in
+    800-step graph windows after one warm-up window: its last line has
+    exactly the JAX script's four keys and metric name, a finite
+    ``value`` and ``vs_baseline`` above 0 (against this machine's CPU,
+    measured in the run), K1-K5 launched 0 times, a finite loss, and the
+    800-step window's graph pool under twice the peak memory of the same
+    window run eager (from (e)); (b)
+    ``bench --kernels`` launches exactly ``dla_launches`` for its steps
+    and windows; (c) ``bench_kernels``' seven combinations, each
+    launching exactly what its hparams select, every rate above 0; (d)
+    ``bench_exp --features 700 --list-size 30`` without and with
+    ``--ranker-extra ,use_pallas=true`` (launches exact), one DLA step
+    there with K1/K2 against plain (phase 6's tolerances) and K1/K2 timed
+    at its 7,680 x 700 rows; (e) in this process, the protocol's 50- and
+    800-step graph windows against the same windows run eager: state,
+    optimizer, aux, data key and metrics bit for bit, each graph's pool
+    and each eager window's peak memory.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1091,21 +1118,46 @@ def write_ultra_data() -> str:
 def run_module(tag: str, module: str, args, timeout: int = 400) -> str:
     """``python -m <module> <args>`` from the checkout root; its output
     printed under `tag`; fails the run on a non-zero exit."""
+    return run_python(tag, ["-m", module] + list(args), timeout)
+
+
+def run_python(tag: str, args, timeout: int = 400) -> str:
+    """``python <args>`` from the checkout root; its output printed under
+    `tag`; fails the run on a non-zero exit."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", module] + list(args),
-                          cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+    proc = subprocess.run([sys.executable] + list(args), cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=ROOT),
                           capture_output=True, text=True, timeout=timeout)
     for line in proc.stdout.splitlines():
         print(f"[{tag}] {line}", flush=True)
-    check(proc.returncode == 0, f"{module} failed:\n{proc.stderr[-3000:]}")
+    check(proc.returncode == 0,
+          f"{tag} failed:\n{proc.stderr[-3000:]}")
     print(f"[{tag}] ({time.perf_counter() - t0:.1f} s)", flush=True)
     return proc.stdout
 
 
+MAIN_MARK = "### main "
+
+
+def run_mains(tag: str, calls, timeout: int = 400):
+    """Each ``(module, argv)`` of `calls` as ``module.main(argv)``, which
+    is what ``python -m module argv`` runs, in order in one child process
+    from the checkout root: one process start (about 8 s to reach the
+    card) for them all. Returns each call's lines of standard output;
+    fails the run on a non-zero exit."""
+    code = ("import importlib\n"
+            f"for module, argv in {[(m, list(a)) for m, a in calls]!r}:\n"
+            f"    print({MAIN_MARK!r} + module, flush=True)\n"
+            "    importlib.import_module(module).main(argv)\n")
+    out = run_python(tag, ["-c", code], timeout)
+    return [part.splitlines()[1:] for part in out.split(MAIN_MARK)[1:]]
+
+
 def run_cli(mlp, dev, settings, data_dir: str, tag: str):
-    """Train through ``python -m ultra_pytorch_tpu_torch.run`` (2 windows,
-    best checkpoint kept), ``--test_only`` for the ranklist, then a
-    ``Scorer`` on that checkpoint against the plain version."""
+    """Train through the CLI of ``python -m ultra_pytorch_tpu_torch.run``
+    (2 windows, best checkpoint kept), then ``--test_only`` for the
+    ranklist, both in one child process, then a ``Scorer`` on that
+    checkpoint against the plain version."""
     from ultra_pytorch_tpu_torch.data.dataset import read_data
     from ultra_pytorch_tpu_torch.serve import Scorer
 
@@ -1119,11 +1171,13 @@ def run_cli(mlp, dev, settings, data_dir: str, tag: str):
     common = ["--data_dir", data_dir, "--setting_file", setting_file,
               "--model_dir", model_dir, "--batch_size", str(BATCH),
               "--device", dev.type]
-    module = "ultra_pytorch_tpu_torch.run"
-    run_module(tag, module, common + ["--max_train_iteration",
-                                      str(2 * WINDOW),
-                                      "--steps_per_checkpoint", str(WINDOW)])
-    run_module(tag, module, common + ["--output_dir", out_dir, "--test_only"])
+    module = "ultra_pytorch_tpu_torch.run.__main__"
+    run_mains(tag, [(module, common + ["--max_train_iteration",
+                                       str(2 * WINDOW),
+                                       "--steps_per_checkpoint",
+                                       str(WINDOW)]),
+                    (module, common + ["--output_dir", out_dir,
+                                       "--test_only"])])
     name = settings["learning_algorithm"].rsplit(".", 1)[-1]
     check(os.path.isfile(os.path.join(model_dir, f"{name}.ckpt.npz")),
           f"the CLI saved no {name} checkpoint")
@@ -1377,10 +1431,10 @@ def check_aux(algo: str, aux) -> str:
 
 
 def train_in_turns(tag: str, name: str, settings_of, want, dev, data,
-                   turns=(True, False, False, True)):
+                   turns=(True, False)):
     """`name` for OFFLINE_WINDOWS x WINDOW steps at full width on phase 7's
     data, once for each of `turns` (kernels on or plain, by default on,
-    plain, plain, on): losses finite, nDCG@10 in [0, 1], the first run's
+    then plain): losses finite, nDCG@10 in [0, 1], the first run's
     launches exactly `want`, a plain run's none. Prints the first run and
     the queries/s of each run's last window (the first holds the capture).
     Returns the runs as (kernels, experiment), the first run's launches
@@ -1691,7 +1745,7 @@ def serve_checkpoint(exp, dev, config: str) -> None:
 def phase_rankers(dev, data):
     """Phase 14: the new click models on the card, one step of each of
     RANKER_CONFIGS kernels on vs plain, then each 2 windows x 50 steps on
-    phase 7's data in turns (on, plain, plain, on) with exact launch
+    phase 7's data in turns (on, plain) with exact launch
     counts (the first run; plain launches nothing), its checkpoint served,
     phase 7's step breakdown for BREAKDOWN_CONFIGS kernels on and plain,
     and SetRank with dropout. Returns the first kernels-on runs'
@@ -2020,9 +2074,7 @@ def phase_online(mlp, dev, data_dir):
     """Phase 16: the online family. Phase 16's checks, one step of each
     config kernels on vs plain, then each config 2 windows x 50 steps at
     full width on 4,096 synthetic queries of ONLINE_LIST candidates in
-    turns on, plain (two turns where the other phases take four: phase
-    20 times these configs graph against eager in four turns) with exact
-    launch counts (the first run;
+    turns on, plain with exact launch counts (the first run;
     plain launches nothing) and finite online metrics; the step breakdown
     of ONLINE_BREAKDOWN kernels on; the NSGD checkpoint served over HTTP;
     the CLI for ONLINE_CLI on phase 8's data. Returns the first
@@ -2039,8 +2091,7 @@ def phase_online(mlp, dev, data_dir):
     for config in ONLINE:
         runs, counts, rates[config] = train_in_turns(
             "online", config, online_settings,
-            online_launches(config, steps, valid_batches), dev, data,
-            turns=(True, False))
+            online_launches(config, steps, valid_batches), dev, data)
         for k, n in counts.items():
             total[k] += n
         if config in ONLINE_BREAKDOWN:
@@ -2868,17 +2919,16 @@ def same_runs(a, b) -> bool:
 
 
 def online_graph_turns(config: str, dev, data):
-    """`config` 2 x WINDOW steps at full width in turns graph, eager,
-    eager, graph from the same seed: every graph run equal to the eager
-    run of its turn bit for bit, each run's launches exact (the graph's
-    through its replays), queries/s of window 2; for ONLINE_PROFILED each
-    way's ms a step, busy ms, idle share and device-to-host copies from a
-    profiled window. Returns a run's launches, the rates and the
-    profiles."""
+    """`config` 2 x WINDOW steps at full width in turns graph, eager from
+    the same seed: the graph run equal to the eager run bit for bit, each
+    run's launches exact (the graph's through its replays), queries/s of
+    window 2; for ONLINE_PROFILED each way's ms a step, busy ms, idle
+    share and device-to-host copies from a profiled window. Returns a
+    run's launches, the rates and the profiles."""
     settings = online_settings(config, True)
     want = online_launches(config, 2 * WINDOW, 0)
     runs = {True: [], False: []}
-    for fuse in (True, False, False, True):
+    for fuse in (True, False):
         exp, metrics, seconds, counts = fused_run(settings, dev, data, fuse)
         check(counts == want, f"{config}: the {'graph' if fuse else 'eager'}"
               f" windows launched {counts}, expected {want}")
@@ -2894,10 +2944,10 @@ def online_graph_turns(config: str, dev, data):
                                               for r in runs[fuse]]
              for fuse in (True, False)}
     print(f"[online fused] {config}: 2 x {WINDOW} steps, graph = eager "
-          f"(state, optimizer, aux, data key, metrics) in both turns; "
+          f"(state, optimizer, aux, data key, metrics); "
           f"launches {want} each run; losses "
           f"{fmt([m['loss'] for m in runs[True][0][1]])}; queries/s of "
-          f"window 2 (turns graph, eager, eager, graph): "
+          f"window 2 (turns graph, eager): "
           + json.dumps({k: [round(x) for x in v] for k, v in rates.items()}),
           flush=True)
     profiles = {}
@@ -3462,18 +3512,6 @@ def phase_graphs(dev, click_json, data, online_data):
     return total
 
 
-def run_tool(name: str, args, counts) -> dict:
-    """``python -m ultra_pytorch_tpu_torch.tools.<name> <args>`` on the card
-    (its default device) through ``run_module``: its last line as JSON,
-    its launches added to `counts`."""
-    out = run_module(f"tools {name}", f"ultra_pytorch_tpu_torch.tools.{name}",
-                     args, timeout=240)
-    result = json.loads(out.strip().splitlines()[-1])
-    for k, n in result["launches"].items():
-        counts[k] += n
-    return result
-
-
 def phase_tools():
     """Phase 23: the port's tools on the card, each checked; returns their
     runs' launches."""
@@ -3481,12 +3519,22 @@ def phase_tools():
 
     t0 = time.perf_counter()
     counts = dict.fromkeys(counters(), 0)
-    prof = run_tool("profile_step", ["--steps", "100"], counts)
+    # profile_step first: torch.profiler keeps every record early in a
+    # process (section 7 of PERF.md).
+    tools = (("profile_step", ["--steps", "100"]),
+             ("roofline", ["--steps", "200"]),
+             ("bench_serve", ["--iters", "50"]), ("bench_serve_http", []),
+             ("bench_eval", ["--repeats", "3"]))
+    results = []
+    for lines in run_mains("tools", [(f"ultra_pytorch_tpu_torch.tools.{n}", a)
+                                     for n, a in tools], timeout=600):
+        results.append(json.loads(lines[-1]))
+        add_launches(counts, results[-1]["launches"])
+    prof, roof, serve, http, evals = results
     for name in ("feed", "train", "full"):
         graph, eager = prof[f"{name}_us"], prof[f"{name}_eager_us"]
         check(0 < graph < eager, f"profile_step: {name} {graph} us a step "
               f"as a graph against {eager} eager")
-    roof = run_tool("roofline", ["--steps", "200"], counts)
     n = BATCH * LIST
     model = DNN(HIDDEN, FEATURES)
     k3, _, k4, _ = loss_work(BATCH, LIST)
@@ -3505,11 +3553,9 @@ def phase_tools():
     check(abs(products / 3.59e9 - 1) <= 0.02,
           f"roofline: {products} products a step, not 3.59 GFLOP")
     check(0 < roof["mfu"] <= 1.0, f"roofline: mfu {roof['mfu']}")
-    serve = run_tool("bench_serve", ["--iters", "50"], counts)
     for bucket, c in serve["k1_vs_plain"].items():
         check(c["scores_close"] and c["order_violations"] == 0,
               f"bench_serve {bucket}: K1 against the plain path {c}")
-    http = run_tool("bench_serve_http", [], counts)
     for row in http["results"]:
         check(row["errors"] == 0, f"bench_serve_http {row['mode']}: "
               f"{row['errors']} errors {row['error_samples']}")
@@ -3517,7 +3563,6 @@ def phase_tools():
     check(micro["mode"] == "micro_batched"
           and micro["coalescing_factor"] > 1,
           f"bench_serve_http: coalescing factor {micro}")
-    evals = run_tool("bench_eval", ["--repeats", "3"], counts)
     check(evals["max_diff"] <= 1e-4,
           f"bench_eval: the ways differ by {evals['max_diff']}")
     print(f"[tools] phase 23 in {time.perf_counter() - t0:.1f} s; "
@@ -3531,17 +3576,18 @@ DEMO_CUTOFF = 10                      # the demo's selection_bias_cutoff
 DRYRUN_CASES = 18                     # __graft_entry__.py's table
 
 
-def demo_batch(dev):
-    """A fixed batch at the demo's table width and list length: B x 200
-    lists of 220 features, a quarter cut to 150 documents, clicks at 0.3
-    and always on the first."""
+def demo_batch(dev, features: int = DEMO_FEATURES, length: int = DEMO_LIST):
+    """A fixed batch at the demo's table width and list length (or
+    `features` and `length`): B lists of 200 documents of 220 features, a
+    quarter cut to three quarters of the list, clicks at 0.3 and always
+    on the first."""
     rng = np.random.default_rng(5)
-    mask = np.ones((BATCH, DEMO_LIST), np.float32)
-    mask[: BATCH // 4, 150:] = 0.0
-    clicks = (rng.random((BATCH, DEMO_LIST)) < 0.3).astype(np.float32) * mask
+    mask = np.ones((BATCH, length), np.float32)
+    mask[: BATCH // 4, length * 3 // 4:] = 0.0
+    clicks = (rng.random((BATCH, length)) < 0.3).astype(np.float32) * mask
     clicks[:, 0] = 1.0
     return {"features": torch.from_numpy(rng.normal(
-        size=(BATCH, DEMO_LIST, DEMO_FEATURES)).astype(np.float32)).to(dev),
+        size=(BATCH, length, features)).astype(np.float32)).to(dev),
         "labels": torch.from_numpy(clicks).to(dev),
         "mask": torch.from_numpy(mask).to(dev)}
 
@@ -3597,19 +3643,21 @@ def demo_step(dev, cutoff: int):
           f"the DLA step at cutoff {cutoff} launched {launches}")
 
 
-def demo_timing(dev, gen, cutoff: int):
-    """K1-K4 at the demo's width with lists cut to `cutoff` (B x cutoff
-    rows of 220 features; [B, cutoff]), each held against its plain
-    version: device time a call (``graph_ms``) of the kernel, its plain
-    version and the library chain (none for K3/K4), and the bound."""
+def demo_timing(dev, gen, cutoff: int, features: int = DEMO_FEATURES,
+                names=("K1", "K2", "K3", "K4")):
+    """The kernels `names` of K1-K4 at the demo's width (or `features`)
+    with lists cut to `cutoff` (B x cutoff rows; [B, cutoff]), each held
+    against its plain version: device time a call (``graph_ms``) of the
+    kernel, its plain version and the library chain (none for K3/K4), and
+    the bound."""
     from ultra_pytorch_tpu_torch.models.dnn import DNN
     from ultra_pytorch_tpu_torch.ops import losses
     from ultra_pytorch_tpu_torch.ops.kernels import listwise_loss as ll
     from ultra_pytorch_tpu_torch.ops.kernels import mlp
 
     n = BATCH * cutoff
-    model = DNN(HIDDEN, DEMO_FEATURES, generator=gen).to(dev)
-    x = torch.randn(n, DEMO_FEATURES, generator=gen).to(dev)
+    model = DNN(HIDDEN, features, generator=gen).to(dev)
+    x = torch.randn(n, features, generator=gen).to(dev)
     g = torch.randn(n, generator=gen).to(dev)
     s, y, w, m = loss_inputs(BATCH, cutoff, gen, dev)
     _, stats = ll.listwise_loss_forward(s, y, w, m, return_stats=True)
@@ -3627,12 +3675,12 @@ def demo_timing(dev, gen, cutoff: int):
                no_grad(lambda: mlp.fused_mlp_score_reference(model.layers,
                                                              x)),
                no_grad(lambda: library_chain(model, x)), *mlp_work(model, n),
-               PEAK_3XTF32, f"{n} x {DEMO_FEATURES}"),
+               PEAK_3XTF32, f"{n} x {features}"),
         "K2": (lambda: mlp.mlp_backward(model.layers, x, g, "elu", True),
                lambda: mlp.mlp_backward_reference(model.layers, x, g, "elu",
                                                   True),
                lambda: library_fwd_bwd(model, x, g), *mlp_bwd_work(model, n),
-               PEAK_3XTF32, f"{n} x {DEMO_FEATURES}"),
+               PEAK_3XTF32, f"{n} x {features}"),
         "K3": (lambda: ll.listwise_loss_forward(s, y, w, m,
                                                 return_stats=True),
                lambda: (losses.softmax_loss(s, y, w, m),
@@ -3643,6 +3691,7 @@ def demo_timing(dev, gen, cutoff: int):
                    s, y, w, m, one, ref_stats),
                None, k4_ops, k4_bytes, PEAK_F32, f"[{BATCH}, {cutoff}]"),
     }
+    cases = {k: cases[k] for k in names}
     with torch.no_grad():
         got, ref = cases["K1"][0](), cases["K1"][1]()
         check(torch.allclose(got, ref, rtol=TOL, atol=TOL),
@@ -3652,13 +3701,14 @@ def demo_timing(dev, gen, cutoff: int):
         k2_rel = max(max_rel_err(a, b)[1] for a, b in
                      zip([dx] + grads, [ref_dx] + ref_grads))
         check(k2_rel <= GRAD_TOL, f"K2 at the demo's width off by {k2_rel}")
-        loss = ll.listwise_loss_forward(s, y, w, m)
-        check(abs(loss.item() - losses.softmax_loss(s, y, w, m).item())
-              <= LOSS_TOL * abs(loss.item()),
-              f"K3 at [{BATCH}, {cutoff}] differs")
-        k4_err = max_rel_err(cases["K4"][0](), cases["K4"][1]())[1]
-        check(k4_err <= LOSS_TOL, f"K4 at [{BATCH}, {cutoff}] off by "
-              f"{k4_err}")
+        if "K3" in cases:
+            loss = ll.listwise_loss_forward(s, y, w, m)
+            check(abs(loss.item() - losses.softmax_loss(s, y, w, m).item())
+                  <= LOSS_TOL * abs(loss.item()),
+                  f"K3 at [{BATCH}, {cutoff}] differs")
+            k4_err = max_rel_err(cases["K4"][0](), cases["K4"][1]())[1]
+            check(k4_err <= LOSS_TOL, f"K4 at [{BATCH}, {cutoff}] off by "
+                  f"{k4_err}")
     rows = {}
     for name, (fn, plain, lib, n_ops, n_bytes, peak, shape) in cases.items():
         b_ms, by = bound(n_ops, n_bytes, peak)
@@ -3669,7 +3719,7 @@ def demo_timing(dev, gen, cutoff: int):
             bound_ms=b_ms, bound_by=by)
         lib_text = ("none" if lib is None
                     else f"{r['library_ms']:.4f} ms")
-        print(f"[multi-device timing] {name} {shape}: kernel "
+        print(f"[timing F {features}] {name} {shape}: kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{lib_text} (device time a call) | {n_ops / 1e9:.4f} GFLOP, "
               f"{n_bytes / 1e6:.3f} MB | bound {b_ms:.5f} ms ({by}), kernel "
@@ -3789,6 +3839,196 @@ def phase_multi_device(dev, gen):
     return counts, timing
 
 
+# -- phase 25: the JAX system's benchmark scripts ----------------------------
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]   # bench.py's line
+YAHOO_FEATURES, YAHOO_LIST = 700, 30   # bench_exp.py's Yahoo-like shape
+
+
+def bench_window_against_eager(dev):
+    """(e) The bench protocol (``make_bench_setup``, kernels off, ``--prng
+    rbg``) trained 50 then 800 steps as graph windows and as eager windows
+    from the same seed: state, optimizer, aux, data key and the window
+    metrics bit for bit, no kernel launched. Returns the bytes of each
+    graph window's pool and each eager window's peak device memory (above
+    what it started with), by window length."""
+    from ultra_pytorch_tpu_torch.tools.bench_common import (
+        graph_pools, make_bench_setup, new_pool_bytes)
+
+    runs, pools, peaks = {}, {}, {}
+    for fuse in (True, False):
+        exp = make_bench_setup(dev, prng="rbg")
+        reset_counts()
+        metrics = []
+        for steps in (WINDOW, 800):
+            before = graph_pools(dev)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            metrics.append(exp.train_steps(steps, fuse))
+            seconds = time.perf_counter() - t0
+            if fuse:
+                pools[steps] = new_pool_bytes(before, dev)
+                what = (f"with the warm-up and capture, graph pool "
+                        f"{pools[steps]} B")
+            else:
+                peaks[steps] = torch.cuda.max_memory_allocated() - base
+                what = f"peak memory {peaks[steps]} B above its start"
+            print(f"[bench] (e) {'graph' if fuse else 'eager'} window of "
+                  f"{steps} steps: {seconds:.1f} s {what}; loss "
+                  f"{metrics[-1]['loss']:.6f}", flush=True)
+        check(read_counts() == dict.fromkeys(counters(), 0),
+              f"(e) the bench protocol launched {read_counts()}")
+        check(exp.eager_reason() is None, "(e) no graphs on the card")
+        runs[fuse] = (exp, metrics)
+    check(same_runs(runs[True], runs[False]), "(e) the 800-step graph window "
+          "differs from the same window run eager")
+    print(f"[bench] (e) {WINDOW} + 800 steps: graph = eager bit for bit "
+          f"(state, optimizer, aux, data key, metrics)", flush=True)
+    return pools, peaks
+
+
+def bench_exp_step(dev):
+    """(d) One DLA step on the bench protocol at bench_exp's Yahoo-like
+    shape (F = 700, L = 30, cutoff 30) on a fixed batch: K1/K2
+    (``use_pallas=true``) against the plain path, from the same
+    initialisation; the loss within LOSS_TOL relative, both towers'
+    gradients within GRAD_TOL of their largest."""
+    from ultra_pytorch_tpu_torch.run.experiment import create_algorithm
+    from ultra_pytorch_tpu_torch.tools.bench_common import exp_settings
+
+    batch = demo_batch(dev, YAHOO_FEATURES, YAHOO_LIST)
+    out, launches = {}, None
+    for kernels in (True, False):
+        settings = exp_settings(YAHOO_LIST)
+        if kernels:
+            settings["ranking_model_hparams"] += ",use_pallas=true"
+        alg = create_algorithm(settings, YAHOO_FEATURES, 2.0, dev)
+        state = alg.init_state(torch.Generator().manual_seed(1))
+        before = read_counts()
+        losses = alg.losses(state, batch)
+        grads = torch.autograd.grad(losses[0], alg.trainable(state))
+        torch.cuda.synchronize()
+        if kernels:
+            launches = {k: n - before[k] for k, n in read_counts().items()}
+        n = len(state.params.jax_leaves())
+        out[kernels] = (losses[0].item(),
+                        torch.cat([g.reshape(-1) for g in grads[:n]]),
+                        torch.cat([g.reshape(-1) for g in grads[n:]]))
+    (loss_k, rank_k, prop_k), (loss_p, rank_p, prop_p) = out[True], out[False]
+    rank_err, rank_rel = max_rel_err(rank_k, rank_p)
+    prop_err, prop_rel = max_rel_err(prop_k, prop_p)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"[bench] (d) DLA step at F {YAHOO_FEATURES}, L {YAHOO_LIST} (K1/K2 "
+          f"over {BATCH * YAHOO_LIST} x {YAHOO_FEATURES} rows), kernels on vs "
+          f"plain: loss {loss_k:.6f} vs {loss_p:.6f} (rel {rel:.2e}, limit "
+          f"{LOSS_TOL}); ranker gradient max abs {rank_err:.3e} "
+          f"({rank_rel:.3e} of its largest), propensity gradient "
+          f"{prop_err:.3e} ({prop_rel:.3e}) (limit {GRAD_TOL}); launches "
+          f"{launches}", flush=True)
+    check(math.isfinite(loss_k) and rel <= LOSS_TOL,
+          "(d) the DLA loss at F 700 differs between K1/K2 and plain")
+    check(rank_rel <= GRAD_TOL and prop_rel <= GRAD_TOL,
+          "(d) the DLA gradients at F 700 differ between K1/K2 and plain")
+    check(launches == {"K1": 1, "K2": 1, "K3": 0, "K4": 0, "K5": 0},
+          f"(d) the DLA step at F 700 launched {launches}")
+
+
+def phase_bench(dev, gen):
+    """Phase 25: the JAX system's benchmark scripts over the port. Returns
+    their runs' launches and K1/K2's timing at bench_exp's Yahoo-like
+    shape."""
+    from ultra_pytorch_tpu_torch.tools import bench_kernels
+
+    t0 = time.perf_counter()
+    counts = dict.fromkeys(counters(), 0)
+    zero = dict.fromkeys(counters(), 0)
+    pools, peaks = bench_window_against_eager(dev)
+
+    # The five runs in one child process with their default device (the
+    # card), each as its main(argv): (a) bench at its defaults, JAX's
+    # protocol with the kernels off; (b) bench --kernels, K1-K5 as
+    # bench_pallas.py's all_on; (c) bench_kernels; (d) bench_exp at the
+    # Yahoo-like shape, without and with K1/K2.
+    shape = ["--features", str(YAHOO_FEATURES), "--list-size",
+             str(YAHOO_LIST)]
+    runs = run_mains("bench", [
+        ("ultra_pytorch_tpu_torch.bench", []),
+        ("ultra_pytorch_tpu_torch.bench", ["--kernels", "--baseline-steps",
+                                           "5"]),
+        ("ultra_pytorch_tpu_torch.tools.bench_kernels", []),
+        ("ultra_pytorch_tpu_torch.tools.bench_exp", shape),
+        ("ultra_pytorch_tpu_torch.tools.bench_exp",
+         shape + ["--ranker-extra", ",use_pallas=true"])], timeout=600)
+    (details, last), kernels_on, ladder, *exps = [
+        (json.loads(lines[-2]), json.loads(lines[-1])) for lines in runs]
+
+    print(f"[bench] (a) {last['value']} queries/s, vs_baseline "
+          f"{last['vs_baseline']} (CPU {details['baseline_queries_per_s']:.1f}"
+          f" queries/s) on {card_line()}; warm-up and capture of the "
+          f"{details['chunk']}-step window {details['warmup_s']:.1f} s, its "
+          f"graph pool {details['pool_bytes']} B; in this process the graph "
+          f"pools of {WINDOW} and 800 steps {pools[WINDOW]} and "
+          f"{pools[800]} B "
+          f"({pools[800] / pools[WINDOW]:.2f}x), the eager windows' peaks "
+          f"{peaks[WINDOW]} and {peaks[800]} B", flush=True)
+    check(list(last) == BENCH_KEYS
+          and last["metric"] == "dla_dnn_train_throughput"
+          and last["unit"] == "queries/s", f"(a) bench printed {last}")
+    check(math.isfinite(last["value"]) and last["value"] > 0
+          and math.isfinite(last["vs_baseline"]) and last["vs_baseline"] > 0,
+          f"(a) bench printed {last}")
+    check(details["launches"] == zero and math.isfinite(details["loss"])
+          and details["steps"] == 3200 and details["chunk"] == 800,
+          f"(a) bench: {details}")
+    # A capture that could not reuse a step's freed blocks would grow its
+    # pool by a step's working set each step; the window's plan grows with
+    # the window eagerly too, so the pool is held to the eager window.
+    for pool in (details["pool_bytes"], pools[800]):
+        check(0 < pool < 2 * peaks[800], f"(a) an 800-step window's graph "
+              f"pool of {pool} B is not under twice the eager window's peak "
+              f"{peaks[800]} B")
+
+    details, last = kernels_on
+    want = dla_launches(details["steps"], details["windows"])
+    print(f"[bench] (b) --kernels {last['value']} queries/s; launches "
+          f"{details['launches']}", flush=True)
+    check(list(last) == BENCH_KEYS and last["value"] > 0
+          and details["launches"] == want and math.isfinite(details["loss"]),
+          f"(b) bench --kernels: {details}, launches expected {want}")
+    add_launches(counts, details["launches"])
+
+    details, rates = ladder
+    for name, ranker, algo, feed in bench_kernels.COMBOS:
+        want = bench_kernels.combo_launches(ranker, algo, feed,
+                                            details["steps"],
+                                            details["windows"])
+        check(details["launches"][name] == want and rates[name] > 0,
+              f"(c) {name}: {rates[name]} queries/s, launches "
+              f"{details['launches'][name]}, expected {want}")
+        add_launches(counts, details["launches"][name])
+    print(f"[bench] (c) on {card_line()}: " + ", ".join(
+        f"{k} {v} ({v / rates['all_off']:.3f})" for k, v in rates.items()),
+        flush=True)
+
+    for (details, last), kernels in zip(exps, (False, True)):
+        k = details["steps"] if kernels else 0
+        want = dict(zero, K1=k, K2=k)
+        print(f"[bench] (d) bench_exp F {YAHOO_FEATURES} L {YAHOO_LIST} "
+              f"ranker_extra '{last['ranker_extra']}': "
+              f"{last['queries_per_s']} queries/s, launches "
+              f"{details['launches']}", flush=True)
+        check(last["queries_per_s"] > 0 and details["launches"] == want
+              and math.isfinite(details["loss"]),
+              f"(d) bench_exp: {details}, expected {want}")
+        add_launches(counts, details["launches"])
+    bench_exp_step(dev)
+    timing = demo_timing(dev, gen, YAHOO_LIST, YAHOO_FEATURES, ("K1", "K2"))
+    print(f"[bench] phase 25 in {time.perf_counter() - t0:.1f} s; launches "
+          f"{counts}", flush=True)
+    return counts, timing
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -3860,10 +4100,15 @@ def main() -> int:
     multi_counts, multi_timing = phase_multi_device(dev, gen)
     for k, rows in multi_timing.items():
         timing[k].update(rows)
+    clock("phase 25")
+    bench_counts, bench_timing = phase_bench(dev, gen)
+    for k, row in bench_timing.items():
+        timing[k]["bench_exp"] = row
     counts["K1"] += serving_launches
     for part in (offline_counts, ranker_counts, online_counts, format_counts,
                  dp_counts, fused_counts, online_fused_counts,
-                 convergence_counts, graph_counts, tool_counts, multi_counts):
+                 convergence_counts, graph_counts, tool_counts, multi_counts,
+                 bench_counts):
         for k, n in part.items():
             counts[k] += n
     sources = {

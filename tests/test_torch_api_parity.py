@@ -125,11 +125,10 @@ COUNTERPARTS = {
 # JAX tools/ file -> (the port file that does its job, or a ROADMAP item
 # "item N"), why.
 TOOLS = {
-    "bench_exp.py": ("ultra_pytorch_tpu_torch/tools/roofline.py",
-                     "queries/s of graph windows at --chunk, --batch, "
-                     "--features, --list-size; the bench itself is item 11"),
-    "bench_pallas.py": ("torch_mlp_probe.py", "K1/K2 (torch_loss_probe.py "
-                        "K3/K4) against their plain versions"),
+    "bench_pallas.py": ("ultra_pytorch_tpu_torch/tools/bench_kernels.py",
+                        "part 3, the kernels on and off end to end; parts "
+                        "1-2 are chip_smoke.py phases 3, 5 and 9, "
+                        "torch_mlp_probe.py and torch_loss_probe.py"),
     "serve.py": ("ultra_pytorch_tpu_torch/serve/__main__.py",
                  "python -m ultra_pytorch_tpu_torch.serve"),
     "run_multihost.py": ("ultra_pytorch_tpu_torch/run/launch.py",
@@ -149,7 +148,8 @@ TOOLS = {
 ROOT_SCRIPTS = {
     "main.py": ("ultra_pytorch_tpu_torch/run/__main__.py",
                 "python -m ultra_pytorch_tpu_torch.run"),
-    "bench.py": ("item 11", "the bench script comes with BENCHMARK.json"),
+    "bench.py": ("ultra_pytorch_tpu_torch/bench.py",
+                 "python -m ultra_pytorch_tpu_torch.bench"),
     "__graft_entry__.py": ("ultra_pytorch_tpu_torch/run/dryrun.py",
                            "entry and dryrun_multichip"),
 }
@@ -306,7 +306,7 @@ def test_every_jax_tool_has_a_counterpart():
     assert not stale, f"TOOLS rows no longer needed: {stale}"
     for name in ("bench_common.py", "profile_step.py", "roofline.py",
                  "bench_serve.py", "bench_serve_http.py", "bench_eval.py",
-                 "gen_docs.py"):
+                 "gen_docs.py", "bench_exp.py"):
         assert name in jax_tools and name in ported, name
 
 

@@ -71,7 +71,9 @@ def test_sources_name_neither_jax_nor_the_jax_package():
                  "parallel/mesh.py", "run/launch.py", "run/window.py",
                  "pipeline/initial_ranking.py", "torch_convergence.py",
                  "run/dryrun.py", "tools/bench_scaling.py",
-                 "tools/shard_data_demo.py"):
+                 "tools/shard_data_demo.py",
+                 "ultra_pytorch_tpu_torch/bench.py", "tools/bench_exp.py",
+                 "tools/bench_kernels.py"):
         assert any(f.endswith(name) for f in files), name
     for path in files:
         with open(path) as fh:
@@ -165,3 +167,19 @@ def test_rank_starters_raise_without_a_card(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _starters()[name]()
+
+
+def _bench_scripts():
+    """The benchmark scripts, each called with its default device."""
+    from ultra_pytorch_tpu_torch import bench
+    from ultra_pytorch_tpu_torch.tools import bench_exp, bench_kernels
+
+    return {"bench.main": bench.main, "bench_exp.main": bench_exp.main,
+            "bench_kernels.main": bench_kernels.main}
+
+
+@pytest.mark.parametrize("name", sorted(_bench_scripts()))
+def test_bench_scripts_raise_without_a_card(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _bench_scripts()[name]([])

@@ -42,7 +42,6 @@ import os
 import tempfile
 from typing import Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -52,47 +51,18 @@ ESTIMATOR_JSON = os.path.join(ROOT, "example", "PropensityEstimator",
 STEPS = 2          # steps a case, one window
 
 
-def _make_synthetic(num_queries=64, list_size=10, feature_size=136, seed=0):
-    from ultra_pytorch_tpu_torch.data.dataset import RankingDataset
-
-    rng = np.random.default_rng(seed)
-    D = num_queries * list_size
-    features = rng.normal(size=(D, feature_size)).astype(np.float32)
-    initial_list = np.arange(D, dtype=np.int64).reshape(
-        num_queries, list_size)
-    labels = rng.integers(0, 3, size=(num_queries, list_size)).astype(
-        np.float32)
-    labels[:, 0] = np.maximum(labels[:, 0], 1.0)  # every query has a positive
-    return RankingDataset(
-        features=features, initial_list=initial_list, labels=labels,
-        qids=[str(i) for i in range(num_queries)],
-        dids=[f"d{i}" for i in range(D)],
-        feature_size=feature_size, rank_list_size=list_size, max_label=2.0)
-
-
-def _exp_settings(list_size=10):
-    return {
-        "ranking_model": "DNN",
-        "ranking_model_hparams": "hidden_layer_sizes=[512, 256, 128]",
-        "learning_algorithm": "DLA",
-        "learning_algorithm_hparams": "",
-        "metrics": ["ndcg"],
-        "metrics_topn": [10],
-        "max_candidate_num": list_size,
-        "selection_bias_cutoff": list_size,
-    }
-
-
 def entry(device=None):
     """The flagship forward on `device` (default CUDA): ``(fn, (ranker,
     features, mask))`` with ``fn(ranker, features, mask) -> [8, 10]``
     scores, the ranker's weights drawn from seed 0."""
     from ultra_pytorch_tpu_torch.run.experiment import create_algorithm
+    from ultra_pytorch_tpu_torch.tools.bench_common import (exp_settings,
+                                                            synthetic)
     from ultra_pytorch_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
-    ds = _make_synthetic()
-    settings = _exp_settings()
+    ds = synthetic(64, 0)
+    settings = exp_settings()
     settings["ranking_model_hparams"] += ",use_pallas=true"
     alg = create_algorithm(settings, ds.feature_size, ds.max_label, device)
     alg.ranker.reset_parameters(torch.Generator().manual_seed(0))

@@ -3,6 +3,9 @@ as ``python -m ultra_pytorch_tpu_torch.tools.<name>``: the counterparts
 of the JAX package's ``tools/`` scripts of the same names.
 
 - ``bench_common``     the bench protocol the others share.
+- ``bench_exp``        the bench at another window, PRNG or shape.
+- ``bench_kernels``    the bench with each kernel hparam on in turn
+                       (``bench_pallas.py``'s part 3).
 - ``profile_step``     µs a step of the feed, the train step and the full
                        window, as replayed CUDA graphs and eager.
 - ``roofline``         the DLA step's operations and bytes counted from
@@ -13,6 +16,10 @@ of the JAX package's ``tools/`` scripts of the same names.
 - ``bench_eval``       three ways of validating, held to one another.
 - ``gen_docs``         ``docs/torch_api.md`` and
                        ``docs/torch_algorithms.md``.
+- ``bench_scaling``, ``shard_data_demo``: queries/s over data-parallel
+                       ranks, and a sharded Istella-sized table.
+
+The bench script itself is ``python -m ultra_pytorch_tpu_torch.bench``.
 
 Every tool takes ``--device`` (the card by default; without one it
 raises), prints the card's name and power limit first when it runs on the

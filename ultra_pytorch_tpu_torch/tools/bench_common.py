@@ -2,13 +2,28 @@
 
 The port's counterpart of the JAX package's ``tools/bench_common.py``,
 with its own copy of the synthetic data and settings that tool takes from
-``__graft_entry__.py``: DLA with the DNN at [512, 256, 128] (LayerNorm,
-ELU), F = 136 features, B = 256 queries a step of L = 10 documents, PBM
-clicks at eta 1.0 from a click-model JSON written to a temporary
-directory, 4,096 synthetic queries from a numpy seed, and every kernel
-hparam on (``use_pallas=true``, ``loss_func=fused_softmax_loss``,
-``use_pallas_click=true``). Also the card's name and power limit, the
-H100's peak rates and the tools' shared argument and output.
+``__graft_entry__.py`` (:func:`synthetic`, :func:`exp_settings`): DLA with
+the DNN at [512, 256, 128] (LayerNorm, ELU), F = 136 features, B = 256
+queries a step of L = 10 documents, PBM clicks at eta 1.0 from a
+click-model JSON written to a temporary directory, 4,096 synthetic
+queries from a numpy seed.
+
+Two ways to set it up:
+
+* :func:`make_bench_setup` and :func:`time_chunks`, the JAX protocol
+  itself, which ``bench``, ``tools/bench_exp`` and ``tools/bench_kernels``
+  run: ``exp_settings`` with the extras appended where the JAX harness
+  appends them, so the kernel hparams stay at their defaults (off) unless
+  an extra turns one on, and nDCG@10 alone;
+* :func:`bench_experiment`, which the measurement tools
+  (``profile_step``, ``roofline``, ``bench_eval``, ``bench_scaling``) and
+  ``chip_smoke.py`` run: every kernel hparam on (``use_pallas=true``,
+  ``loss_func=fused_softmax_loss``, ``use_pallas_click=true``) and nDCG and
+  MRR at 3, 5 and 10 (:func:`dla_settings`), since those tools measure the
+  hand-written kernels.
+
+Also the card's name and power limit, the H100's peak rates and the
+tools' shared argument and output.
 """
 
 from __future__ import annotations
@@ -18,6 +33,7 @@ import json
 import os
 import subprocess
 import tempfile
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -57,21 +73,40 @@ def card_line() -> str:
 def synthetic(num_queries: int, seed: int, length: int = LIST,
               features: int = FEATURES):
     """The bench protocol's synthetic data: `length` documents a query,
-    normal features, grades 0-2, a positive first document."""
+    normal features, grades 0-2, a positive first document. The JAX
+    system's ``_make_synthetic`` drawn in its order (features, then
+    grades), so the arrays are JAX's for the same seed."""
     from ultra_pytorch_tpu_torch.data.dataset import RankingDataset
 
     rng = np.random.default_rng(seed)
     d = num_queries * length
+    feats = rng.normal(size=(d, features)).astype(np.float32)
     labels = rng.integers(0, 3, size=(num_queries, length)).astype(
         np.float32)
     labels[:, 0] = np.maximum(labels[:, 0], 1.0)
     return RankingDataset(
-        features=rng.normal(size=(d, features)).astype(np.float32),
+        features=feats,
         initial_list=np.arange(d, dtype=np.int64).reshape(num_queries,
                                                           length),
         labels=labels, qids=[str(i) for i in range(num_queries)],
         dids=[f"d{i}" for i in range(d)], feature_size=features,
         rank_list_size=length, max_label=2.0)
+
+
+def exp_settings(list_size: int = LIST) -> Dict:
+    """The JAX system's ``_exp_settings``: DLA with the DNN at
+    [512, 256, 128], every hparam at its default, nDCG@10, lists and the
+    cutoff at `list_size`."""
+    return {
+        "ranking_model": "DNN",
+        "ranking_model_hparams": HIDDEN,
+        "learning_algorithm": "DLA",
+        "learning_algorithm_hparams": "",
+        "metrics": ["ndcg"],
+        "metrics_topn": [10],
+        "max_candidate_num": list_size,
+        "selection_bias_cutoff": list_size,
+    }
 
 
 def dla_settings(kernels: bool, click_json: str, hidden: str = HIDDEN,
@@ -127,18 +162,32 @@ def write_ultra_split(data_dir: str, split: str, num_queries: int,
             fout.write(qid + " " + " ".join(f"{v:g}" for v in labels) + "\n")
 
 
+def _experiment(settings: Dict, tmp, data: Dict, device, batch: int,
+                seed: int = 0, prng: str = "threefry2x32"):
+    """An ``Experiment`` of `settings` over the splits of `data`, its state
+    initialised from `seed`; the model directory lives in `tmp` (a
+    ``TemporaryDirectory``), which the experiment holds."""
+    from ultra_pytorch_tpu_torch.run.experiment import Experiment
+
+    exp = Experiment(settings, tmp.name, os.path.join(tmp.name, "model"),
+                     batch_size=batch, seed=seed, device=device,
+                     prng_impl=prng)
+    exp._tmpdir = tmp   # the click-model JSON lives as long as `exp`
+    exp.setup(splits=tuple(data), datasets=data)
+    exp.init_state()
+    return exp
+
+
 def bench_experiment(device, batch: int = BATCH, list_size: int = LIST,
                      features: int = FEATURES, hidden: str = HIDDEN,
                      num_queries: int = NUM_QUERIES, valid_queries: int = 0,
                      kernels: bool = True, seed: int = 0,
                      data: Optional[Dict] = None):
-    """An ``Experiment`` on the bench protocol, its state initialised from
-    `seed`: synthetic train queries (numpy seed 0) and, with
-    `valid_queries`, a valid split (seed 1), or the splits of `data`. The
-    click-model JSON and the model directory live in a temporary
-    directory held by the experiment."""
-    from ultra_pytorch_tpu_torch.run.experiment import Experiment
-
+    """An ``Experiment`` on :func:`dla_settings` (every kernel hparam on
+    by default), its state initialised from `seed`: synthetic train
+    queries (numpy seed 0) and, with `valid_queries`, a valid split (seed
+    1), or the splits of `data`. The click-model JSON and the model
+    directory live in a temporary directory held by the experiment."""
     tmp = tempfile.TemporaryDirectory(prefix="ultra_bench_")
     settings = dla_settings(kernels, write_click_model(tmp.name), hidden,
                             list_size)
@@ -147,12 +196,90 @@ def bench_experiment(device, batch: int = BATCH, list_size: int = LIST,
         if valid_queries:
             data["valid"] = synthetic(valid_queries, 1, list_size,
                                       features)
-    exp = Experiment(settings, tmp.name, os.path.join(tmp.name, "model"),
-                     batch_size=batch, seed=seed, device=device)
-    exp._tmpdir = tmp   # the JSON lives as long as the experiment
-    exp.setup(splits=tuple(data), datasets=data)
-    exp.init_state()
-    return exp
+    return _experiment(settings, tmp, data, device, batch, seed)
+
+
+def make_bench_setup(device, batch: int = BATCH, list_size: int = LIST,
+                     features: int = FEATURES,
+                     num_queries: int = NUM_QUERIES, ranker_extra: str = "",
+                     algo_extra: str = "", feed_extra: str = "",
+                     prng: str = "threefry2x32"):
+    """An ``Experiment`` on the JAX bench protocol, the counterpart of the
+    JAX harness's ``make_bench_setup``: :func:`exp_settings` with
+    `ranker_extra` appended to the ranker's hparams, `algo_extra` as the
+    algorithm's and ``click_model_json=<PBM eta 1>`` + `feed_extra` as the
+    ``ClickSimulationFeed``'s, over :func:`synthetic` train queries (numpy
+    seed 0), its state from seed 0. `prng` is the JAX trainer's
+    ``--prng`` (the shape of the data key). The click-model JSON lives in
+    a temporary directory held by the experiment."""
+    tmp = tempfile.TemporaryDirectory(prefix="ultra_bench_")
+    settings = exp_settings(list_size)
+    settings["ranking_model_hparams"] += ranker_extra
+    settings["learning_algorithm_hparams"] = algo_extra
+    settings["train_input_feed"] = "ClickSimulationFeed"
+    settings["train_input_hparams"] = (
+        f"click_model_json={write_click_model(tmp.name)}" + feed_extra)
+    data = {"train": synthetic(num_queries, 0, list_size, features)}
+    return _experiment(settings, tmp, data, device, batch, prng=prng)
+
+
+def graph_pools(device) -> Optional[Dict[tuple, int]]:
+    """Bytes that the caching allocator holds on `device` by private pool
+    (a CUDA graph's pool: every segment outside the default pool), keyed
+    by the pool's id; None off the card."""
+    if torch.device(device).type != "cuda":
+        return None
+    pools: Dict[tuple, int] = {}
+    for seg in torch.cuda.memory_snapshot():
+        pool = tuple(seg["segment_pool_id"])
+        if pool != (0, 0):
+            pools[pool] = pools.get(pool, 0) + seg["total_size"]
+    return pools
+
+
+def new_pool_bytes(before: Optional[Dict[tuple, int]], device
+                   ) -> Optional[int]:
+    """The bytes of `device`'s graph pools that were not there `before`
+    (a :func:`graph_pools`): the pools of the graphs captured since. A
+    pool's id is never reused, so a pool released meanwhile (an earlier
+    graph's, collected) does not count against them; None off the
+    card."""
+    if before is None:
+        return None
+    return sum(n for pool, n in graph_pools(device).items()
+               if pool not in before)
+
+
+def time_chunks(exp, steps: int, chunk: int, verbose: bool = True
+                ) -> Dict:
+    """The JAX harness's ``time_chunks`` on `exp`: one warm-up window of
+    `chunk` steps (on the card also its CUDA graph's capture), then
+    ``steps // chunk`` windows of `chunk` steps on the host clock, synced
+    once at the end. Returns ``queries_per_s`` of the timed windows, and
+    ``warmup_s`` (the warm-up window to its loss on the host),
+    ``pool_bytes`` (the bytes of the warm-up window's graph pool; None
+    off the card), the last window's mean ``loss``, and the ``windows`` and
+    ``steps`` run, the warm-up's included."""
+    pools = graph_pools(exp.device)
+    t0 = time.perf_counter()
+    keys, means = exp.train_steps_device(chunk)
+    loss = float(means[keys.index("loss")])
+    warmup_s = time.perf_counter() - t0
+    pool = new_pool_bytes(pools, exp.device)
+    if verbose:
+        print(f"    (warm-up and capture {warmup_s:.1f}s, loss={loss:.4f})",
+              flush=True)
+    windows = steps // chunk
+    t0 = time.perf_counter()
+    for _ in range(windows):
+        keys, means = exp.train_steps_device(chunk)
+    sync(exp.device)
+    seconds = time.perf_counter() - t0
+    return {"queries_per_s": (windows * chunk * exp.feeds["train"].batch_size
+                              / seconds),
+            "warmup_s": warmup_s, "pool_bytes": pool,
+            "loss": float(means[keys.index("loss")]),
+            "windows": windows + 1, "steps": (windows + 1) * chunk}
 
 
 def tool_parser(description: str) -> argparse.ArgumentParser:
