@@ -97,9 +97,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
     for ``dla_setrank`` and ``dla_dlcm`` kernels on and plain, each
     kernels-on run's checkpoint loaded by ``Scorer.from_checkpoint`` and
     served over HTTP
-    through a ``MicroBatcher`` (every reply equal to direct scoring); and
+    through a ``MicroBatcher`` (every reply equal to direct scoring);
     SetRank at ``rate=0.1`` for 50 steps (finite losses, eval scores
-    unchanged by a second call).
+    unchanged by a second call); and ``dla_ubm`` and ``naive_cascade``
+    with ``use_pallas_click=true`` and ``use_pallas=true``, which the JAX
+    feed runs (its kernel branch is PBM's alone): one window each, K5
+    launched 0 times and the other kernels exactly, the window plan's
+    clicks under one generator equal to the same config's without the
+    flag.
 15. Kernels, after phase 24: one JSON line listing K1-K5 (launches
     summed over the serving, DLA training, offline training, phase 14's,
     phase 16's, phase 17's, both ranks' of phase 18's, phases 19's and
@@ -244,10 +249,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
     through its ``main(argv)`` (what ``python -m`` runs), all in one
     child process, with its default device (the card) at a short length,
     its last line read as JSON and its launches added to the kernels
-    line: ``profile_step`` (feed, train and full a step all above 0, each
-    graph below its eager twin), ``roofline`` (``mfu`` in (0, 1], the
-    kernels' count equal to ``mlp_work`` + ``mlp_bwd_work`` + twice
-    ``loss_work``'s K3 and K4, the products 3.59 GFLOP a step within 2%),
+    line; ``profile_step``, ``roofline`` and ``bench_eval`` at the JAX
+    tool's default (the kernel hparams off: the library path, launching
+    K1-K5 0 times) and with ``--kernels`` (launching exactly
+    ``dla_launches`` of their steps and windows), both ways' step time,
+    busy share and ``mfu`` on one line: ``profile_step`` (feed, train
+    and full a step all above 0, each graph below its eager twin),
+    ``roofline`` (``mfu`` in (0, 1], the same ``flops_per_step`` both
+    ways, ``hfu`` null on the library path, the kernels' count equal to
+    ``mlp_work`` + ``mlp_bwd_work`` + twice ``loss_work``'s K3 and K4,
+    the products 3.59 GFLOP a step within 2%),
     ``bench_serve`` (K1's scores within TOL of the plain path's and its
     orders a ranking of the plain scores up to 2 x TOL at every bucket),
     ``bench_serve_http`` (no error on either row, a coalescing factor
@@ -259,12 +270,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
     within TOL of its plain version; (b) ``dryrun_multichip``'s 18 cases
     as an NCCL group of one (every window a graph) and as two gloo ranks
     sharing cuda:0, each case at step 2 with a finite loss and the state
-    bit-identical across ranks; (c) ``bench_scaling 25 4`` over the
-    visible cards and with ``--share_card 2``, each row's launches exact
-    and its ranks' state identical; (d) ``shard_data_demo`` at its full
-    default size (10M rows x 220 features, lists of 200) as two stripes
-    on cuda:0 and as the whole table on one rank: finite losses, each
-    rank's share of the table, exact launches; (e) one DLA step on a
+    bit-identical across ranks; (c) ``bench_scaling 25 4`` at the JAX
+    default (the library path, no launch), then with ``--kernels`` over
+    the visible cards and with ``--share_card 2``, each row's launches
+    exact and its ranks' state identical; (d) ``shard_data_demo
+    --kernels`` at its full default size (10M rows x 220 features, lists
+    of 200) as two stripes on cuda:0 and as the whole table on one rank,
+    then at the JAX default on 2M rows: finite losses, each rank's share
+    of the table, exact launches (none at the default); (e) one DLA step on a
     batch of B = 256 lists of L = 200 documents of F = 220 features,
     kernels on against plain (phase 6's tolerances), first at the
     demo's own settings (cutoff 10: K1 and K2 over the 2,560 x 220 rows
@@ -1785,6 +1798,52 @@ def phase_rankers(dev, data):
           "SetRank with dropout did not train")
     check(np.array_equal(first, again) and bool(np.isfinite(first).all()),
           "SetRank's eval scores changed between two calls")
+    add_launches(total, ranker_click_flag(dev, data))
+    return total
+
+
+def ranker_click_flag(dev, data):
+    """UBM and cascade with ``use_pallas_click=true`` and
+    ``use_pallas=true``, which the JAX feed runs (its kernel branch is
+    PBM's alone): one window of WINDOW steps each, with the flag and
+    without, from the same seed. With the flag K5 never launches and the
+    other kernels launch exactly (``expected_launches``); the window's
+    loss and the window plan's clicks under one generator equal those
+    without the flag, bit for bit (every kernel of the path sums in a
+    fixed order). Returns the flagged windows' launches."""
+    total = dict.fromkeys(counters(), 0)
+    valid_batches = math.ceil(data["valid"].num_queries / BATCH)
+    for config in ("dla_ubm", "naive_cascade"):
+        plans, losses = [], []
+        for flag in (",use_pallas_click=true", ""):
+            settings = ranker_settings(config, True)
+            settings["train_input_hparams"] += flag
+            before = read_counts()
+            _, metrics, _, exp = train_run(settings, dev, data, 0, 1)
+            counts = {k: n - before[k] for k, n in read_counts().items()}
+            losses.append(metrics[0]["loss"])
+            gen = torch.Generator(device=dev).manual_seed(11)
+            plans.append(exp.feeds["train"].train_batch_plan(gen, 0, WINDOW))
+            if flag:
+                want = expected_launches(config, WINDOW, 1, valid_batches)
+                check(exp.feeds["train"].hparams.use_pallas_click
+                      and counts == want and counts["K5"] == 0,
+                      f"{config} with use_pallas_click=true launched "
+                      f"{counts}, expected {want}")
+                add_launches(total, counts)
+                flagged = counts
+        same = all(torch.equal(a, b) for a, b in zip(*plans))
+        print(f"[rankers] {config} with use_pallas_click=true and "
+              f"use_pallas=true, {WINDOW} steps: launches {flagged}; the "
+              f"plan's clicks ({tuple(plans[0][1].shape)}) equal to the "
+              f"flag's absence under one generator: {same}; loss "
+              f"{losses[0]:.6f} with the flag, {losses[1]:.6f} without",
+              flush=True)
+        check(same, f"{config}: use_pallas_click=true changed the clicks")
+        check(losses[0] == losses[1],
+              f"{config}: use_pallas_click=true changed the loss")
+        check(all(math.isfinite(v) for v in losses),
+              f"{config}: non-finite loss")
     return total
 
 
@@ -3512,47 +3571,91 @@ def phase_graphs(dev, click_json, data, online_data):
     return total
 
 
+def profile_launches(steps: int, chunk: int = 25):
+    """``profile_step --steps <steps> --kernels``'s launches: feed, train
+    and full each a warm-up and steps // chunk timed chunks, eager and
+    again as graphs, and the profiled full window; K5 once a plan of the
+    feed and of the full window, and once for the fixed batch's plan."""
+    windows = 4 * (steps // chunk) + 5
+    return dla_launches(windows * chunk, windows)
+
+
 def phase_tools():
-    """Phase 23: the port's tools on the card, each checked; returns their
-    runs' launches."""
+    """Phase 23: the port's tools on the card, each checked; the training
+    tools at the JAX default (the library path) and with ``--kernels``
+    (K1-K5); returns their runs' launches."""
     from ultra_pytorch_tpu_torch.models.dnn import DNN
 
     t0 = time.perf_counter()
     counts = dict.fromkeys(counters(), 0)
-    # profile_step first: torch.profiler keeps every record early in a
-    # process (section 7 of PERF.md).
-    tools = (("profile_step", ["--steps", "100"]),
-             ("roofline", ["--steps", "200"]),
+    zero = dict.fromkeys(counters(), 0)
+    # Both profile_step runs first: torch.profiler keeps every record
+    # early in a process (section 7 of PERF.md).
+    prof_steps, roof_steps, roof_chunk = 100, 200, 50
+    tools = (("profile_step", ["--steps", str(prof_steps)]),
+             ("profile_step", ["--steps", str(prof_steps), "--kernels"]),
+             ("roofline", ["--steps", str(roof_steps)]),
+             ("roofline", ["--steps", str(roof_steps), "--kernels"]),
              ("bench_serve", ["--iters", "50"]), ("bench_serve_http", []),
-             ("bench_eval", ["--repeats", "3"]))
+             ("bench_eval", ["--repeats", "3"]),
+             ("bench_eval", ["--repeats", "3", "--kernels"]))
     results = []
     for lines in run_mains("tools", [(f"ultra_pytorch_tpu_torch.tools.{n}", a)
                                      for n, a in tools], timeout=600):
         results.append(json.loads(lines[-1]))
         add_launches(counts, results[-1]["launches"])
-    prof, roof, serve, http, evals = results
-    for name in ("feed", "train", "full"):
-        graph, eager = prof[f"{name}_us"], prof[f"{name}_eager_us"]
-        check(0 < graph < eager, f"profile_step: {name} {graph} us a step "
-              f"as a graph against {eager} eager")
+    prof, prof_k, roof, roof_k, serve, http, evals, evals_k = results
+    for label, run in (("library path", prof), ("--kernels", prof_k)):
+        for name in ("feed", "train", "full"):
+            graph, eager = run[f"{name}_us"], run[f"{name}_eager_us"]
+            check(0 < graph < eager, f"profile_step ({label}): {name} "
+                  f"{graph} us a step as a graph against {eager} eager")
+    roof_windows = roof_steps // roof_chunk
+    for label, got, want in (
+            ("profile_step", prof["launches"], zero),
+            ("profile_step --kernels", prof_k["launches"],
+             profile_launches(prof_steps)),
+            ("roofline", roof["launches"], zero),
+            ("roofline --kernels", roof_k["launches"],
+             dla_launches((roof_windows + 1) * roof_chunk, roof_windows)),
+            ("bench_eval", evals["launches"], zero)):
+        check(got == want, f"{label} launched {got}, expected {want}")
     n = BATCH * LIST
     model = DNN(HIDDEN, FEATURES)
     k3, _, k4, _ = loss_work(BATCH, LIST)
     kernel_flops = (mlp_work(model, n)[0] + mlp_bwd_work(model, n)[0]
                     + 2 * (k3 + k4))
-    products = sum(roof["products"].values())
-    print(f"[tools] roofline: {roof['flops_per_step'] / 1e9:.4f} GFLOP a "
+    products = sum(roof_k["products"].values())
+    print(f"[tools] roofline: {roof_k['flops_per_step'] / 1e9:.4f} GFLOP a "
           f"step ({products / 1e9:.4f} of products, the kernels "
-          f"{roof['kernel_flops_per_step'] / 1e9:.4f}), "
-          f"{roof['step_time_us']:.2f} us a step, mfu {roof['mfu']:.4f}, "
-          f"hfu {roof['hfu']:.4f}", flush=True)
-    check(roof["kernel_flops_per_step"] == kernel_flops,
-          f"roofline counts {roof['kernel_flops_per_step']} kernel "
+          f"{roof_k['kernel_flops_per_step'] / 1e9:.4f}), "
+          f"{roof_k['step_time_us']:.2f} us a step, mfu {roof_k['mfu']:.4f}, "
+          f"hfu {roof_k['hfu']:.4f}", flush=True)
+    print(f"[tools] library path (JAX default) vs K1-K5 (--kernels), "
+          f"allow_tf32 {prof['allow_tf32']} / {roof['allow_tf32']}: "
+          f"profile_step full {prof['full_us']:.2f} vs "
+          f"{prof_k['full_us']:.2f} us a graph step (feed "
+          f"{prof['feed_us']:.2f} vs {prof_k['feed_us']:.2f}, train "
+          f"{prof['train_us']:.2f} vs {prof_k['train_us']:.2f}), busy_share "
+          f"{prof['busy_share']} vs {prof_k['busy_share']}; roofline "
+          f"{roof['step_time_us']:.2f} vs {roof_k['step_time_us']:.2f} us a "
+          f"step, mfu {roof['mfu']:.4f} vs {roof_k['mfu']:.4f}, "
+          f"hbm_utilization {roof['hbm_utilization']:.5f} vs "
+          f"{roof_k['hbm_utilization']:.5f}, hfu {roof['hfu']} vs "
+          f"{roof_k['hfu']:.4f}", flush=True)
+    check(roof_k["kernel_flops_per_step"] == kernel_flops,
+          f"roofline counts {roof_k['kernel_flops_per_step']} kernel "
           f"operations a step, mlp_work + mlp_bwd_work + loss_work "
           f"{kernel_flops}")
+    check(roof["flops_per_step"] == roof_k["flops_per_step"]
+          and roof["bytes_per_step"] == roof_k["bytes_per_step"],
+          "roofline counts the library path's step apart from the kernels'")
+    check(roof["hfu"] is None and roof["kernel_flops_per_step"] is None,
+          "roofline gives an hfu on the library path")
     check(abs(products / 3.59e9 - 1) <= 0.02,
           f"roofline: {products} products a step, not 3.59 GFLOP")
-    check(0 < roof["mfu"] <= 1.0, f"roofline: mfu {roof['mfu']}")
+    for run in (roof, roof_k):
+        check(0 < run["mfu"] <= 1.0, f"roofline: mfu {run['mfu']}")
     for bucket, c in serve["k1_vs_plain"].items():
         check(c["scores_close"] and c["order_violations"] == 0,
               f"bench_serve {bucket}: K1 against the plain path {c}")
@@ -3563,8 +3666,9 @@ def phase_tools():
     check(micro["mode"] == "micro_batched"
           and micro["coalescing_factor"] > 1,
           f"bench_serve_http: coalescing factor {micro}")
-    check(evals["max_diff"] <= 1e-4,
-          f"bench_eval: the ways differ by {evals['max_diff']}")
+    for run in (evals, evals_k):
+        check(run["max_diff"] <= 1e-4,
+              f"bench_eval: the ways differ by {run['max_diff']}")
     print(f"[tools] phase 23 in {time.perf_counter() - t0:.1f} s; "
           f"launches {counts}", flush=True)
     return counts
@@ -3781,33 +3885,45 @@ def phase_multi_device(dev, gen):
         check(graphs == (DRYRUN_CASES if group[0] == 1 else 0),
               f"dry run ({label}): {graphs} graph windows")
 
-    # (c) bench_scaling 25 4 over the visible cards, then two ranks that
-    # share cuda:0.
+    # (c) bench_scaling 25 4 at the JAX default (the library path), then
+    # with K1-K5 over the visible cards and as two ranks that share cuda:0.
     t1 = time.perf_counter()
-    rows = bench_scaling.main(["25", "4"])
-    shared = bench_scaling.main(["25", "4", "--share_card", "2"])
+    plain = bench_scaling.main(["25", "4"])
+    rows = bench_scaling.main(["25", "4", "--kernels"])
+    shared = bench_scaling.main(["25", "4", "--share_card", "2",
+                                 "--kernels"])
+    for row in plain:
+        check(row["same_state"] and not any(row["launches"].values()),
+              f"bench_scaling at the JAX default: {row}")
     for row in rows + shared:
         want = dla_launches(25 * 5, 5, row["devices"])
         check(row["same_state"] and row["launches"] == want,
               f"bench_scaling: {row}, launches expected {want}")
+    for row in plain + rows + shared:
         check(row["windows"] == ("eager" if row["shared_card"] else "graph"),
               f"bench_scaling: windows {row['windows']}")
         add_launches(counts, row["launches"])
     print(f"[multi-device] (c) bench_scaling in "
           f"{time.perf_counter() - t1:.1f} s on {card_line()}: "
-          + "; ".join(f"{r['devices']} rank(s)"
+          + "; ".join(f"{way} {r['devices']} rank(s)"
                       f"{' sharing cuda:0' if r['shared_card'] else ''} "
                       f"{r['queries_per_sec']:.1f} queries/s, efficiency "
                       f"{r['scaling_efficiency']:.4f} ({r['windows']})"
-                      for r in rows + shared), flush=True)
+                      for way, group in (("library path", plain),
+                                         ("K1-K5", rows + shared))
+                      for r in group), flush=True)
 
-    # (d) The demo at the full default size: two stripes on cuda:0, then
-    # the whole table on one rank.
-    for args in (["--share_card", "2"], ["--ranks", "1"]):
+    # (d) The demo at the full default size with K1-K5: two stripes on
+    # cuda:0, then the whole table on one rank; then at the JAX default
+    # (the library path) on a fifth of the table.
+    for args in (["--share_card", "2", "--kernels"],
+                 ["--ranks", "1", "--kernels"],
+                 ["--ranks", "1", "--rows", "2000000", "--steps", "5"]):
         t1 = time.perf_counter()
         res = shard_data_demo.main(args)
         ranks = res["ranks"]
-        want = dla_launches(res["steps"], res["steps"], ranks)
+        want = (dla_launches(res["steps"], res["steps"], ranks)
+                if "--kernels" in args else dict.fromkeys(counters(), 0))
         print(f"[multi-device] (d) shard_data_demo {' '.join(args)} in "
               f"{time.perf_counter() - t1:.1f} s on {card_line()}: "
               f"{res['gb_per_device_sharded']:.4f} GB a rank of "

@@ -13,7 +13,11 @@ ROADMAP item it waits for; so must every script at the root of the JAX
 system (``ROOT_SCRIPTS``), and the dry run's case table in
 ``__graft_entry__.py`` is the port's ``run/dryrun.py`` table, read by
 AST. A name or a tool that the JAX package gains and the port lacks
-fails here; so does a row that is no longer needed.
+fails here; so does a row that is no longer needed. Flag by flag, every
+``add_argument`` flag of a JAX tool or root script that has a port
+counterpart (a port tool of the same name, or the port file its row in
+``TOOLS`` or ``ROOT_SCRIPTS`` names) is a flag of that counterpart under
+the same spelling, or a row of ``FLAG_DIFFERENCES`` says why not.
 """
 
 import ast
@@ -169,6 +173,33 @@ for _name in ("run_r3_ours_queue.sh", "run_r3_queue2.sh",
               "run_r5_extra_seeds.sh", "run_r5_ours_queue.sh",
               "run_r5_ref_queue.sh", "run_r5_ref_rerun.sh"):
     TOOLS[_name] = ("chip_smoke.py", "a queue of measurement runs")
+
+
+# "JAX script:flag" -> why the port's counterpart has no flag of that
+# spelling. A row whose flag the port has, or the JAX script lost, fails.
+FLAG_DIFFERENCES = {}
+for _flag in ("--micro", "--parts"):
+    FLAG_DIFFERENCES[f"bench_pallas.py:{_flag}"] = (
+        "parts 1-2 of the JAX script (the kernels against their reference "
+        "and their timing) are chip_smoke.py phases 3, 5 and 9, "
+        "torch_mlp_probe.py and torch_loss_probe.py; bench_kernels is its "
+        "part 3 alone")
+for _flag, _how in (("--data_dir", "--data_dir"), ("--batch", "--batch_size"),
+                    ("--iters", "--max_train_iteration"),
+                    ("--steps_per_checkpoint", "--steps_per_checkpoint"),
+                    ("--model_dir", "--model_dir"),
+                    ("--algo", "--setting_file")):
+    FLAG_DIFFERENCES[f"run_multihost.py:{_flag}"] = (
+        f"the launcher passes the training CLI's own flags after '--': "
+        f"{_how} there")
+FLAG_DIFFERENCES["run_multihost.py:--devices_per_proc"] = (
+    "one process a device: --processes is the device count")
+for _flag in ("--queries", "--valid_queries", "--features", "--max_label",
+              "--min_docs", "--max_docs", "--seed", "--libsvm"):
+    FLAG_DIFFERENCES[f"make_toy_data.py:{_flag}"] = (
+        "numpy only: the JAX script runs as it is and its files load in "
+        "either package; bench_common.synthetic is the port's generator, "
+        "not a script")
 
 
 def _public_names(path):
@@ -402,3 +433,96 @@ def test_the_walk_sees_names_of_every_kind():
     # nn.Module.apply is not the JAX ranker's apply.
     assert not _in_port("models/dnn.py", "DNN.apply")
     assert _in_port("algorithms/dla.py", "DLA.train_step")   # inherited
+
+
+# -- flag by flag -------------------------------------------------------------
+
+def _flags(path):
+    """The option strings of every ``add_argument`` call in a file (the
+    flags, not the positional names)."""
+    with open(path) as fin:
+        tree = ast.parse(fin.read())
+    return {a.value for n in ast.walk(tree) if isinstance(n, ast.Call)
+            and getattr(n.func, "attr", None) == "add_argument"
+            for a in n.args if isinstance(a, ast.Constant)
+            and isinstance(a.value, str) and a.value.startswith("-")}
+
+
+def _port_flags(rel):
+    """The flags of the port file `rel`, with the shared tool parser's
+    (``bench_common.tool_parser``) where the file builds on it."""
+    path = os.path.join(ROOT, rel)
+    flags = _flags(path)
+    with open(path) as fin:
+        if "tool_parser(" in fin.read():
+            flags |= _flags(os.path.join(ROOT, PORT_PKG, "tools",
+                                         "bench_common.py"))
+    return flags
+
+
+def _flag_counterparts():
+    """JAX script (a path from the root) -> its port counterpart's path,
+    for every JAX tool and root script that has one in the port."""
+    out = {}
+    port_tools = os.path.join(PORT_PKG, "tools")
+    for name in sorted(os.listdir(os.path.join(ROOT, "tools"))):
+        if not name.endswith(".py"):
+            continue
+        if os.path.isfile(os.path.join(ROOT, port_tools, name)):
+            out[f"tools/{name}"] = os.path.join(port_tools, name)
+        elif name in TOOLS and TOOLS[name][0].startswith(PORT_PKG + "/"):
+            out[f"tools/{name}"] = TOOLS[name][0]
+    for name, (target, _) in ROOT_SCRIPTS.items():
+        out[name] = target
+    return out
+
+
+def _flag_gaps():
+    gaps = []
+    for jax_rel, port_rel in _flag_counterparts().items():
+        theirs = _flags(os.path.join(ROOT, jax_rel))
+        ours = _port_flags(port_rel)
+        gaps += [f"{os.path.basename(jax_rel)}:{flag}"
+                 for flag in sorted(theirs - ours)]
+    return gaps
+
+
+def test_the_flag_walk_sees_the_tools():
+    pairs = _flag_counterparts()
+    for name in ("profile_step.py", "roofline.py", "bench_eval.py",
+                 "bench_exp.py", "bench_serve.py", "bench_serve_http.py",
+                 "shard_data_demo.py", "bench_pallas.py", "serve.py",
+                 "run_multihost.py"):
+        assert f"tools/{name}" in pairs, name
+    assert pairs["main.py"] == "ultra_pytorch_tpu_torch/run/__main__.py"
+    assert "--prng" in _flags(os.path.join(ROOT, "tools", "roofline.py"))
+    assert "--device" in _port_flags(pairs["tools/roofline.py"])
+
+
+def test_every_jax_flag_is_a_port_flag():
+    gaps = _flag_gaps()
+    missing = [g for g in gaps if g not in FLAG_DIFFERENCES]
+    assert not missing, (
+        "JAX flags without a port flag of the same spelling or a row in "
+        f"FLAG_DIFFERENCES: {missing}")
+    stale = sorted(set(FLAG_DIFFERENCES) - set(gaps))
+    assert not stale, f"FLAG_DIFFERENCES rows no longer needed: {stale}"
+
+
+@pytest.mark.parametrize("key", sorted(FLAG_DIFFERENCES))
+def test_flag_difference_rows_name_a_jax_flag(key):
+    script, flag = key.split(":")
+    path = os.path.join(ROOT, "tools", script)
+    assert os.path.isfile(path) and flag in _flags(path), key
+    assert FLAG_DIFFERENCES[key]
+
+
+@pytest.mark.parametrize("script,flags", [
+    ("profile_step.py", ["--prng"]),
+    ("roofline.py", ["--prng", "--ranker-extra"]),
+    ("bench_eval.py", ["--train-qps"])])
+def test_the_measurement_tools_take_the_jax_flags(script, flags):
+    port = _port_flags(os.path.join(PORT_PKG, "tools", script))
+    assert set(flags) <= _flags(os.path.join(ROOT, "tools", script))
+    assert set(flags) <= port
+    assert "--kernels" in port

@@ -246,7 +246,7 @@ def test_bench_constants_are_jax():
                                       "BENCH_STEPS", "CHUNK")}
     assert consts == {k: getattr(bench, k) for k in consts}
     assert len(consts) == 5
-    assert bench.KERNELS_ON == COMBOS["all_on"]
+    assert bench_common.KERNEL_EXTRAS == COMBOS["all_on"]
 
 
 def test_bench_exp_prints_the_jax_keys(capsys):

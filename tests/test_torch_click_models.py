@@ -183,9 +183,13 @@ def test_json_matches_jax(tmp_path, name, eta):
 @pytest.mark.parametrize("check_validation", [True, False])
 def test_k5_with_another_click_model_raises_at_feed_construction(
         tmp_path, name, check_validation):
-    """``use_pallas_click=true`` samples PBM only: a UBM or cascade feed
-    raises when it is built, also when the click-rate estimate (the first
-    sampling) is skipped. Without it the feed samples its model."""
+    """The name is the test's history: it asserted a raise that the JAX
+    feed never had, and now asserts the opposite. ``use_pallas_click=true``
+    selects K5 for PBM only. A UBM or cascade feed with it is built, as
+    the JAX feed is (its kernel branch is PBM's alone), also when the
+    click-rate estimate (the first sampling) is skipped, and samples its
+    own model: the same draws as the feed without the flag under one
+    generator."""
     cm.main([name, "0.1", "1.0", "4", "1.0", str(tmp_path)])
     path = tmp_path / f"{name}_0.1_1.0_4_1.0.json"
     rng = np.random.default_rng(0)
@@ -198,14 +202,17 @@ def test_k5_with_another_click_model_raises_at_feed_construction(
         dids=[str(d) for d in range(Q * L)], feature_size=4,
         rank_list_size=L, max_label=4.0).to_device("cpu")
     alg = types.SimpleNamespace(rank_list_size=L)
-    with pytest.raises(ValueError, match="PBM"):
-        feeds.ClickSimulationFeed(
-            alg, 8, f"click_model_json={path},use_pallas_click=true", ds,
+    plans = []   # the window plan and the pool size, flag on and off
+    for flag in (",use_pallas_click=true", ""):
+        feed = feeds.ClickSimulationFeed(
+            alg, 8, f"click_model_json={path}{flag}", ds,
             check_validation=check_validation)
-    feed = feeds.ClickSimulationFeed(alg, 8, f"click_model_json={path}", ds,
-                                     check_validation=check_validation)
-    qs, clicks, valid = feed.train_batch_plan(
-        torch.Generator().manual_seed(0), 0, 3)
+        plans.append(feed.train_batch_plan(
+            torch.Generator().manual_seed(0), 0, 3)
+            + (feed._pool_size(8),))
+    for a, b in zip(*plans):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+    qs, clicks, valid, _ = plans[0]
     assert clicks.shape == (3, 8, L)
     if name == "cascade":
         assert clicks.sum(-1).max() <= 1

@@ -4,10 +4,11 @@
 * ``dryrun_multichip`` as an NCCL group of one (every window a captured
   graph) and as two gloo ranks sharing ``cuda:0``: all 18 cases.
 * ``shard_data_demo`` at 20,000 rows x 220 features in lists of 200, on
-  one rank (graph windows) and as two gloo ranks sharing ``cuda:0``:
-  finite losses, each rank's share of the table, exact launches.
-* ``bench_scaling`` at [32, 16] widths over the visible cards and with
-  two ranks sharing ``cuda:0``.
+  one rank (graph windows) and as two gloo ranks sharing ``cuda:0``, with
+  ``--kernels``: finite losses, each rank's share of the table, exact
+  launches.
+* ``bench_scaling --kernels`` at [32, 16] widths over the visible cards
+  and with two ranks sharing ``cuda:0``.
 
 These need a CUDA device and skip without one. The file imports nothing
 of JAX:
@@ -71,7 +72,7 @@ def test_dryrun_on_the_card(cuda, share_card, graphs):
     (["--ranks", "1"], "graph"), (["--share_card", "2"], "eager")])
 def test_shard_data_demo_on_the_card(cuda, args, windows):
     res = shard_data_demo.main(["--rows", "20000", "--steps", "3",
-                                "--batch", "16"] + args)
+                                "--batch", "16", "--kernels"] + args)
     assert math.isfinite(res["loss_first"]) and math.isfinite(
         res["loss_last"])
     assert res["windows"] == windows
@@ -84,7 +85,7 @@ def test_shard_data_demo_on_the_card(cuda, args, windows):
 
 def test_bench_scaling_on_the_card(cuda):
     small = ["3", "2", "--features", "16", "--hidden",
-             "hidden_layer_sizes=[32, 16]"]
+             "hidden_layer_sizes=[32, 16]", "--kernels"]
     rows = bench_scaling.main(small)
     shared = bench_scaling.main(small + ["--share_card", "2"])
     assert [r["devices"] for r in rows] == bench_scaling.world_sizes(

@@ -75,8 +75,11 @@ ROOFLINE_KEYS = {
 
 
 def test_roofline_keys(capsys):
+    # With the kernels, so that hfu (what K1-K4 execute) is given; the
+    # default run (the library path, hfu null) is test_torch_tool_protocol's.
     out = roofline.main(SMALL + ["--batch", "8", "--list-size", "5",
-                                 "--chunk", "2", "--steps", "4"])
+                                 "--chunk", "2", "--steps", "4",
+                                 "--kernels"])
     assert _last_json(capsys) == json.loads(json.dumps(out))
     for key in ROOFLINE_KEYS.values():
         assert key in out, key
@@ -207,11 +210,11 @@ def test_bench_eval_three_ways_agree(capsys):
 
 
 def test_bench_eval_loop_equals_validate():
-    exp = bench_common.bench_experiment(
-        "cpu", 8, 12, 16, HIDDEN, data={
-            "train": bench_common.synthetic(16, 0, 12, 16),
-            "valid": bench_eval.ragged(bench_common.synthetic(30, 1, 12, 16),
-                                       2)})
+    exp = bench_eval.eval_experiment(
+        "cpu", {"train": bench_common.synthetic(16, 0, 12, 16),
+                "valid": bench_eval.ragged(
+                    bench_common.synthetic(30, 1, 12, 16), 2)},
+        8, HIDDEN, kernels=True)
     assert (exp.datasets["valid"].initial_list_lengths >= 6).all()
     assert (exp.datasets["valid"].initial_list == -1).any()
     fused, loop = exp.validate(), bench_eval.loop_validate(exp)

@@ -47,9 +47,6 @@ FEATURES = 136
 BENCH_STEPS = 2400
 CHUNK = 800        # steps a window: one CUDA graph of 800 steps
 PRNG = "rbg"       # the JAX script's jax_default_prng_impl
-# bench_pallas.py's all_on: (ranker extra, algorithm hparams, feed extra).
-KERNELS_ON = (",use_pallas=true", "loss_func=fused_softmax_loss",
-              ",use_pallas_click=true")
 
 
 def cpu_baseline(steps: int) -> float:
@@ -63,13 +60,11 @@ def cpu_baseline(steps: int) -> float:
 
 
 def main(argv=None) -> Dict:
-    p = bc.tool_parser(__doc__.splitlines()[0])
+    p = bc.tool_parser(__doc__.splitlines()[0], kernels=True)
     p.add_argument("--steps", type=int, default=BENCH_STEPS)
     p.add_argument("--chunk", type=int, default=CHUNK)
     p.add_argument("--baseline-steps", type=int, default=20,
                    help="CPU steps of the baseline (ULTRA_REF_QPS skips it)")
-    p.add_argument("--kernels", action="store_true",
-                   help="bench_pallas.py's all_on extras: K1-K5")
     args = p.parse_args(argv)
     device = bc.start(args)
     print(f"torch.backends.cuda.matmul.allow_tf32 = "
@@ -83,11 +78,9 @@ def main(argv=None) -> Dict:
     else:
         ref_qps = float(ref)
         print(f"baseline: ULTRA_REF_QPS = {ref_qps}", flush=True)
-    ranker, algo, feed = KERNELS_ON if args.kernels else ("", "", "")
     before = bc.launch_counts()
     exp = bc.make_bench_setup(device, BATCH, LIST_SIZE, FEATURES,
-                              ranker_extra=ranker, algo_extra=algo,
-                              feed_extra=feed, prng=PRNG)
+                              prng=PRNG, **bc.extras(args.kernels))
     run = bc.time_chunks(exp, args.steps, args.chunk, verbose=False)
     run["launches"] = bc.launches_since(before)
     run.update(device=str(exp.device), chunk=args.chunk,

@@ -14,7 +14,9 @@ feed init; ``rounds`` draws 1 + 8 candidates per slot and keeps each
 slot's first clicked one. Slots left without a clicked list are masked
 out of the loss. The window plan draws a whole window's queries and
 clicks in one batched pass, written out as a leading batch dimension, so
-K5 (``use_pallas_click=true``) runs once per window. The plan reads
+K5 (``use_pallas_click=true`` with PBM) runs once per window; with UBM or
+cascade the flag changes nothing, as in the JAX feed, whose kernel
+branch is PBM's alone. The plan reads
 nothing back to the host, so a window can be captured as a CUDA graph:
 its start step may be a device scalar, and the pool size is fixed when the
 feed is built.
@@ -173,7 +175,7 @@ class ClickSimulationFeed(BaseInputFeed, _ClickFeedMixin):
             "dynamic_bias_eta_change": 0.0,
             "dynamic_bias_step_interval": 1000,
             # PBM clicks through K5 (ops/kernels/click_sim.py); another
-            # click model with it raises at construction.
+            # click model samples with its own sampler, as in the JAX feed.
             "use_pallas_click": False,
             "resample_strategy": "compact",
             # Pool size multiple; 0 = auto-size from the click rate
@@ -185,14 +187,6 @@ class ClickSimulationFeed(BaseInputFeed, _ClickFeedMixin):
         super().__init__(*args, **kwargs)
         self.check_validation = check_validation
         self._load_click_model()
-        if (self.click_model is not None and self.hparams.use_pallas_click
-                and self.click_model.model_name != cm.PBM):
-            # The JAX feed falls back to its jnp sampler here; the port
-            # says so at construction instead.
-            raise ValueError(
-                "use_pallas_click=true samples PBM clicks through K5; "
-                f"{self.hparams.click_model_json} is a "
-                f"{self.click_model.model_name}")
         self._p_click_lo = self._estimate_click_rate()
 
     def _simulate_clicks(self, model, generator, qs: torch.Tensor
@@ -205,7 +199,10 @@ class ClickSimulationFeed(BaseInputFeed, _ClickFeedMixin):
         mask = ds.mask[qs][..., :L]
         if self.hparams.oracle_mode:
             clicks = labels * mask
-        elif self.hparams.get("use_pallas_click"):
+        elif (self.hparams.get("use_pallas_click")
+              and model.model_name == cm.PBM):
+            # K5 samples PBM only; UBM and cascade take their own sampler
+            # below, as the JAX feed's kernel branch is PBM's alone.
             clicks = click_sim.sample_pbm_clicks(model, generator, labels,
                                                  mask)
         else:

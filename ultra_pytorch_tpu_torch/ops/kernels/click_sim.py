@@ -18,8 +18,9 @@ written into the kernel and writes ``(u < probs) * mask``.
   CPU tests feed it JAX's own uniforms.
 
 Unlike the JAX feed, which used the jnp sampler off-TPU, the port has no
-backend gate: ``use_pallas_click=true`` means K5 on CUDA and its plain
-version on the CPU.
+backend gate: ``use_pallas_click=true`` with PBM means K5 on CUDA and its
+plain version on the CPU. With UBM or cascade both feeds sample with the
+click model's own sampler.
 """
 
 from __future__ import annotations

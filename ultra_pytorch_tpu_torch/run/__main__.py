@@ -24,10 +24,12 @@ its end (``Experiment.snapshot_state``), so it saves exactly the state its
 validation measured. ``--sync_readback`` reads each window back before it
 dispatches the next; both loops print the same metrics and save the same
 checkpoints. A window's queries/s runs from the previous read-back to its
-own. A window whose mean loss is inf or nan stops the run before its
-checkpoint decision, so it never overwrites the best checkpoint, and the
-window already dispatched after it is never read; a run that diverged
-saves nothing at its end either. ``--test_only`` restores the checkpoint,
+own. A window whose mean loss is nan or +inf (:func:`diverged_loss`, as
+the JAX ``main.py`` reads it: -inf does not stop a run) stops the run
+before its checkpoint decision, so it never overwrites the best
+checkpoint, and the window already dispatched after it is never read. A
+run that wrote no checkpoint, diverged or not, saves its final state at
+its end, as ``main.py`` does. ``--test_only`` restores the checkpoint,
 prints the test metrics and writes a TREC ranklist. ``--profile_steps N``
 traces the first N steps with ``torch.profiler`` into
 ``<model_dir>/profile``.
@@ -55,7 +57,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import time
 from typing import List, Optional
@@ -150,6 +151,12 @@ def _restore(exp: Experiment, args) -> bool:
     return restored
 
 
+def diverged_loss(loss: Optional[float]) -> bool:
+    """Whether a window's mean loss stops the run: nan or +inf, as
+    ``main.py`` tests it (a missing loss or -inf does not)."""
+    return loss is not None and (loss != loss or loss == float("inf"))
+
+
 def _line(summary) -> str:
     return ", ".join(f"{k}={v:.5f}" for k, v in sorted(summary.items()))
 
@@ -223,7 +230,7 @@ def train(args, hosts: int = 1) -> None:
             print("  test: " + _line(test_summary))
         # The divergence check comes before the checkpoint decision: a
         # window whose loss went inf/nan never overwrites the best one.
-        diverged = not math.isfinite(metrics.get("loss", 0.0))
+        diverged = diverged_loss(metrics.get("loss"))
         obj = summary.get(objective)
         if (not diverged and obj is not None and obj == obj
                 and (best is None or obj > best)
@@ -239,7 +246,7 @@ def train(args, hosts: int = 1) -> None:
             print("Divergence detected (loss inf/nan); stopping.")
         return not diverged
 
-    pending, diverged = None, False
+    pending = None
     while step < args.max_train_iteration:
         window = min(args.steps_per_checkpoint,
                      args.max_train_iteration - step)
@@ -255,19 +262,18 @@ def train(args, hosts: int = 1) -> None:
                  "snap": None if args.sync_readback else exp.snapshot_state()}
         if args.sync_readback:
             if not flush(entry):
-                diverged = True
                 break
             continue
         if pending is not None and not flush(pending):
             # The window dispatched after it trained from the diverged
             # state: it is never read, so it cannot overwrite the best
             # checkpoint.
-            pending, diverged = None, True
+            pending = None
             break
         pending = entry
     if pending is not None:
-        diverged = not flush(pending)
-    if best is None and not diverged:
+        flush(pending)
+    if best is None:
         exp.save({"step": step})
     logger.close()
     print(f"Training done at step {step}; best {objective}={best}")

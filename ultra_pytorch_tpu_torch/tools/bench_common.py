@@ -8,19 +8,17 @@ queries a step of L = 10 documents, PBM clicks at eta 1.0 from a
 click-model JSON written to a temporary directory, 4,096 synthetic
 queries from a numpy seed.
 
-Two ways to set it up:
-
-* :func:`make_bench_setup` and :func:`time_chunks`, the JAX protocol
-  itself, which ``bench``, ``tools/bench_exp`` and ``tools/bench_kernels``
-  run: ``exp_settings`` with the extras appended where the JAX harness
-  appends them, so the kernel hparams stay at their defaults (off) unless
-  an extra turns one on, and nDCG@10 alone;
-* :func:`bench_experiment`, which the measurement tools
-  (``profile_step``, ``roofline``, ``bench_eval``, ``bench_scaling``) and
-  ``chip_smoke.py`` run: every kernel hparam on (``use_pallas=true``,
-  ``loss_func=fused_softmax_loss``, ``use_pallas_click=true``) and nDCG and
-  MRR at 3, 5 and 10 (:func:`dla_settings`), since those tools measure the
-  hand-written kernels.
+One protocol, the JAX harness's own: :func:`make_bench_setup` (the
+counterpart of its ``make_bench_setup``) builds :func:`exp_settings`
+with the extras appended where the JAX harness appends them, so the
+kernel hparams stay at their defaults (off) unless an extra turns one on,
+and :func:`time_chunks` times it. Every tool's settings are these
+(:func:`protocol_settings`), as its JAX counterpart's are, and the
+training tools' ``--kernels`` appends :data:`KERNEL_EXTRAS` (the
+``all_on`` row of ``bench_pallas.py``'s combinations: K1-K5) through
+:func:`extras`. :func:`dla_settings` adds validation and test feeds and
+nDCG and MRR at 3, 5 and 10: the JAX ``tools/bench_eval.py``'s settings,
+which ``bench_eval`` and ``chip_smoke.py``'s phases build.
 
 Also the card's name and power limit, the H100's peak rates and the
 tools' shared argument and output.
@@ -43,7 +41,12 @@ FEATURES = 136                 # MSLR-WEB10K's feature count
 HIDDEN = "hidden_layer_sizes=[512, 256, 128]"
 BATCH, LIST = 256, 10          # the training batch: queries x documents
 NUM_QUERIES = 4096             # synthetic train queries
+PRNGS = ("threefry2x32", "rbg", "unsafe_rbg")   # the JAX tools' --prng
 KERNELS = ("K1", "K2", "K3", "K4", "K5")
+# The kernel hparams as the all_on row of bench_pallas.py's combinations
+# writes them: (ranker extra, algorithm hparams, feed extra).
+KERNEL_EXTRAS = (",use_pallas=true", "loss_func=fused_softmax_loss",
+                 ",use_pallas_click=true")
 
 
 def _rate(var: str, default: float) -> float:
@@ -93,13 +96,13 @@ def synthetic(num_queries: int, seed: int, length: int = LIST,
         rank_list_size=length, max_label=2.0)
 
 
-def exp_settings(list_size: int = LIST) -> Dict:
+def exp_settings(list_size: int = LIST, hidden: str = HIDDEN) -> Dict:
     """The JAX system's ``_exp_settings``: DLA with the DNN at
-    [512, 256, 128], every hparam at its default, nDCG@10, lists and the
-    cutoff at `list_size`."""
+    [512, 256, 128] (or `hidden`), every hparam at its default, nDCG@10,
+    lists and the cutoff at `list_size`."""
     return {
         "ranking_model": "DNN",
-        "ranking_model_hparams": HIDDEN,
+        "ranking_model_hparams": hidden,
         "learning_algorithm": "DLA",
         "learning_algorithm_hparams": "",
         "metrics": ["ndcg"],
@@ -109,24 +112,44 @@ def exp_settings(list_size: int = LIST) -> Dict:
     }
 
 
+def extras(kernels: bool = False, ranker_extra: str = "") -> Dict[str, str]:
+    """:func:`make_bench_setup`'s three extras: with `kernels`
+    :data:`KERNEL_EXTRAS`, then `ranker_extra` appended to the ranker's."""
+    ranker, algo, feed = KERNEL_EXTRAS if kernels else ("", "", "")
+    return {"ranker_extra": ranker + ranker_extra, "algo_extra": algo,
+            "feed_extra": feed}
+
+
+def protocol_settings(click_json: str, list_size: int = LIST,
+                      hidden: str = HIDDEN, ranker_extra: str = "",
+                      algo_extra: str = "", feed_extra: str = "") -> Dict:
+    """The JAX harness's settings: :func:`exp_settings` with
+    `ranker_extra` appended to the ranker's hparams, `algo_extra` as the
+    algorithm's and ``click_model_json=<click_json>`` + `feed_extra` as
+    the ``ClickSimulationFeed``'s."""
+    settings = exp_settings(list_size, hidden)
+    settings["ranking_model_hparams"] += ranker_extra
+    settings["learning_algorithm_hparams"] = algo_extra
+    settings["train_input_feed"] = "ClickSimulationFeed"
+    settings["train_input_hparams"] = (f"click_model_json={click_json}"
+                                       + feed_extra)
+    return settings
+
+
 def dla_settings(kernels: bool, click_json: str, hidden: str = HIDDEN,
                  list_size: int = LIST) -> Dict:
-    """The bench protocol's experiment settings, kernel hparams on or off."""
-    on = "true" if kernels else "false"
-    return {
-        "train_input_feed": "ClickSimulationFeed",
-        "train_input_hparams": f"click_model_json={click_json},"
-                               f"use_pallas_click={on}",
-        "valid_input_feed": "DirectLabelFeed", "valid_input_hparams": "",
-        "test_input_feed": "DirectLabelFeed", "test_input_hparams": "",
-        "ranking_model": "DNN",
-        "ranking_model_hparams": f"{hidden},use_pallas={on}",
-        "learning_algorithm": "DLA",
-        "learning_algorithm_hparams":
-            "loss_func=fused_softmax_loss" if kernels else "",
-        "metrics": ["ndcg", "mrr"], "metrics_topn": [3, 5, 10],
-        "objective_metric": "ndcg_10", "selection_bias_cutoff": list_size,
-    }
+    """:func:`protocol_settings` with :data:`KERNEL_EXTRAS` when
+    `kernels`, direct-label validation and test feeds, and nDCG and MRR
+    at 3, 5 and 10 (the objective nDCG@10): the JAX
+    ``tools/bench_eval.py``'s settings at the cutoff `list_size`."""
+    settings = protocol_settings(click_json, list_size, hidden,
+                                 **extras(kernels))
+    settings.update(
+        valid_input_feed="DirectLabelFeed", valid_input_hparams="",
+        test_input_feed="DirectLabelFeed", test_input_hparams="",
+        metrics=["ndcg", "mrr"], metrics_topn=[3, 5, 10],
+        objective_metric="ndcg_10")
+    return settings
 
 
 def write_click_model(directory: str) -> str:
@@ -162,13 +185,17 @@ def write_ultra_split(data_dir: str, split: str, num_queries: int,
             fout.write(qid + " " + " ".join(f"{v:g}" for v in labels) + "\n")
 
 
-def _experiment(settings: Dict, tmp, data: Dict, device, batch: int,
-                seed: int = 0, prng: str = "threefry2x32"):
-    """An ``Experiment`` of `settings` over the splits of `data`, its state
-    initialised from `seed`; the model directory lives in `tmp` (a
-    ``TemporaryDirectory``), which the experiment holds."""
+def experiment(settings_of, device, data: Dict, batch: int = BATCH,
+               seed: int = 0, prng: str = "threefry2x32"):
+    """An ``Experiment`` of ``settings_of(click_json)`` (the protocol's
+    PBM click model written to a temporary directory, which the
+    experiment holds) over the splits of `data`, its state initialised
+    from `seed`; `prng` is the JAX trainer's ``--prng`` (the shape of the
+    data key)."""
     from ultra_pytorch_tpu_torch.run.experiment import Experiment
 
+    tmp = tempfile.TemporaryDirectory(prefix="ultra_bench_")
+    settings = settings_of(write_click_model(tmp.name))
     exp = Experiment(settings, tmp.name, os.path.join(tmp.name, "model"),
                      batch_size=batch, seed=seed, device=device,
                      prng_impl=prng)
@@ -178,49 +205,20 @@ def _experiment(settings: Dict, tmp, data: Dict, device, batch: int,
     return exp
 
 
-def bench_experiment(device, batch: int = BATCH, list_size: int = LIST,
-                     features: int = FEATURES, hidden: str = HIDDEN,
-                     num_queries: int = NUM_QUERIES, valid_queries: int = 0,
-                     kernels: bool = True, seed: int = 0,
-                     data: Optional[Dict] = None):
-    """An ``Experiment`` on :func:`dla_settings` (every kernel hparam on
-    by default), its state initialised from `seed`: synthetic train
-    queries (numpy seed 0) and, with `valid_queries`, a valid split (seed
-    1), or the splits of `data`. The click-model JSON and the model
-    directory live in a temporary directory held by the experiment."""
-    tmp = tempfile.TemporaryDirectory(prefix="ultra_bench_")
-    settings = dla_settings(kernels, write_click_model(tmp.name), hidden,
-                            list_size)
-    if data is None:
-        data = {"train": synthetic(num_queries, 0, list_size, features)}
-        if valid_queries:
-            data["valid"] = synthetic(valid_queries, 1, list_size,
-                                      features)
-    return _experiment(settings, tmp, data, device, batch, seed)
-
-
 def make_bench_setup(device, batch: int = BATCH, list_size: int = LIST,
                      features: int = FEATURES,
                      num_queries: int = NUM_QUERIES, ranker_extra: str = "",
                      algo_extra: str = "", feed_extra: str = "",
-                     prng: str = "threefry2x32"):
+                     prng: str = "threefry2x32", hidden: str = HIDDEN):
     """An ``Experiment`` on the JAX bench protocol, the counterpart of the
-    JAX harness's ``make_bench_setup``: :func:`exp_settings` with
-    `ranker_extra` appended to the ranker's hparams, `algo_extra` as the
-    algorithm's and ``click_model_json=<PBM eta 1>`` + `feed_extra` as the
-    ``ClickSimulationFeed``'s, over :func:`synthetic` train queries (numpy
-    seed 0), its state from seed 0. `prng` is the JAX trainer's
-    ``--prng`` (the shape of the data key). The click-model JSON lives in
-    a temporary directory held by the experiment."""
-    tmp = tempfile.TemporaryDirectory(prefix="ultra_bench_")
-    settings = exp_settings(list_size)
-    settings["ranking_model_hparams"] += ranker_extra
-    settings["learning_algorithm_hparams"] = algo_extra
-    settings["train_input_feed"] = "ClickSimulationFeed"
-    settings["train_input_hparams"] = (
-        f"click_model_json={write_click_model(tmp.name)}" + feed_extra)
+    JAX harness's ``make_bench_setup``: :func:`protocol_settings` over
+    :func:`synthetic` train queries (numpy seed 0), its state from seed 0
+    (see :func:`experiment`). `hidden` replaces the ranker's widths."""
     data = {"train": synthetic(num_queries, 0, list_size, features)}
-    return _experiment(settings, tmp, data, device, batch, prng=prng)
+    return experiment(
+        lambda click_json: protocol_settings(
+            click_json, list_size, hidden, ranker_extra, algo_extra,
+            feed_extra), device, data, batch, prng=prng)
 
 
 def graph_pools(device) -> Optional[Dict[tuple, int]]:
@@ -282,12 +280,19 @@ def time_chunks(exp, steps: int, chunk: int, verbose: bool = True
             "windows": windows + 1, "steps": (windows + 1) * chunk}
 
 
-def tool_parser(description: str) -> argparse.ArgumentParser:
-    """An argument parser with the tools' ``--device``."""
+def tool_parser(description: str, kernels: bool = False
+                ) -> argparse.ArgumentParser:
+    """An argument parser with the tools' ``--device`` and, with
+    `kernels`, ``--kernels``."""
     parser = argparse.ArgumentParser(description=description)
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; without a card "
                              "that is an error, pass cpu to run there)")
+    if kernels:
+        parser.add_argument("--kernels", action="store_true",
+                            help="append bench_pallas.py's all_on extras "
+                                 "(K1-K5); by default the kernel hparams "
+                                 "are off, as in the JAX tool")
     return parser
 
 

@@ -4,8 +4,10 @@ another.
 The port's counterpart of the JAX package's ``tools/bench_eval.py``. On a
 valid split of `--queries` synthetic queries of `--list-size` candidates
 (ragged: each list keeps between half and all of them), the DLA ranker
-of the bench protocol at full width with K1 (state from the seed) is
-validated
+at full width on the JAX tool's settings (``bench_common.dla_settings``:
+the kernel hparams off, nDCG and MRR at 3, 5 and 10, the cutoff at 10;
+``--kernels`` turns K1-K5 on, so validation runs K1), its state from the
+seed, is validated
 
 * ``fused``: ``Experiment.validate``, on the card one replayed CUDA graph
   a split (eager on the CPU), one read-back;
@@ -18,20 +20,21 @@ validated
 
 All three use the same tie-break draws, and their metrics must agree
 within 1e-4 (the tool raises otherwise). ``window_share_pct`` is the
-share a pass would take of a 50-step training window at the
-training rate this run measures on the bench protocol (graph windows on
-the card), so no other machine's rate enters it.
+share a pass would take of a 50-step training window at the training
+rate: ``--train-qps`` when given, else the rate this run measures on the
+JAX bench protocol with the same kernel hparams (graph windows on the
+card), so no other machine's rate enters it unless the caller passes one.
 
 Usage: python -m ultra_pytorch_tpu_torch.tools.bench_eval [--queries 1000]
            [--list-size 200] [--features 136] [--batch 256] [--repeats 5]
-           [--device cuda]
+           [--train-qps QPS] [--kernels] [--device cuda]
 """
 
 from __future__ import annotations
 
 import json
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -72,10 +75,13 @@ def loop_validate(exp, split: str = "valid") -> Dict[str, float]:
     return merge_summary(summaries, counts)
 
 
-def train_rate(device, batch: int, features: int, hidden: str) -> float:
-    """Training queries/s on the bench protocol (L = 10) at this batch and
-    width: TRAIN_WINDOWS windows of WINDOW steps after a warm-up window."""
-    exp = bc.bench_experiment(device, batch, bc.LIST, features, hidden)
+def train_rate(device, batch: int, features: int, hidden: str,
+               kernels: bool = False) -> float:
+    """Training queries/s on the JAX bench protocol (L = 10) at this batch
+    and width, the kernel hparams on with `kernels`: TRAIN_WINDOWS windows
+    of WINDOW steps after a warm-up window."""
+    exp = bc.make_bench_setup(device, batch, features=features,
+                              hidden=hidden, **bc.extras(kernels))
     exp.train_steps_device(WINDOW)
     bc.sync(device)
     t0 = time.perf_counter()
@@ -85,15 +91,25 @@ def train_rate(device, batch: int, features: int, hidden: str) -> float:
     return TRAIN_WINDOWS * WINDOW * batch / (time.perf_counter() - t0)
 
 
+def eval_experiment(device, data, batch: int = bc.BATCH,
+                    hidden: str = bc.HIDDEN, kernels: bool = False):
+    """An ``Experiment`` on the JAX tool's settings (the kernel hparams
+    on with `kernels`) over the splits of `data`, its state from seed 0."""
+    return bc.experiment(
+        lambda click_json: bc.dla_settings(kernels, click_json, hidden),
+        device, data, batch)
+
+
 def bench(device, queries: int = 1000, list_size: int = 200,
           features: int = bc.FEATURES, hidden: str = bc.HIDDEN,
-          batch: int = bc.BATCH, repeats: int = 5) -> Dict:
+          batch: int = bc.BATCH, repeats: int = 5,
+          train_qps: Optional[float] = None, kernels: bool = False) -> Dict:
     data = {"train": bc.synthetic(64, 0, list_size, features),
             "valid": ragged(bc.synthetic(queries, 1, list_size, features),
                             2)}
-    exp = bc.bench_experiment(device, batch, list_size, features, hidden,
-                              data=data)
-    qps_train = train_rate(device, batch, features, hidden)
+    exp = eval_experiment(device, data, batch, hidden, kernels)
+    qps_train = (train_rate(device, batch, features, hidden, kernels)
+                 if train_qps is None else train_qps)
     window_s = WINDOW * batch / qps_train
 
     def row(dt: float) -> Dict[str, float]:
@@ -103,8 +119,8 @@ def bench(device, queries: int = 1000, list_size: int = 200,
     before = bc.launch_counts()
     out = {"queries": queries, "list_size": list_size, "features": features,
            "batch": batch, "metric_values": len(exp._metric_keys()),
-           "device": str(device), "train_queries_per_sec": qps_train,
-           "window": WINDOW}
+           "device": str(device), "kernels": kernels,
+           "train_queries_per_sec": qps_train, "window": WINDOW}
     values = {}
     for name, fn in (("fused", exp.validate),
                      ("naive_loop", lambda: loop_validate(exp))):
@@ -151,17 +167,23 @@ def bench(device, queries: int = 1000, list_size: int = 200,
 
 
 def main(argv=None) -> Dict:
-    p = bc.tool_parser(__doc__.splitlines()[0])
+    p = bc.tool_parser(__doc__.splitlines()[0], kernels=True)
     p.add_argument("--queries", type=int, default=1000)
     p.add_argument("--list-size", type=int, default=200)
     p.add_argument("--features", type=int, default=bc.FEATURES)
     p.add_argument("--hidden", default=bc.HIDDEN)
     p.add_argument("--batch", type=int, default=bc.BATCH)
     p.add_argument("--repeats", type=int, default=5)
+    p.add_argument("--train-qps", type=float, default=None,
+                   help="training queries/s for window_share_pct (default: "
+                        "measured in this run on the bench protocol; the "
+                        "JAX tool's default, 1,850,000, is a TPU figure "
+                        "and is not this card's)")
     args = p.parse_args(argv)
     device = bc.start(args)
     out = bench(device, args.queries, args.list_size, args.features,
-                args.hidden, args.batch, args.repeats)
+                args.hidden, args.batch, args.repeats, args.train_qps,
+                args.kernels)
     print(json.dumps(out), flush=True)
     return out
 

@@ -25,8 +25,7 @@ from ultra_pytorch_tpu_torch.tools import bench_common as bc
 def main(argv=None) -> Dict:
     ap = bc.tool_parser(__doc__.splitlines()[0])
     ap.add_argument("--chunk", type=int, default=25)
-    ap.add_argument("--prng", default="threefry2x32",
-                    choices=["threefry2x32", "rbg", "unsafe_rbg"])
+    ap.add_argument("--prng", default="threefry2x32", choices=bc.PRNGS)
     ap.add_argument("--steps", type=int, default=400)
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--features", type=int, default=136)

@@ -38,8 +38,7 @@ COMBOS = (
     ("pallas_mlp", ",use_pallas=true", "", ""),
     ("fused_loss", "", "loss_func=fused_softmax_loss", ""),
     ("pallas_click", "", "", ",use_pallas_click=true"),
-    ("all_on", ",use_pallas=true", "loss_func=fused_softmax_loss",
-     ",use_pallas_click=true"),
+    ("all_on", *bc.KERNEL_EXTRAS),
     ("bf16", ",compute_dtype=bfloat16", "", ""),
     ("rounds_resample", "", "", ",resample_strategy=rounds"),
 )

@@ -1,9 +1,10 @@
 """Data-parallel scaling efficiency of the DLA training window.
 
 The port's counterpart of the JAX package's ``tools/bench_scaling.py``.
-Runs the bench protocol's training window (``bench_common``: DLA with the
-DNN at [512, 256, 128], F = 136, every kernel hparam on) as 1, 2, 4, ...
-data-parallel ranks and reports queries/s and the scaling efficiency
+Runs the JAX bench protocol's training window
+(``bench_common.make_bench_setup``, the JAX tool's ``_exp_settings(10)``:
+DLA with the DNN at [512, 256, 128], F = 136, the kernel hparams off;
+``--kernels`` turns K1-K5 on) as 1, 2, 4, ... data-parallel ranks and reports queries/s and the scaling efficiency
 against the 1-rank row. Each rank holds the whole split (4,096 synthetic
 queries x 10 documents, as the JAX tool's ``shard_dataset`` replicates
 it) and draws B / N of the B = 256 queries a step.
@@ -28,7 +29,8 @@ on every rank afterwards, and the kernels' ``launches`` summed over the
 ranks).
 
 Usage: python -m ultra_pytorch_tpu_torch.tools.bench_scaling
-           [steps_per_window] [windows] [--share_card N] [--device cpu]
+           [steps_per_window] [windows] [--share_card N] [--kernels]
+           [--device cpu]
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from ultra_pytorch_tpu_torch.tools import bench_common as bc
 
 def _rank_rate(rank: int, world: int, init_method: str, device: str,
                backend: Optional[str], window: int, windows: int,
-               features: int, hidden: str) -> Dict:
+               features: int, hidden: str, kernels: bool) -> Dict:
     """One rank's timed windows: seconds, whether they ran as graphs,
     whether the state equals rank 0's, and the kernels' launches."""
     from ultra_pytorch_tpu_torch.parallel import (
@@ -61,7 +63,8 @@ def _rank_rate(rank: int, world: int, init_method: str, device: str,
                        init_method=init_method)
     try:
         before = bc.launch_counts()
-        exp = bc.bench_experiment(dev, features=features, hidden=hidden)
+        exp = bc.make_bench_setup(dev, features=features, hidden=hidden,
+                                  **bc.extras(kernels))
         exp.train_steps(window)                     # warm-up (capture)
         all_reduce_mean(torch.zeros(1, device=dev))
         bc.sync(dev)
@@ -89,8 +92,8 @@ def world_sizes(limit: int) -> List[int]:
 
 def scaling(device, window: int = 25, windows: int = 4,
             max_ranks: int = 2, share_card: int = 0,
-            features: int = bc.FEATURES, hidden: str = bc.HIDDEN
-            ) -> List[Dict]:
+            features: int = bc.FEATURES, hidden: str = bc.HIDDEN,
+            kernels: bool = False) -> List[Dict]:
     """One row a world size (see the module's docstring), printed as it
     is measured."""
     from ultra_pytorch_tpu_torch.parallel import spawn_ranks
@@ -109,7 +112,8 @@ def scaling(device, window: int = 25, windows: int = 4,
         try:
             ranks = spawn_ranks(_rank_rate, n, (
                 f"file://{os.path.join(store, 'rendezvous')}", str(device),
-                backend, window, windows, features, hidden), timeout=1800)
+                backend, window, windows, features, hidden, kernels),
+                timeout=1800)
         finally:
             shutil.rmtree(store, ignore_errors=True)
         qps = window * windows * bc.BATCH / max(r["seconds"] for r in ranks)
@@ -127,7 +131,7 @@ def scaling(device, window: int = 25, windows: int = 4,
 
 
 def main(argv=None) -> List[Dict]:
-    p = bc.tool_parser(__doc__.splitlines()[0])
+    p = bc.tool_parser(__doc__.splitlines()[0], kernels=True)
     p.add_argument("window", nargs="?", type=int, default=25,
                    help="steps a window")
     p.add_argument("windows", nargs="?", type=int, default=4,
@@ -141,7 +145,7 @@ def main(argv=None) -> List[Dict]:
     args = p.parse_args(argv)
     device = bc.start(args)
     return scaling(device, args.window, args.windows, args.max_ranks,
-                   args.share_card, args.features, args.hidden)
+                   args.share_card, args.features, args.hidden, args.kernels)
 
 
 if __name__ == "__main__":

@@ -3,9 +3,11 @@
 The port's counterpart of the JAX package's ``tools/roofline.py``. XLA's
 cost analysis has no torch counterpart, so the step is counted by hand
 from the ranker's widths (``step_work``), and timed as replayed CUDA
-graph windows (``Experiment.train_steps_device``) on the bench protocol
-(``bench_common``: DLA, the DNN at [512, 256, 128], F = 136, B = 256,
-L = 10, PBM clicks, every kernel hparam on).
+graph windows (``Experiment.train_steps_device``) on the JAX bench
+protocol (``bench_common.make_bench_setup``: DLA, the DNN at [512, 256,
+128], F = 136, B = 256, L = 10, PBM clicks, the kernel hparams off as in
+the JAX tool; ``--kernels`` turns K1-K5 on, ``--ranker-extra`` appends
+to the ranker's hparams, ``--prng`` is the JAX tool's).
 
 Two counts of operations a step:
 
@@ -15,14 +17,23 @@ Two counts of operations a step:
   ELU, DLA's two softmax losses and their gradients, and the two towers'
   clip and Adagrad. ``mfu`` is this count over the step's time against
   the 3xTF32 peak (the rate of K1/K2's float32 products on the tensor
-  cores), ``mfu_vs_f32`` against the float32 CUDA-core peak.
-* ``kernel_flops_per_step``, what K1-K4 execute: K1's forward, K2's
-  forward recompute and its backward down to the features (``mlp_work``,
-  ``mlp_bwd_work``), and K3/K4 twice (``loss_work``). ``hfu`` is this
-  count against the 3xTF32 peak.
+  cores), ``mfu_vs_f32`` against the float32 CUDA-core peak, and, where
+  the ranker computes in bfloat16 (``compute_dtype=bfloat16``),
+  ``mfu_vs_bf16_peak`` against the bfloat16 peak (the JAX tool's
+  yardstick; null otherwise).
+* ``kernel_flops_per_step``, what the selected kernels execute: with
+  ``use_pallas`` K1's forward, K2's forward recompute and its backward
+  down to the features (``mlp_work``, ``mlp_bwd_work``), with the fused
+  loss K3/K4 twice (``loss_work``); null when neither runs. ``hfu`` is
+  this count against the 3xTF32 peak (null likewise).
 
-``bytes_per_step`` counts the kernels' bytes (each input read once, each
-output written once), the feature gather and the optimizers' vectors.
+``flops_per_step``, ``bytes_per_step`` and ``mfu`` count the step's work
+from the ranker's widths, whatever implements the step, so the library
+path and the kernels read against one yardstick. ``bytes_per_step``
+counts the fused step's bytes (each input of the ranker's pass and of
+the losses read once, each output written once), the feature gather and
+the optimizers' vectors. ``allow_tf32`` says whether float32 products may
+run in TF32 (the library path's cuBLAS calls read it).
 ``products`` breaks the products (2 x in x out a row a matrix) down by
 pass.
 
@@ -31,7 +42,8 @@ The H100 peaks are ``bench_common``'s (``ULTRA_PEAK_TF32_TFLOPS``,
 
 Usage: python -m ultra_pytorch_tpu_torch.tools.roofline [--batch 256]
            [--list-size 10] [--features 136] [--chunk 50] [--steps 400]
-           [--no-time] [--device cuda]
+           [--prng rbg] [--ranker-extra ,compute_dtype=bfloat16]
+           [--kernels] [--no-time] [--device cuda]
 """
 
 from __future__ import annotations
@@ -39,6 +51,8 @@ from __future__ import annotations
 import json
 import time
 from typing import Dict, List, Tuple
+
+import torch
 
 from ultra_pytorch_tpu_torch.tools import bench_common as bc
 
@@ -54,6 +68,7 @@ WEIGHTS_OPS = 6
 # add), the clip's scale, Adagrad's accumulator (square, add), its root,
 # the epsilon, the divide, the learning rate and the update.
 ADAGRAD_OPS = 10
+PRNG = "rbg"   # the JAX tool's --prng default
 
 
 def _widths(model) -> List[Tuple[int, int]]:
@@ -114,11 +129,13 @@ def loss_work(batch: int, length: int):
             20 * elems + stats + 4)
 
 
-def step_work(model, batch: int, list_size: int) -> Dict:
+def step_work(model, batch: int, list_size: int, mlp_kernels: bool = True,
+              loss_kernels: bool = True) -> Dict:
     """The DLA step's operations and bytes at `batch` x `list_size` rows
     through `model` (see the module docstring): ``flops_per_step``,
-    ``kernel_flops_per_step``, ``bytes_per_step`` and the ``products``
-    by pass."""
+    ``kernel_flops_per_step`` (of K1/K2 with `mlp_kernels`, of K3/K4 with
+    `loss_kernels`; None with neither), ``bytes_per_step`` and the
+    ``products`` by pass."""
     n = batch * list_size
     widths = _widths(model)
     use_norm = model.hparams.norm == "layer"
@@ -149,9 +166,13 @@ def step_work(model, batch: int, list_size: int) -> Dict:
     # the optimizers read parameter, gradient and accumulator and write
     # parameter and accumulator.
     other_bytes = 4 * (2 * n * features + 5 * params)
+    kernel_flops = None
+    if mlp_kernels or loss_kernels:
+        kernel_flops = ((forward + bwd_ops if mlp_kernels else 0)
+                        + (losses if loss_kernels else 0))
     return {
         "flops_per_step": forward + backward + losses + rest,
-        "kernel_flops_per_step": forward + bwd_ops + losses,
+        "kernel_flops_per_step": kernel_flops,
         "bytes_per_step": (fwd_bytes + bwd_bytes + 2 * (k3_bytes + k4_bytes)
                            + other_bytes),
         "products": products,
@@ -160,16 +181,27 @@ def step_work(model, batch: int, list_size: int) -> Dict:
 
 def analyze(device, batch: int = bc.BATCH, list_size: int = bc.LIST,
             features: int = bc.FEATURES, hidden: str = bc.HIDDEN,
-            chunk: int = 50, steps: int = 400, timed: bool = True) -> Dict:
+            chunk: int = 50, steps: int = 400, timed: bool = True,
+            prng: str = PRNG, ranker_extra: str = "",
+            kernels: bool = False) -> Dict:
     """The step's counts, and with `timed` its time over `steps` steps in
     graph windows of `chunk` steps (eager off the card) after one warm-up
-    window, against the card's peaks."""
-    exp = bc.bench_experiment(device, batch, list_size, features, hidden)
-    work = step_work(exp.algorithm.ranker, batch, list_size)
+    window, against the card's peaks, on the protocol with the extras
+    (``bench_common.extras``)."""
+    exp = bc.make_bench_setup(device, batch, list_size, features,
+                              prng=prng, hidden=hidden,
+                              **bc.extras(kernels, ranker_extra))
+    ranker = exp.algorithm.ranker
+    work = step_work(
+        ranker, batch, list_size, bool(ranker.hparams.get("use_pallas")),
+        exp.algorithm.hparams.loss_func == "fused_softmax_loss")
     flops, bytes_ = work["flops_per_step"], work["bytes_per_step"]
+    bf16 = ranker.hparams.get("compute_dtype") == "bfloat16"
     out = {
         "protocol": {"batch": batch, "list_size": list_size,
                      "features": features, "hidden": hidden, "chunk": chunk,
+                     "prng": prng, "kernels": kernels,
+                     "ranker_extra": ranker_extra,
                      "device": str(exp.device)},
         "flops_per_step": flops,
         "flops_per_query": flops / batch,
@@ -178,6 +210,7 @@ def analyze(device, batch: int = bc.BATCH, list_size: int = bc.LIST,
         "bytes_per_query": bytes_ / batch,
         "arithmetic_intensity": flops / bytes_,
         "products": work["products"],
+        "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
     }
     if not timed:
         return out
@@ -199,7 +232,9 @@ def analyze(device, batch: int = bc.BATCH, list_size: int = bc.LIST,
         "achieved_hbm_gbs": bytes_ / step_s / 1e9,
         "mfu": achieved / bc.PEAK_3XTF32,
         "mfu_vs_f32": achieved / bc.PEAK_F32,
-        "hfu": work["kernel_flops_per_step"] / step_s / bc.PEAK_3XTF32,
+        "mfu_vs_bf16_peak": achieved / bc.PEAK_BF16 if bf16 else None,
+        "hfu": (None if work["kernel_flops_per_step"] is None else
+                work["kernel_flops_per_step"] / step_s / bc.PEAK_3XTF32),
         "hbm_utilization": bytes_ / step_s / bc.PEAK_BYTES,
         # The least time a step could take on each resource alone.
         "compute_floor_us_3xtf32": flops / bc.PEAK_3XTF32 * 1e6,
@@ -214,20 +249,25 @@ def analyze(device, batch: int = bc.BATCH, list_size: int = bc.LIST,
 
 
 def main(argv=None) -> Dict:
-    p = bc.tool_parser(__doc__.splitlines()[0])
+    p = bc.tool_parser(__doc__.splitlines()[0], kernels=True)
     p.add_argument("--batch", type=int, default=bc.BATCH)
     p.add_argument("--list-size", type=int, default=bc.LIST)
     p.add_argument("--features", type=int, default=bc.FEATURES)
     p.add_argument("--hidden", default=bc.HIDDEN)
     p.add_argument("--chunk", type=int, default=50)
     p.add_argument("--steps", type=int, default=400)
+    p.add_argument("--prng", default=PRNG, choices=bc.PRNGS)
+    p.add_argument("--ranker-extra", default="",
+                   help="appended to ranking_model_hparams, e.g. "
+                        "',compute_dtype=bfloat16'")
     p.add_argument("--no-time", action="store_true",
                    help="the counts only (nothing runs)")
     args = p.parse_args(argv)
     device = bc.start(args)
     out = analyze(device, args.batch, args.list_size, args.features,
                   args.hidden, args.chunk, args.steps,
-                  timed=not args.no_time)
+                  timed=not args.no_time, prng=args.prng,
+                  ranker_extra=args.ranker_extra, kernels=args.kernels)
     print(json.dumps(out), flush=True)
     return out
 

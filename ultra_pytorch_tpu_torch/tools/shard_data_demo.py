@@ -22,11 +22,11 @@ one range of rows, wrapped at the end) and the stripe it builds equals
 copy (``RankingDataset.to_device``).
 
 The model is the JAX demo's (DLA, the DNN at [512, 256, 128],
-``max_candidate_num`` = L, cutoff 10, ``example/ClickModel/
-pbm_0.1_1.0_4_1.0.json``) with the bench protocol's kernel hparams on.
-A step trains on the top 10 documents of each list (the cutoff), so it
-runs K1 and K2 over B x 10 rows of F features and K3 and K4 at [B, 10],
-and K5 runs once a window. Each step is a window of one step whose loss is
+``max_candidate_num`` = L, cutoff 10, nDCG@10, ``example/ClickModel/
+pbm_0.1_1.0_4_1.0.json``), the kernel hparams off as in the JAX demo.
+A step trains on the top 10 documents of each list (the cutoff); with
+``--kernels`` it runs K1 and K2 over B x 10 rows of F features and K3
+and K4 at [B, 10], and K5 once a window. Each step is a window of one step whose loss is
 read back, as the JAX demo reads each step's; ``queries_per_s`` leaves
 out the first step (the capture on the card).
 
@@ -40,7 +40,7 @@ null on the CPU), the seconds to build a stripe, and the kernels'
 Usage: python -m ultra_pytorch_tpu_torch.tools.shard_data_demo
            [--rows 10000000] [--features 220] [--list_size 200]
            [--steps 20] [--batch 256] [--ranks N] [--share_card N]
-           [--device cpu]
+           [--kernels] [--device cpu]
 """
 
 from __future__ import annotations
@@ -141,19 +141,20 @@ def stripe_dataset(rows: int, features: int, list_size: int, rank: int,
         max_label=MAX_LABEL)
 
 
-def demo_settings(list_size: int, kernels: bool = True) -> Dict:
-    """The JAX demo's settings with the bench protocol's kernel hparams
-    (on, or off for the plain path)."""
-    settings = bc.dla_settings(kernels, CLICK_JSON, bc.HIDDEN, list_size)
-    settings.update(metrics=["ndcg"], metrics_topn=[10],
-                    objective_metric="ndcg_10", max_candidate_num=list_size,
-                    selection_bias_cutoff=10)
+def demo_settings(list_size: int, kernels: bool = False) -> Dict:
+    """The JAX demo's settings (the bench protocol's at lists of
+    `list_size`, the cutoff at 10), with ``bench_common.KERNEL_EXTRAS``
+    when `kernels`."""
+    settings = bc.protocol_settings(CLICK_JSON, list_size,
+                                    **bc.extras(kernels))
+    settings["selection_bias_cutoff"] = 10
     return settings
 
 
 def _rank_demo(rank: int, world: int, init_method: str, device: str,
                backend: Optional[str], rows: int, features: int,
-               list_size: int, steps: int, batch: int, seed: int) -> Dict:
+               list_size: int, steps: int, batch: int, seed: int,
+               kernels: bool) -> Dict:
     """One rank's stripe and training: its table's bytes, the seconds to
     build it, the step losses, the timed steps' seconds, whether the
     windows ran as graphs, its peak device memory and launches."""
@@ -177,7 +178,7 @@ def _rank_demo(rank: int, world: int, init_method: str, device: str,
             torch.cuda.reset_peak_memory_stats(dev)
         before = bc.launch_counts()
         with tempfile.TemporaryDirectory(prefix="ultra_demo_") as tmp:
-            exp = Experiment(demo_settings(list_size), tmp,
+            exp = Experiment(demo_settings(list_size, kernels), tmp,
                              os.path.join(tmp, "model"), batch_size=batch,
                              seed=seed, device=dev)
             exp.setup(splits=("train",), datasets={"train": stripe})
@@ -204,7 +205,7 @@ def _rank_demo(rank: int, world: int, init_method: str, device: str,
 def demo(device, rows: int = 10_000_000, features: int = 220,
          list_size: int = 200, steps: int = 20, batch: int = 256,
          ranks: Optional[int] = None, share_card: int = 0,
-         seed: int = 0) -> Dict:
+         seed: int = 0, kernels: bool = False) -> Dict:
     """The demo over `ranks` ranks (default: the visible cards on the
     card, 1 on the CPU), or `share_card` gloo ranks on ``cuda:0``."""
     from ultra_pytorch_tpu_torch.parallel import spawn_ranks
@@ -227,7 +228,8 @@ def demo(device, rows: int = 10_000_000, features: int = 220,
     try:
         out = spawn_ranks(_rank_demo, ranks, (
             f"file://{os.path.join(store, 'rendezvous')}", str(device),
-            backend, rows, features, list_size, steps, batch, seed),
+            backend, rows, features, list_size, steps, batch, seed,
+            kernels),
             timeout=1800)
     finally:
         shutil.rmtree(store, ignore_errors=True)
@@ -252,7 +254,7 @@ def demo(device, rows: int = 10_000_000, features: int = 220,
 
 
 def main(argv=None) -> Dict:
-    p = bc.tool_parser(__doc__.splitlines()[0])
+    p = bc.tool_parser(__doc__.splitlines()[0], kernels=True)
     p.add_argument("--rows", type=int, default=10_000_000)
     p.add_argument("--features", type=int, default=220)
     p.add_argument("--list_size", type=int, default=200)
@@ -265,7 +267,8 @@ def main(argv=None) -> Dict:
     args = p.parse_args(argv)
     device = bc.start(args)
     return demo(device, args.rows, args.features, args.list_size,
-                args.steps, args.batch, args.ranks, args.share_card)
+                args.steps, args.batch, args.ranks, args.share_card,
+                kernels=args.kernels)
 
 
 if __name__ == "__main__":
