@@ -114,7 +114,8 @@ def test_dp_from_one_command_spawns_its_ranks(tmp_path, toy_data_dir,
     assert "Training done at step 6" in text
     model_dir = tmp_path / "model"
     assert (model_dir / "DLA.ckpt.npz").is_file()
-    assert os.listdir(model_dir / "profile") == ["trace.json"]
+    assert sorted(os.listdir(model_dir / "profile")) == ["spans.json",
+                                                         "trace.json"]
     logged = (model_dir / "logs" / "metrics.jsonl").read_text().splitlines()
     assert [json.loads(r)["split"] for r in logged] == ["train", "valid"]
 

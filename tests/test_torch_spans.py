@@ -1,0 +1,460 @@
+"""The port's spans and counters (``utils/spans.py``).
+
+On the CPU: the registry's ring, parents and window ids, the launch
+counters in its snapshot, no ``record_function`` without a profiler, the
+window's ranges under the CPU profiler for a DNN and for SetRank, the
+``spans.json`` that ``--profile_steps`` writes, the reading of replays'
+rows (written here by the test in the card's stead), and a window run
+where the stamp kernel cannot be built. On the card (``gpu``): the seven
+stamp nodes of a captured window, its phases against its device time,
+the wait between two windows, a pipelined replay that loses its stamps,
+the launch counters, a window with the stamps bit for bit the window
+without them and the window whose stamp library failed, and the CLI's
+rate after a checkpoint save.
+
+The file imports nothing of JAX:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_spans.py -q
+"""
+
+import json
+import os
+import re
+import statistics
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from ultra_pytorch_tpu_torch.data.dataset import RankingDataset
+from ultra_pytorch_tpu_torch.run import __main__ as cli
+from ultra_pytorch_tpu_torch.run import window
+from ultra_pytorch_tpu_torch.run.experiment import Experiment
+from ultra_pytorch_tpu_torch.utils import spans
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CLICK_JSON = os.path.join(REPO, "example", "ClickModel",
+                          "pbm_0.1_1.0_4_1.0.json")
+F, L, B, STEPS = 16, 5, 16, 6
+SETRANK = "d_model=16,num_heads=2,num_layers=1,diff=8"
+PHASES = ("step.forward", "step.backward", "step.update")
+
+
+@pytest.fixture(autouse=True)
+def _fresh_registry():
+    spans.reset()
+    yield
+    spans.reset()
+
+
+def _data(num_queries, seed):
+    rng = np.random.default_rng(seed)
+    d = num_queries * L
+    labels = rng.integers(0, 3, size=(num_queries, L)).astype(np.float32)
+    labels[:, 0] = np.maximum(labels[:, 0], 1.0)
+    return RankingDataset(
+        features=rng.normal(size=(d, F)).astype(np.float32),
+        initial_list=np.arange(d, dtype=np.int64).reshape(num_queries, L),
+        labels=labels, qids=[str(i) for i in range(num_queries)],
+        dids=[f"d{i}" for i in range(d)], feature_size=F, rank_list_size=L,
+        max_label=2.0)
+
+
+def _experiment(dev, tmp_path, ranker="DNN", kernels=False):
+    hparams = {"DNN": "hidden_layer_sizes=[32, 16]", "SetRank": SETRANK}
+    settings = {
+        "train_input_feed": "ClickSimulationFeed",
+        "train_input_hparams": f"click_model_json={CLICK_JSON}"
+                               + (",use_pallas_click=true" if kernels
+                                  else ""),
+        "valid_input_feed": "DirectLabelFeed", "valid_input_hparams": "",
+        "ranking_model": ranker,
+        "ranking_model_hparams": hparams[ranker]
+                                 + (",use_pallas=true" if kernels else ""),
+        "learning_algorithm": "DLA",
+        "learning_algorithm_hparams":
+            "loss_func=fused_softmax_loss" if kernels else "",
+        "metrics": ["ndcg"], "metrics_topn": [3, 5],
+        "objective_metric": "ndcg_5", "selection_bias_cutoff": L,
+    }
+    exp = Experiment(settings, "unused", str(tmp_path), batch_size=B,
+                     device=dev)
+    exp.setup(datasets={"train": _data(64, 0), "valid": _data(40, 1)})
+    exp.init_state()
+    return exp
+
+
+def _samples(name):
+    return spans.snapshot()["spans"].get(name, {"samples": []})["samples"]
+
+
+class _CountingRange:
+    """Stands in for ``torch.profiler.record_function``: counts entries."""
+
+    entered = 0
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        _CountingRange.entered += 1
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+# -- the registry on the CPU ----------------------------------------------
+
+def test_the_ring_keeps_the_last_samples_of_each_name():
+    for i in range(spans.RING + 10):
+        spans.REGISTRY.add("a", "host", float(i), i + 0.5, None)
+    with spans.span("b"):
+        pass
+    got = spans.snapshot()["spans"]
+    starts = [s["start"] for s in got["a"]["samples"]]
+    assert starts == [float(i) for i in range(10, spans.RING + 10)]
+    assert got["a"]["samples"][0]["ms"] == 0.5
+    assert len(got["b"]["samples"]) == 1 and got["b"]["clock"] == "host"
+
+
+def test_parents_and_window_ids():
+    with spans.span("outer"):
+        with spans.in_window(42, 7):
+            with spans.span("capture.window.7"):
+                with spans.span("capture.warmup"):
+                    pass
+    got = {name: v["samples"] for name, v in spans.snapshot()["spans"]
+           .items()}
+    (outer,), (cap,), (warm,) = (got["outer"], got["capture.window.7"],
+                                 got["capture.warmup"])
+    assert outer["parent"] is None and outer["window"] is None
+    assert cap["parent"] == "outer" and warm["parent"] == "capture.window.7"
+    assert (cap["window"], cap["steps"]) == (42, 7)
+    assert (warm["window"], warm["steps"]) == (42, 7)
+    assert warm["start"] >= cap["start"] and warm["end"] <= cap["end"]
+    assert not warm["profiled"]
+
+
+def test_snapshot_holds_the_launch_counters():
+    before = window.read_launches()
+    try:
+        window.set_launches([3, 1, 4, 1, 5])
+        spans.REGISTRY.count("spans.device_unread", 2)
+        counters = spans.snapshot()["counters"]
+        assert [counters[f"launches.K{i}"] for i in range(1, 6)] == \
+            window.read_launches() == [3, 1, 4, 1, 5]
+        assert counters["spans.device_unread"] == 2
+    finally:
+        window.set_launches(before)
+
+
+def test_no_range_without_a_profiler(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.profiler, "record_function", _CountingRange)
+    _CountingRange.entered = 0
+    exp = _experiment("cpu", tmp_path)
+    exp.train_steps(3)
+    with spans.span("host"):
+        pass
+    assert _CountingRange.entered == 0
+    # The same calls under a profiler do enter ranges.
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        exp.train_steps(3)
+        with spans.span("host"):
+            pass
+    assert _CountingRange.entered == 2 + 3 * 3 + 1
+
+
+@pytest.mark.parametrize("ranker", ["DNN", "SetRank"])
+def test_the_window_ranges_under_the_cpu_profiler(tmp_path, ranker):
+    exp = _experiment("cpu", tmp_path, ranker)
+    exp.train_steps(1)   # first-call set-up outside the trace
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        exp.train_steps(STEPS)
+    ranges = {}
+    for e in prof.events():
+        if e.name in ("window", "window.plan") + PHASES:
+            ranges.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    (win,), (plan,) = ranges["window"], ranges["window.plan"]
+    assert win[0] <= plan[0] and plan[1] <= win[1]
+    steps = list(zip(*(sorted(ranges[p]) for p in PHASES)))
+    assert len(steps) == STEPS
+    last = plan[1]
+    for fwd, bwd, upd in steps:
+        assert last <= fwd[0] <= fwd[1] <= bwd[0] <= bwd[1] <= upd[0] \
+            <= upd[1] <= win[1]
+        last = upd[1]
+    assert not spans.REGISTRY._ranges   # every range closed
+
+
+def test_profile_steps_writes_spans_json(tmp_path):
+    settings = tmp_path / "settings.json"
+    settings.write_text(json.dumps({
+        "train_input_feed": "ClickSimulationFeed",
+        "train_input_hparams": f"click_model_json={CLICK_JSON}",
+        "valid_input_feed": "DirectLabelFeed", "valid_input_hparams": "",
+        "ranking_model": "DNN", "ranking_model_hparams":
+            "hidden_layer_sizes=[16]",
+        "learning_algorithm": "DLA", "learning_algorithm_hparams": "",
+        "metrics": ["ndcg"], "metrics_topn": [5],
+        "objective_metric": "ndcg_5", "selection_bias_cutoff": 5}))
+    model = tmp_path / "model"
+    cli.main(["--data_dir", os.path.join(REPO, "tests", "data") + "/",
+              "--setting_file", str(settings), "--model_dir", str(model),
+              "--batch_size", "8", "--device", "cpu", "--profile_steps", "2",
+              "--max_train_iteration", "4", "--steps_per_checkpoint", "2"])
+    got = json.loads((model / "profile" / "spans.json").read_text())
+    assert set(got) == {"spans", "counters"}
+    assert [f"launches.K{i}" in got["counters"] for i in range(1, 6)] == \
+        [True] * 5
+    trace = json.loads((model / "profile" / "trace.json").read_text())
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"window", "window.plan"} | set(PHASES) <= names
+
+
+def _host_marks():
+    """A :class:`spans.Marks` whose rows this test writes in the card's
+    stead, every point recorded."""
+    marks = object.__new__(spans.Marks)
+    marks.slot = {p: i for i, p in enumerate(spans.POINTS)}
+    marks.ns = np.zeros((spans.MARK_ROWS, len(spans.POINTS) + 1), np.int64)
+    marks.recorded = list(spans.POINTS)
+    marks.replays = 0
+    marks.owners = [None] * spans.MARK_ROWS
+    return marks
+
+
+def _land(marks, n, start_ns):
+    """Replay `n`'s stamps as the card writes them: 1 µs apart from
+    `start_ns`, then its number."""
+    row = marks.ns[n % spans.MARK_ROWS]
+    for i in range(len(spans.POINTS)):
+        row[i] = start_ns + 1000 * i
+    row[-1] = n
+
+
+def test_replays_are_read_in_order_and_a_lost_row_is_counted():
+    marks = _host_marks()
+    for i in range(spans.MARK_ROWS + 1):   # the last writes over the first
+        spans.replay(lambda: None, marks, 10 * i, 10)
+    counters = spans.snapshot()["counters"]
+    assert counters["spans.device_unread"] == 1
+    assert not _samples("window.device")   # nothing has landed
+    # The second's row holds its start and the row's previous end: unread.
+    marks.ns[2, marks.slot["window.start"]] = 2_000_000
+    marks.ns[2, marks.slot["window.end"]] = 1_000
+    marks.ns[2, -1] = 2
+    assert not _samples("window.device")
+    for n in range(2, spans.MARK_ROWS + 2):
+        _land(marks, n, 1_000_000 * n)
+    got = [(s["window"], s["ms"]) for s in _samples("window.device")]
+    assert got == [(10 * i, 0.006) for i in range(1, spans.MARK_ROWS + 1)]
+    assert [s["ms"] for s in _samples("step.backward")] == [0.001] * 4
+    # The wait runs from the previous window's end, where it was read.
+    waits = [(s["window"], s["ms"]) for s in _samples("window.launch_wait")]
+    assert waits == [(10 * i, 0.994) for i in range(2, spans.MARK_ROWS + 1)]
+    assert marks.owners == [None] * spans.MARK_ROWS
+    assert not spans.REGISTRY._pending
+
+
+def test_a_window_runs_without_the_stamp_library(monkeypatch, tmp_path):
+    """Where the stamp kernel cannot be built or loaded (no nvcc, a card
+    its build does not run on) a window graph is captured and replayed as
+    before, with its host spans and no device span; the library is tried
+    once, with one warning. The capture stands in for CUDA's here."""
+    tried = []
+
+    def broken():
+        tried.append(1)
+        raise RuntimeError("nvcc not found")
+
+    class _Graph:
+        """Replays `fn` as a graph does: the host's step stays."""
+
+        def __init__(self, fn):
+            self.fn = fn
+
+        def replay(self):
+            step = exp.state.step
+            self.fn()
+            exp.state.step = step
+
+    def captured(fn, generators=(), restore=None, pool=None, name=""):
+        out = fn()
+        restore()
+        return window.Replayable(_Graph(fn), [0] * 5), out
+
+    monkeypatch.setattr(spans, "_library", broken)
+    monkeypatch.setattr(window, "capture", captured)
+    exp = _experiment("cpu", tmp_path)
+    graphs = window.WindowGraphs(exp.algorithm, exp.feeds["train"],
+                                 exp.state, exp._generator)
+    with pytest.warns(UserWarning, match="no device spans"):
+        keys, means = graphs.run(1, STEPS)
+    graphs.run(2, STEPS)
+    graphs.run(3, 2)
+    assert tried == [1] and "nvcc not found" in spans.REGISTRY.stamps_off
+    assert graphs.marks == {STEPS: None, 2: None}
+    assert exp.state.step == 2 * STEPS + 2
+    assert "loss" in keys and bool(torch.isfinite(means).all())
+    assert [s["window"] for s in _samples("window.replay")] == [
+        0, STEPS, 2 * STEPS]
+    assert not any(spans.snapshot()["spans"].get(name) for name in
+                   ("window.device", "window.launch_wait"))
+
+
+# -- on the card ----------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs exist only there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_a_replay_resolves_the_seven_stamp_nodes(cuda, tmp_path):
+    exp = _experiment(cuda, tmp_path, kernels=True)
+    exp.train_steps(STEPS)        # captured, then replayed once
+    torch.cuda.synchronize()
+    marks = exp._window_graphs.marks[STEPS]
+    assert sorted(marks.recorded) == sorted(spans.POINTS)
+    got = {name: _samples(name) for name, *_ in spans.DEVICE_SPANS}
+    for name, samples in got.items():
+        assert len(samples) == 1, name
+        assert (samples[0]["window"], samples[0]["steps"]) == (0, STEPS)
+        assert samples[0]["ms"] >= 0.0
+    ms = {name: samples[0]["ms"] for name, samples in got.items()}
+    for name in ("window.plan",) + PHASES:
+        assert ms[name] > 0.0, name
+    assert ms["window.plan"] + STEPS * sum(ms[p] for p in PHASES) \
+        <= ms["window.device"] * 1.05
+    assert ms["window.plan"] + sum(ms[p] for p in PHASES) \
+        <= ms["window.device"]
+    (replay,) = _samples("window.replay")
+    assert replay["window"] == 0 and replay["ms"] > 0.0
+    assert not _samples("window.launch_wait")   # no window before it
+    assert spans.snapshot()["counters"] == {
+        f"launches.K{i}": n for i, n in enumerate(window.read_launches(), 1)}
+    assert len(_samples(f"capture.window.{STEPS}")) == 1
+    for part in ("warmup", "restore", "generators", "record", "sync",
+                 "trace", "instantiate"):
+        assert len(_samples(f"capture.{part}")) == 1, part
+    exp.train_steps(STEPS)        # a second replay: the wait between
+    (wait,) = _samples("window.launch_wait")
+    assert wait["window"] == STEPS and 0.0 < wait["ms"] < 1e3
+
+
+@pytest.mark.gpu
+def test_pipelined_replays_keep_their_stamps(cuda, tmp_path):
+    """Replays launched while earlier ones still run: each keeps its row
+    of the graph's stamps, but the row of a replay that MARK_ROWS later
+    replays passed unread is lost, and counted."""
+    exp = _experiment(cuda, tmp_path, kernels=True)
+    exp.train_steps(STEPS)        # the capture and a first replay
+    torch.cuda.synchronize()
+    spans.reset()
+    first = exp.state.step
+    torch.cuda._sleep(500_000_000)   # the first window cannot end first
+    for _ in range(spans.MARK_ROWS + 1):
+        exp.train_steps_device(STEPS)
+    torch.cuda.synchronize()
+    counters = spans.snapshot()["counters"]
+    windows = [first + i * STEPS for i in range(spans.MARK_ROWS + 1)]
+    assert counters["spans.device_unread"] == 1
+    assert [s["window"] for s in _samples("window.device")] == windows[1:]
+    assert [s["window"] for s in _samples("window.launch_wait")] == \
+        windows[2:]
+    assert all(s["ms"] > 0 for s in _samples("step.backward"))
+
+
+@pytest.mark.gpu
+def test_the_launch_counters_read_as_before(cuda, tmp_path):
+    exp = _experiment(cuda, tmp_path, kernels=True)
+    before = window.read_launches()
+    for _ in range(3):
+        exp.train_steps(STEPS)
+    graph = exp._window_graphs.graphs[STEPS][0]
+    assert graph.launches == [STEPS, STEPS, 2 * STEPS, 2 * STEPS, 1]
+    assert [a - b for a, b in zip(window.read_launches(), before)] == [
+        3 * n for n in graph.launches]
+    counters = spans.snapshot()["counters"]
+    assert [counters[f"launches.K{i}"] for i in range(1, 6)] == \
+        window.read_launches()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ranker", ["DNN", "SetRank"])
+def test_the_stamps_change_no_bit(cuda, tmp_path, monkeypatch, ranker):
+    """Three runs: with the stamps, with no mark, and with the stamp
+    library failing (no stamp at all, a warning)."""
+    runs = []
+    for variant in ("marked", "no mark", "no library"):
+        if variant == "no mark":
+            monkeypatch.setattr(spans, "mark", lambda *a, **k: None)
+        if variant == "no library":
+            monkeypatch.undo()
+            spans.reset()
+            monkeypatch.setattr(spans, "_library", _no_library)
+        exp = _experiment(cuda, tmp_path, ranker, kernels=ranker == "DNN")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            metrics = [exp.train_steps(n) for n in (STEPS, STEPS, 4)]
+        marks = exp._window_graphs.marks[STEPS]
+        if variant == "no library":
+            assert marks is None and not _samples("window.device")
+            assert any("no device spans" in str(w.message) for w in caught)
+        else:
+            assert len(marks.recorded) == (7 if variant == "marked" else 0)
+        runs.append((exp.algorithm.state_leaves(exp.state)
+                     + [exp._data_key], metrics))
+    ours, ours_metrics = runs[0]
+    for bare, bare_metrics in runs[1:]:
+        assert ours_metrics == bare_metrics
+        for a, b in zip(ours, bare):
+            np.testing.assert_array_equal(a, b)
+
+
+def _no_library():
+    raise RuntimeError("no stamp library")
+
+
+@pytest.mark.gpu
+def test_the_cli_rate_after_a_save(cuda, tmp_path, capsys):
+    """The rate of a window read back after a checkpoint save is on the
+    device's clock, so it is within 10% of the others (the host clock
+    read it far higher: the window trained while the host saved)."""
+    settings = tmp_path / "settings.json"
+    settings.write_text(json.dumps({
+        "train_input_feed": "ClickSimulationFeed",
+        "train_input_hparams": f"click_model_json={CLICK_JSON}",
+        "valid_input_feed": "DirectLabelFeed", "valid_input_hparams": "",
+        "ranking_model": "DNN", "ranking_model_hparams":
+            "hidden_layer_sizes=[64, 32]",
+        "learning_algorithm": "DLA", "learning_algorithm_hparams": "",
+        "metrics": ["ndcg"], "metrics_topn": [5],
+        "objective_metric": "ndcg_5", "selection_bias_cutoff": 5}))
+    cli.main(["--data_dir", os.path.join(REPO, "tests", "data") + "/",
+              "--setting_file", str(settings),
+              "--model_dir", str(tmp_path / "model"), "--batch_size", "32",
+              "--max_train_iteration", "600", "--steps_per_checkpoint",
+              "25"])
+    lines = capsys.readouterr().out.splitlines()
+    rates, after_save = [], []
+    for i, line in enumerate(lines):
+        found = re.match(r"step \d+ loss \S+ \((\d+) queries/s\)", line)
+        if found:
+            rates.append(float(found.group(1)))
+            # The window read back after the one this line's save follows.
+            if i + 1 < len(lines) and "saved checkpoint" in lines[i + 1]:
+                after_save.append(len(rates))
+    after_save = [i for i in after_save if 1 <= i < len(rates)]
+    assert len(rates) == 24 and after_save
+    typical = statistics.median(rates[1:])
+    for i in after_save:
+        assert abs(rates[i] / typical - 1.0) <= 0.10, (i, rates)

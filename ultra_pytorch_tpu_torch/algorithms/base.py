@@ -50,6 +50,7 @@ import torch
 from ultra_pytorch_tpu_torch.metrics import ranking as metrics_lib
 from ultra_pytorch_tpu_torch.models.base import Leaf
 from ultra_pytorch_tpu_torch.ops import losses
+from ultra_pytorch_tpu_torch.utils import spans
 from ultra_pytorch_tpu_torch.utils.checkpoint import tree_leaves
 from ultra_pytorch_tpu_torch.utils.hparams import HParams
 
@@ -181,12 +182,14 @@ def window_steps(algorithm, feed, state: TrainState,
     draws = algorithm.per_shard(generator)
     total, keys = None, None
     for i in range(num_steps):
+        spans.mark("step.start", last=i == num_steps - 1)
         batch = (feed.batch_from_plan(plan, i) if plan is not None
                  else feed.train_batch(draws, state, start + i))
         state, metrics = algorithm.train_step(state, batch, generator)
         keys = keys or sorted(metrics)
         values = torch.stack([metrics[k] for k in keys])
         total = values if total is None else total + values
+        spans.mark("step.update")
     return state, keys, total / num_steps
 
 
@@ -195,11 +198,17 @@ def train_window(algorithm, feed, state: TrainState,
                  start=None):
     """:func:`window_plan` (from `start`, default ``state.step``), then
     :func:`window_steps` on it: the window that ``run/window.py`` captures
-    as one CUDA graph."""
+    as one CUDA graph. Its points go to ``utils/spans.mark``: the window's
+    edges, the plan's end and each step's phases (the last step's are the
+    graph's stamp nodes)."""
     start = state.step if start is None else start
+    spans.mark("window.start")
     plan = window_plan(algorithm, feed, generator, start, num_steps)
-    return window_steps(algorithm, feed, state, generator, plan, num_steps,
-                        start)
+    spans.mark("window.plan")
+    out = window_steps(algorithm, feed, state, generator, plan, num_steps,
+                       start)
+    spans.mark("window.end")
+    return out
 
 
 def make_optimizer(grad_strategy: str, learning_rate: float,
@@ -310,7 +319,9 @@ class BaseAlgorithm:
               *extra, generator: Optional[torch.Generator] = None
               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         out = self.losses(state, batch, *extra, generator=generator)
+        spans.mark("step.forward")
         grads = gradients(out[0], self.trainable(state))
+        spans.mark("step.backward")
         state = self.update_aux(self.apply_gradients(state, grads), out)
         return state, self.metrics(out)
 

@@ -23,16 +23,22 @@ k's checkpoint is decided then, from a device copy of its state taken at
 its end (``Experiment.snapshot_state``), so it saves exactly the state its
 validation measured. ``--sync_readback`` reads each window back before it
 dispatches the next; both loops print the same metrics and save the same
-checkpoints. A window's queries/s runs from the previous read-back to its
-own. A window whose mean loss is nan or +inf (:func:`diverged_loss`, as
-the JAX ``main.py`` reads it: -inf does not stop a run) stops the run
+checkpoints. A window's queries/s is over its ``window.device`` span
+(``utils/spans.py``: the card's clock at the graph's first and last
+node), so a checkpoint saved while the next window trains does not
+inflate it; a window without that span (eager on the CPU or a gloo
+group, or the stamp kernel unable to run) has its rate from the previous
+read-back to its own. A window whose mean loss is nan or +inf
+(:func:`diverged_loss`, as the JAX ``main.py`` reads it: -inf does not
+stop a run) stops the run
 before its checkpoint decision, so it never overwrites the best
 checkpoint, and the window already dispatched after it is never read. A
 run that wrote no checkpoint, diverged or not, saves its final state at
 its end, as ``main.py`` does. ``--test_only`` restores the checkpoint,
 prints the test metrics and writes a TREC ranklist. ``--profile_steps N``
 traces the first N steps with ``torch.profiler`` into
-``<model_dir>/profile``.
+``<model_dir>/profile``: ``trace.json`` with the program's ranges and
+``spans.json``.
 
 Data parallelism, one process a device:
 
@@ -68,6 +74,7 @@ from ultra_pytorch_tpu_torch.parallel import (
 from ultra_pytorch_tpu_torch.run import launch
 from ultra_pytorch_tpu_torch.run.experiment import (
     KEY_WORDS, PRNG_IMPL, Experiment, resolve_dp)
+from ultra_pytorch_tpu_torch.utils import spans
 from ultra_pytorch_tpu_torch.utils.logging_utils import (
     MetricLogger, profile_ctx)
 
@@ -212,8 +219,10 @@ def train(args, hosts: int = 1) -> None:
         its checkpoint; False when the window diverged."""
         nonlocal best, t_flush
         train_h, summary_h, test_h = entry["fetch"].values()
-        qps = entry["window"] * args.batch_size / (time.perf_counter()
-                                                   - t_flush)
+        device_ms = spans.latest_ms("window.device", entry["start"])
+        seconds = (time.perf_counter() - t_flush if device_ms is None
+                   else device_ms / 1e3)
+        qps = entry["window"] * args.batch_size / seconds
         metrics = dict(zip(entry["train_keys"], train_h))
         summary = dict(zip(entry["keys"], summary_h))
         at = entry["step"]
@@ -250,13 +259,14 @@ def train(args, hosts: int = 1) -> None:
     while step < args.max_train_iteration:
         window = min(args.steps_per_checkpoint,
                      args.max_train_iteration - step)
+        start = exp.state.step   # the window's id in the spans
         train_keys, metrics_dev = exp.train_steps_device(window)
         keys, summary_dev = exp.validate_device("valid")
         test_dev = (exp.validate_device("test")[1]
                     if args.test_while_train else None)
         step += window
-        entry = {"step": step, "window": window, "train_keys": train_keys,
-                 "keys": keys,
+        entry = {"step": step, "start": start, "window": window,
+                 "train_keys": train_keys, "keys": keys,
                  "fetch": _Fetch([metrics_dev, summary_dev, test_dev]),
                  # Read back at once, the live state is the window's own.
                  "snap": None if args.sync_readback else exp.snapshot_state()}

@@ -494,7 +494,7 @@ class Experiment:
             graph, out = capture(
                 lambda: self._validation_pass(
                     split, self._eval_gen if self._shuffle_ties() else None),
-                [self._eval_gen])
+                [self._eval_gen], name=f"validate.{split}")
             held = self._valid_graphs[split] = (self.state, graph, out)
         _, graph, out = held
         graph.replay()

@@ -38,16 +38,23 @@ makes it at the first collective, which capture refuses).
 Capture refuses a host read (``.item()``, ``.tolist()``, a ``bool`` of a
 device tensor) and a copy from pageable host memory; the run then raises.
 Nothing falls back to the eager window.
+
+Spans (``utils/spans.py``): a capture's host time in parts, under
+``capture.<name>``; a window's graph holds seven stamp nodes (the device
+clock at the window's edges, the plan's end and its last step's phases),
+none where the stamp kernel cannot run.
 """
 
 from __future__ import annotations
 
 import gc
+import sys
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ultra_pytorch_tpu_torch.algorithms.base import TrainState, train_window
+from ultra_pytorch_tpu_torch.utils import spans
 
 
 def launch_counters():
@@ -90,7 +97,8 @@ class Replayable:
 
 def capture(fn: Callable[[], object],
             generators: Sequence[torch.Generator] = (),
-            restore: Optional[Callable[[], None]] = None, pool=None):
+            restore: Optional[Callable[[], None]] = None, pool=None,
+            name: str = "graph"):
     """`fn()` as one CUDA graph: returns (a :class:`Replayable`, what the
     captured `fn()` returned: the graph's static outputs).
 
@@ -102,37 +110,58 @@ def capture(fn: Callable[[], object],
     replay adds what the capture counted. Each of `generators` is
     registered with the graph, so reseed it before each replay. `pool` (``torch.cuda.graph_pool_handle()``) shares one memory
     pool between graphs that never replay at once. A call that capture
-    refuses inside `fn` raises here."""
-    before = read_launches()
-    states = [g.get_state() for g in generators]
-    current = torch.cuda.current_stream()
-    side = torch.cuda.Stream()
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        fn()
-    current.wait_stream(side)
-    for g, state in zip(generators, states):
-        g.set_state(state)
-    if restore is not None:
-        restore()
-    warmed = read_launches()
-    graph = torch.cuda.CUDAGraph()
-    for g in generators:
-        graph.register_generator_state(g)
-    # No garbage collection under capture: one may free an unreachable
-    # graph (a dropped Scorer's, held in a reference cycle), and
-    # destroying a graph is a call that capture refuses, so this capture
-    # would fail.
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
-        with torch.cuda.graph(graph, pool=pool):
-            out = fn()
-    finally:
-        if collecting:
-            gc.enable()
-    captured = [a - b for a, b in zip(read_launches(), warmed)]
-    set_launches(before)
+    refuses inside `fn` raises here.
+
+    `name` names the graph's host spans (``utils/spans.py``):
+    ``capture.<name>`` around ``capture.warmup``, ``capture.restore``,
+    ``capture.generators`` and ``capture.record`` (``capture.sync``,
+    ``capture.trace``, ``capture.instantiate``); a training window is
+    ``window.<steps>``, a validation pass ``validate.<split>``, a serving
+    bucket ``serve.<bq>x<bl>``."""
+    with spans.span(f"capture.{name}"):
+        before = read_launches()
+        with spans.span("capture.warmup"):
+            states = [g.get_state() for g in generators]
+            current = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                fn()
+            current.wait_stream(side)
+        with spans.span("capture.restore"):
+            for g, state in zip(generators, states):
+                g.set_state(state)
+            if restore is not None:
+                restore()
+        warmed = read_launches()
+        with spans.span("capture.generators"):
+            graph = torch.cuda.CUDAGraph()
+            for g in generators:
+                graph.register_generator_state(g)
+        # No garbage collection under capture: one may free an unreachable
+        # graph (a dropped Scorer's, held in a reference cycle), and
+        # destroying a graph is a call that capture refuses, so this
+        # capture would fail.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with spans.span("capture.record"):
+                with spans.span("capture.sync"):
+                    recording = torch.cuda.graph(graph, pool=pool)
+                    recording.__enter__()
+                try:
+                    with spans.span("capture.trace"):
+                        out = fn()
+                except BaseException:
+                    recording.__exit__(*sys.exc_info())
+                    raise
+                with spans.span("capture.instantiate"):
+                    recording.__exit__(None, None, None)
+        finally:
+            if collecting:
+                gc.enable()
+        captured = [a - b for a, b in zip(read_launches(), warmed)]
+        set_launches(before)
     return Replayable(graph, captured), out
 
 
@@ -168,6 +197,8 @@ class WindowGraphs:
                                  device=generator.device)
         self.graphs: Dict[int, Tuple[Replayable, List[str],
                                      torch.Tensor]] = {}
+        # Each graph's stamps (None: captured without them).
+        self.marks: Dict[int, Optional[spans.Marks]] = {}
 
     def reseed(self, seed: int) -> None:
         """Seed the generators for the window whose seed is `seed`."""
@@ -202,8 +233,11 @@ class WindowGraphs:
                     t.copy_(s)
             state.step = step
 
-        graph, (keys, means) = capture(lambda: self.window(num_steps),
-                                       self.generators, restore)
+        with spans.marking() as marks:
+            graph, (keys, means) = capture(lambda: self.window(num_steps),
+                                           self.generators, restore,
+                                           name=f"window.{num_steps}")
+        self.marks[num_steps] = marks
         state.step = step   # the capture ran the Python side of the window
         return graph, keys, means
 
@@ -212,12 +246,16 @@ class WindowGraphs:
         """Replay the window of `num_steps` steps from ``state.step`` with
         the generators seeded from `seed`; advances ``state.step``.
         Returns the metric names and a copy of their window means (the
-        graph's own output is overwritten by its next replay)."""
+        graph's own output is overwritten by its next replay). The replay
+        is window ``state.step`` of the spans (``utils/spans.replay``),
+        which first reads the earlier replays that have ended."""
+        window = self.state.step
         if num_steps not in self.graphs:
-            self.graphs[num_steps] = self._capture(num_steps)
+            with spans.in_window(window, num_steps):
+                self.graphs[num_steps] = self._capture(num_steps)
         graph, keys, means = self.graphs[num_steps]
-        self.start.fill_(self.state.step)
+        self.start.fill_(window)
         self.reseed(seed)
-        graph.replay()
+        spans.replay(graph.replay, self.marks[num_steps], window, num_steps)
         self.state.step += num_steps
         return keys, means.clone()

@@ -194,7 +194,8 @@ class Scorer:
             if self.graphs:
                 with torch.inference_mode():
                     graph, out = capture(lambda: self._body(bq, bl),
-                                         pool=self._pool)
+                                         pool=self._pool,
+                                         name=f"serve.{bq}x{bl}")
 
                 def ranked():
                     graph.replay()

@@ -127,7 +127,8 @@ def profile(device, steps: int = 200, batch: int = bc.BATCH,
     if cuda:
         graphs = {}
         for name, fn in (("feed", feed_chunk), ("train", train_chunk)):
-            graphs[name], _ = capture(fn, [gen], restore)
+            graphs[name], _ = capture(fn, [gen], restore,
+                                      name=f"profile.{name}")
         for name, graph in graphs.items():
             gen.manual_seed(1)
             out[f"{name}_us"] = _per_step_us(graph.replay, chunks, n_steps,

@@ -6,7 +6,8 @@ an in-memory ``history``, appends it to ``<log_dir>/metrics.jsonl`` and,
 where ``torch.utils.tensorboard`` imports (it needs the ``tensorboard``
 package), writes it as scalars to one TensorBoard writer a split under
 ``<log_dir>/<split>``, as the JAX package's logger does;
-:func:`profile_ctx` traces the enclosed steps with ``torch.profiler``.
+:func:`profile_ctx` traces the enclosed steps with ``torch.profiler``
+and writes the process's spans (``utils/spans.py``) beside the trace.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+
+from ultra_pytorch_tpu_torch.utils import spans
 
 
 class MetricLogger:
@@ -76,8 +79,10 @@ class MetricLogger:
 @contextlib.contextmanager
 def profile_ctx(log_dir: Optional[str]):
     """Trace the enclosed steps with ``torch.profiler`` (the CPU, and the
-    card when there is one) into ``<log_dir>/trace.json``, a Chrome trace;
-    nothing when `log_dir` is empty."""
+    card when there is one) into ``<log_dir>/trace.json``, a Chrome trace
+    that holds the program's ranges (``utils/spans.py``), and write
+    ``spans.snapshot()`` to ``<log_dir>/spans.json``; nothing when
+    `log_dir` is empty."""
     if not log_dir:
         yield
         return
@@ -90,3 +95,5 @@ def profile_ctx(log_dir: Optional[str]):
         yield
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with open(os.path.join(log_dir, "spans.json"), "w") as fout:
+        json.dump(spans.snapshot(), fout)
