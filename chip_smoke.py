@@ -52,8 +52,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernels on and keeps the best checkpoint, ``--test_only`` writes a
    ranklist, and a ``Scorer`` loads that checkpoint and serves it.
 9. Kernel timing at the training shapes: K2-K5, their plain versions and
-   the library calls (K2: forward and backward of the library chain by
-   autograd; K5: ``torch.bernoulli``), with the least time the card could
+   the library calls (K2 on the residual K1 saved, against forward and
+   backward of the library chain by autograd, which does K1's work too;
+   K5: ``torch.bernoulli``), with the least time the card could
    take (K2 at 3xTF32, K3-K5 at float32 on CUDA cores). K3/K4 also at
    [16384, 10], beside the launch floor (a one-element ``zero_()``) and,
    for K3, ``F.cross_entropy`` on precomputed inputs as a yardstick.
@@ -872,13 +873,23 @@ def phase_timing(mlp, gen, dev, model_dir):
 
 def library_fwd_bwd(model, x, g):
     """K2's yardstick: the library chain's forward and its backward by
-    autograd, for the same gradients K2 computes (it recomputes the
-    forward too)."""
+    autograd, for the same gradients K2 computes from the residual that
+    K1's forward saved."""
     with torch.enable_grad():
         xr = x.detach().requires_grad_(True)
         params = list(model.parameters())
         out = library_chain(model, xr)
         return torch.autograd.grad(out, [xr] + params, g)
+
+
+def k2_on_residual(mlp, model, x, g):
+    """A call of K2 alone (elu, LayerNorm): on the residual that K1 saved
+    of `x` once, as a training step's backward reads it."""
+    residual = mlp.new_residual(model.layers, x, True)
+    with torch.no_grad():
+        mlp.mlp_forward(model.layers, x, "elu", True, residual=residual)
+    return lambda: mlp.mlp_backward(model.layers, x, g, "elu", True,
+                                    residual=residual)
 
 
 def fixed_batch(dev):
@@ -1254,7 +1265,7 @@ def phase_kernel_timing(mlp, gen, dev, pool):
     # element, counted at the float32 CUDA-core rate; it reads probs and
     # mask and writes clicks.
     cases = {
-        "K2": (lambda: mlp.mlp_backward(model.layers, x, g, "elu", True),
+        "K2": (k2_on_residual(mlp, model, x, g),
                lambda: mlp.mlp_backward_reference(
                    model.layers, x, g, "elu", True),
                lambda: library_fwd_bwd(model, x, g), k2_ops, k2_bytes,
@@ -3780,7 +3791,7 @@ def demo_timing(dev, gen, cutoff: int, features: int = DEMO_FEATURES,
                                                              x)),
                no_grad(lambda: library_chain(model, x)), *mlp_work(model, n),
                PEAK_3XTF32, f"{n} x {features}"),
-        "K2": (lambda: mlp.mlp_backward(model.layers, x, g, "elu", True),
+        "K2": (k2_on_residual(mlp, model, x, g),
                lambda: mlp.mlp_backward_reference(model.layers, x, g, "elu",
                                                   True),
                lambda: library_fwd_bwd(model, x, g), *mlp_bwd_work(model, n),

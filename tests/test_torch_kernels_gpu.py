@@ -14,8 +14,8 @@ from ultra_pytorch_tpu_torch.models.dnn import DNN
 from ultra_pytorch_tpu_torch.ops import losses
 from ultra_pytorch_tpu_torch.ops.kernels import click_sim, listwise_loss, mlp
 
-from test_torch_mlp_kernel import (WITNESS, float64_grads, off_float64,
-                                   seeded_dnn)
+from test_torch_mlp_kernel import (WITNESS, float64_grads, kink_free_rows,
+                                   off_float64, seeded_dnn)
 
 pytestmark = pytest.mark.gpu
 
@@ -142,8 +142,9 @@ def test_k2_is_deterministic_and_trains_through_autograd(cuda):
 
 
 def test_k2_workspace_follows_rows_and_chunks(cuda):
-    """K2's scratch holds post, dz and h of every layer for N rows; its
-    partials one row per block; its dW partials one gradient a chunk."""
+    """K2's scratch holds dz of every layer for N rows (post and h are
+    K1's residual); its partials one row per block; its dW partials one
+    gradient a chunk."""
     lib, _ = mlp._bwd_library()
     widths = (136, 512, 256, 128, 1)
     c_widths = mlp._c_ints(widths)
@@ -151,11 +152,56 @@ def test_k2_workspace_follows_rows_and_chunks(cuda):
     scratch, partials, dw, smem = mlp._bwd_workspace(lib, c_widths, 4, n, 16,
                                                      8)
     ins, outs = widths[:-1], widths[1:]
-    assert scratch == n * (2 * sum(ins) + sum(outs) - ins[0])
+    assert scratch == n * sum(outs)
+    assert 4 * scratch == 9_185_280
     assert partials == (n // 16) * sum(2 * i + o for i, o in zip(ins, outs))
     assert dw == 8 * sum(i * o for i, o in zip(ins, outs))
     assert 0 < smem <= mlp.SMEM_LIMIT
     assert mlp._bwd_workspace(lib, c_widths, 4, n, 24, 8) is None
+
+
+@pytest.mark.parametrize("activation,use_norm", [
+    ("elu", True), ("relu", True), ("selu", True), ("tanh", True),
+    ("sigmoid", True), ("elu", False)])
+def test_k2_from_k1_residual_against_float64(cuda, activation, use_norm):
+    """K2 fed by what K1 saved, every activation code and one run without
+    LayerNorm, at a training step's rows: within K2's 2e-4 of the float64
+    backward (rows at relu's and selu's kink take a zero cotangent)."""
+    model, gen = _seeded_dnn(FULL, 136, 11, cuda)
+    x = torch.randn(2560, 136, generator=gen).to(cuda)
+    g = torch.randn(2560, generator=gen).to(cuda) * kink_free_rows(
+        model, x, activation, use_norm)
+    residual = mlp.new_residual(model.layers, x, use_norm)
+    with torch.inference_mode():
+        mlp.mlp_forward(model.layers, x, activation, use_norm,
+                        residual=residual)
+    k2 = mlp.mlp_backward.launches
+    dx, grads = mlp.mlp_backward(model.layers, x, g, activation, use_norm,
+                                 residual=residual)
+    _, exact = float64_grads(model.layers, x, g, activation, use_norm)
+    torch.cuda.synchronize()
+    assert mlp.mlp_backward.launches == k2 + 1
+    assert off_float64([dx] + grads, exact) <= 2e-4
+
+
+@pytest.mark.parametrize("n_rows,features", [(2560, 136), (30720, 136),
+                                             (2560, 220), (7680, 700)])
+def test_autograd_gradients_equal_direct_k2(cuda, n_rows, features):
+    """Gradients through fused_mlp_score (K1 saving, then K2 on its
+    residual) equal a direct mlp_backward (which runs K1 saving itself)
+    bit for bit."""
+    model, gen = _seeded_dnn(FULL, features, n_rows, cuda)
+    x = torch.randn(n_rows, features, generator=gen).to(cuda)
+    g = torch.randn(n_rows, generator=gen).to(cuda)
+    saved = mlp.fused_mlp_score.saved
+    xg = x.clone().requires_grad_(True)
+    mlp.fused_mlp_score(model.layers, xg).backward(g)
+    got = [xg.grad] + [p.grad for p in mlp._flat_params(model.layers)]
+    dx, grads = mlp.mlp_backward(model.layers, x, g, "elu", True)
+    torch.cuda.synchronize()
+    assert mlp.fused_mlp_score.saved == saved + 2
+    for a, b in zip(got, [dx] + grads):
+        assert torch.equal(a, b)
 
 
 def _loss_inputs(batch, length, device, seed):

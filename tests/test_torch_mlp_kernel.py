@@ -106,6 +106,99 @@ def test_cpu_path_never_launches(pair):
     assert mlp.fused_mlp_score.launches == before
 
 
+def test_autograd_records_only_where_a_backward_can_follow():
+    """K1 saves the residuals for K2 only where autograd records the call:
+    grad mode on and some input needing a gradient. Under no_grad and
+    inference_mode (serving, validation) it saves nothing, although
+    ctx.needs_input_grad would read True there."""
+    model = DNN(HIDDEN, F, generator=torch.Generator().manual_seed(0))
+    params = mlp._flat_params(model.layers)
+    x = torch.zeros(3, F)
+    assert mlp.autograd_records([x, *params])
+    assert mlp.autograd_records([x.requires_grad_(True)])
+    with torch.no_grad():
+        assert not mlp.autograd_records([x, *params])
+    with torch.inference_mode():
+        assert not mlp.autograd_records([torch.zeros(3, F), *params])
+    assert not mlp.autograd_records([torch.zeros(3, F)] + [
+        p.detach() for p in params])
+
+
+def test_cpu_path_keeps_no_residual(pair):
+    """The plain version trains by autograd through the plain chain: no
+    residual is made or counted, and K1's wrapper refuses one."""
+    _, model = pair
+    saved = mlp.fused_mlp_score.saved
+    x = torch.from_numpy(_features((4, F))).requires_grad_(True)
+    mlp.fused_mlp_score(model.layers, x).sum().backward()
+    assert x.grad is not None and mlp.fused_mlp_score.saved == saved
+    model.zero_grad()
+    with pytest.raises(ValueError, match="no residual"):
+        mlp.mlp_forward(model.layers, x.detach(), "elu", True,
+                        residual=torch.zeros(1))
+
+
+@pytest.mark.parametrize("use_norm", [True, False])
+def test_residual_layout_at_the_training_widths(use_norm):
+    """K1's residual at a training step's 2,560 rows of the widths 136,
+    512, 256, 128, 1: post of every layer, and with LayerNorm h past the
+    first and a mean and rstd a row and layer; 19.8 MB."""
+    widths = (136, 512, 256, 128, 1)
+    layout, total = mlp.residual_layout(widths, 2560, use_norm)
+    ins = widths[:-1]
+    per_row = sum(ins) + ((sum(ins[1:]) + 2 * len(ins)) if use_norm else 0)
+    assert total == 2560 * per_row
+    if use_norm:
+        assert per_row == 1936 and 4 * total == 19_824_640
+    spans = sorted((off, off + int(np.prod(shape))) for layer in layout
+                   for off, shape in layer.values())
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert [sorted(layer) for layer in layout] == (
+        [["mean", "post", "rstd"]] + [["h", "mean", "post", "rstd"]] * 3
+        if use_norm else [["post"]] * 4)
+
+
+def test_residual_parts_start_on_16_bytes():
+    """Odd rows and widths: every part starts on 16 bytes, as K2's
+    vector loads of post need."""
+    layout, total = mlp.residual_layout((37, 300, 70, 5, 1), 77, True)
+    offsets = [off for layer in layout for off, _ in layer.values()]
+    assert all(off % 4 == 0 for off in offsets) and total % 4 == 0
+    assert total >= sum(int(np.prod(shape)) for layer in layout
+                        for _, shape in layer.values())
+
+
+@pytest.mark.parametrize("activation", ["elu", "sigmoid"])
+@pytest.mark.parametrize("use_norm", [True, False])
+def test_plain_residual_holds_the_chain(activation, use_norm):
+    """The plain version of K1's saving mode: each layer's input, its
+    LayerNorm statistics and output, from which the next layer's input
+    and the scores follow."""
+    from ultra_pytorch_tpu_torch.models.base import ACTIVATIONS
+
+    model, gen = seeded_dnn(HIDDEN, F, 4)
+    x = torch.randn(13, F, generator=gen)
+    widths = mlp._widths(model.layers)
+    views = mlp.residual_views(mlp.mlp_residual_reference(
+        model.layers, x, activation, use_norm), widths, 13, use_norm)
+    h = x
+    with torch.no_grad():
+        for j, (part, layer) in enumerate(zip(views, model.layers)):
+            if use_norm:
+                if j:
+                    torch.testing.assert_close(part["h"], h)
+                post = ((h - part["mean"][:, None]) * part["rstd"][:, None]
+                        * layer.norm.weight + layer.norm.bias)
+                torch.testing.assert_close(part["post"], post)
+            else:
+                assert torch.equal(part["post"], h)
+            h = part["post"] @ layer.linear.weight.t() + layer.linear.bias
+            if j != len(model.layers) - 1:
+                h = ACTIVATIONS[activation](h)
+        torch.testing.assert_close(h[:, 0], mlp.fused_mlp_score_reference(
+            model.layers, x, activation, use_norm))
+
+
 def test_packed_params_follow_parameter_updates():
     """The kernels read the parameters in place: the pointer table holds
     each layer's LayerNorm scale, bias, nn.Linear weight [out, in] and bias,
@@ -164,6 +257,17 @@ def test_rows_per_block_balances_the_card(n_rows, rows):
     12,800 and 25,600 rows the tile's cost moves the choice from 16-row
     tiles to 64 or 32 (timed by torch_mlp_probe.py)."""
     assert mlp.rows_per_block(n_rows, 132, _smem(64)) == rows
+
+
+@pytest.mark.parametrize("n_rows,rows", [
+    (128, 16), (1000, 16), (2560, 32), (10000, 32), (12800, 32),
+    (25600, 32), (30720, 32), (32768, 32)])
+def test_k2_rows_per_block_takes_no_64_row_tile(n_rows, rows):
+    """K2 on K1's residual chooses between 32- and 16-row tiles: where K1
+    takes 64-row tiles (12,800, 30,720 and 32,768 rows), K2 takes 32-row
+    ones, which ran it 3% faster there (torch_mlp_probe.py)."""
+    assert mlp.rows_per_block(n_rows, 132, _smem(64),
+                              mlp.K2_ROWS_PER_BLOCK) == rows
 
 
 def test_rows_per_block_skips_tiles_that_do_not_fit():
@@ -463,9 +567,9 @@ def test_kernel_is_deterministic_on_card(n_rows):
 
 @pytest.mark.gpu
 def test_kernel_tiles_fit_the_card():
-    """At the full widths the caller picks 32-row tiles for a training
-    step and 64-row tiles for the online lists and the serving bucket, and
-    every tile fits."""
+    """At the full widths the caller picks K1's 32-row tiles for a
+    training step and 64-row tiles for the online lists and the serving
+    bucket, K2's 32-row tiles for all three, and every tile fits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K1 has no CPU mode)")
     lib, _ = mlp._library()
@@ -476,6 +580,98 @@ def test_kernel_tiles_fit_the_card():
     assert mlp.rows_per_block(30720, sms, smem) == 64
     assert mlp.rows_per_block(32768, sms, smem) == 64
     assert all(0 < smem(r) <= mlp.SMEM_LIMIT for r in mlp.ROWS_PER_BLOCK)
+    for n in (2560, 30720, 32768):   # K2: 32-row tiles
+        assert mlp._bwd_plan((136, 512, 256, 128, 1), n, sms)[0] == 32
+
+
+# (rows, features, rows a block) of K1's saving mode on the card: the
+# smallest serving bucket, a training step and the online lists with each
+# tile instance, and bench_exp at F = 700 with the one that fits there (a
+# 32-row tile of 700 features needs 267 KB of shared memory, more than
+# the 227 KB a block has).
+SAVING_CASES = [(n, 136, rows) for n in (128, 2560, 30720)
+                for rows in mlp.ROWS_PER_BLOCK] + [(7680, 700, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rows,features,rows", SAVING_CASES)
+def test_saving_changes_no_score_on_card(n_rows, features, rows):
+    """K1 with a residual buffer gives the same bits as without, for each
+    tile instance, and its residual holds the plain chain's
+    intermediates."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, gen = seeded_dnn("hidden_layer_sizes=[512, 256, 128]", features,
+                            n_rows, "cuda")
+    x = torch.randn(n_rows, features, generator=gen).cuda()
+    residual = mlp.new_residual(model.layers, x, True)
+    with torch.inference_mode():
+        plain = mlp.mlp_forward(model.layers, x, "elu", True, _rows=rows)
+        saving = mlp.mlp_forward(model.layers, x, "elu", True, _rows=rows,
+                                 residual=residual)
+        want = mlp.mlp_residual_reference(model.layers, x, "elu", True)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, saving)
+    widths = mlp._widths(model.layers)
+    for got, ref in zip(mlp.residual_views(residual, widths, n_rows, True),
+                        mlp.residual_views(want, widths, n_rows, True)):
+        for name in ref:
+            torch.testing.assert_close(got[name], ref[name], rtol=2e-4,
+                                       atol=2e-4, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation,use_norm", [
+    ("elu", True), ("relu", False), ("selu", True), ("tanh", False),
+    ("sigmoid", True)])
+def test_saved_residual_matches_plain_chain_on_card(activation, use_norm):
+    """Every activation, with and without LayerNorm, over odd widths and a
+    ragged last tile: the saved parts against the plain chain's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, gen = seeded_dnn("hidden_layer_sizes=[300, 70, 5]", 37, 9,
+                            "cuda")
+    x = torch.randn(1000, 37, generator=gen).cuda()
+    residual = mlp.new_residual(model.layers, x, use_norm)
+    with torch.inference_mode():
+        scores = mlp.mlp_forward(model.layers, x, activation, use_norm,
+                                 residual=residual)
+        want = mlp.mlp_residual_reference(model.layers, x, activation,
+                                          use_norm)
+        ref = mlp.fused_mlp_score_reference(model.layers, x, activation,
+                                            use_norm)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(scores, ref, rtol=2e-4, atol=2e-4)
+    widths = mlp._widths(model.layers)
+    for got, exp in zip(mlp.residual_views(residual, widths, 1000, use_norm),
+                        mlp.residual_views(want, widths, 1000, use_norm)):
+        assert sorted(got) == sorted(exp)
+        for name in exp:
+            torch.testing.assert_close(got[name], exp[name], rtol=2e-4,
+                                       atol=2e-4, msg=name)
+
+
+@pytest.mark.gpu
+def test_no_grad_scores_save_nothing_on_card():
+    """Under no_grad and inference_mode K1 launches without a residual;
+    with gradients on, each forward saves one and its backward reads it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 has no CPU mode)")
+    model, gen = seeded_dnn(HIDDEN, F, 3, "cuda")
+    x = torch.randn(4, 16, F, generator=gen).cuda()
+    k1, saved, k2 = (mlp.fused_mlp_score.launches, mlp.fused_mlp_score.saved,
+                     mlp.mlp_backward.launches)
+    with torch.no_grad():
+        mlp.fused_mlp_score(model.layers, x)
+    with torch.inference_mode():
+        mlp.fused_mlp_score(model.layers, x)
+    assert (mlp.fused_mlp_score.launches, mlp.fused_mlp_score.saved) == (
+        k1 + 2, saved)
+    mlp.fused_mlp_score(model.layers, x).sum().backward()
+    assert (mlp.fused_mlp_score.launches, mlp.fused_mlp_score.saved,
+            mlp.mlp_backward.launches) == (k1 + 3, saved + 1, k2 + 1)
 
 
 @pytest.mark.gpu

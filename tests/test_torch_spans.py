@@ -139,15 +139,19 @@ def test_parents_and_window_ids():
 
 def test_snapshot_holds_the_launch_counters():
     before = window.read_launches()
+    saved = window.saved_counter().saved
     try:
         window.set_launches([3, 1, 4, 1, 5])
+        window.saved_counter().saved = 2
         spans.REGISTRY.count("spans.device_unread", 2)
         counters = spans.snapshot()["counters"]
         assert [counters[f"launches.K{i}"] for i in range(1, 6)] == \
             window.read_launches() == [3, 1, 4, 1, 5]
+        assert counters["launches.K1_saved"] == 2
         assert counters["spans.device_unread"] == 2
     finally:
         window.set_launches(before)
+        window.saved_counter().saved = saved
 
 
 def test_no_range_without_a_profiler(monkeypatch, tmp_path):
@@ -340,7 +344,9 @@ def test_a_replay_resolves_the_seven_stamp_nodes(cuda, tmp_path):
     assert replay["window"] == 0 and replay["ms"] > 0.0
     assert not _samples("window.launch_wait")   # no window before it
     assert spans.snapshot()["counters"] == {
-        f"launches.K{i}": n for i, n in enumerate(window.read_launches(), 1)}
+        **{f"launches.K{i}": n
+           for i, n in enumerate(window.read_launches(), 1)},
+        "launches.K1_saved": window.saved_counter().saved}
     assert len(_samples(f"capture.window.{STEPS}")) == 1
     for part in ("warmup", "restore", "generators", "record", "sync",
                  "trace", "instantiate"):
@@ -386,6 +392,9 @@ def test_the_launch_counters_read_as_before(cuda, tmp_path):
     counters = spans.snapshot()["counters"]
     assert [counters[f"launches.K{i}"] for i in range(1, 6)] == \
         window.read_launches()
+    # Every K1 launch of a training step saves the residuals its K2 reads.
+    assert graph.saved == STEPS
+    assert counters["launches.K1_saved"] == window.saved_counter().saved
 
 
 @pytest.mark.gpu

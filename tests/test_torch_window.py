@@ -352,6 +352,27 @@ def test_replays_add_the_captured_launches():
         window.Replayable.replayed[:] = replayed
 
 
+def test_replays_add_the_captured_saves():
+    """K1's launches that saved residuals for K2 count like the launches:
+    once at capture, then the capture's count on each replay, beside
+    launch counters that keep their five entries."""
+    saved = window.saved_counter().saved
+    before = window.read_launches()
+    replayed = list(window.Replayable.replayed)
+    try:
+        graph = window.Replayable(_FakeGraph(), [2, 2, 4, 4, 1], saved=2)
+        for _ in range(3):
+            graph.replay()
+        assert window.saved_counter().saved - saved == 6
+        assert len(window.launch_counters()) == len(window.read_launches()) \
+            == 5
+        assert window.Replayable(_FakeGraph(), [0] * 5).saved == 0
+    finally:
+        window.set_launches(before)
+        window.saved_counter().saved = saved
+        window.Replayable.replayed[:] = replayed
+
+
 def test_cpu_windows_run_eager_and_say_so(tmp_path, capsys):
     exp = _experiment("DLA", tmp_path)
     assert exp.eager_reason() == "CUDA graphs exist only on the card"

@@ -17,7 +17,8 @@ It prints, each as one line:
 * K1's device time (CUDA graph replay) at a training step's 2,560 rows and
   the 32,768-row serving bucket, as it runs, without its activation and
   without LayerNorm (the same launch with those parts switched off);
-* K1's and K2's device time at 128, 1,000, 2,560, 30,720 (the online
+* K1's device time, without and with saving the residuals for K2, and
+  K2's on those residuals, at 128, 1,000, 2,560, 30,720 (the online
   family's whole lists, 256 x 120) and 32,768 rows, and at 6,000, 10,000,
   12,800 and 25,600 rows, where ``rows_per_block``'s tile cost moved the
   choice from 16-row tiles to 64 or 32, with each tile size forced
@@ -145,8 +146,9 @@ def k1_parts(mlp, model, gen) -> None:
 
         def launch(act, use_norm):
             err = lib.ultra_mlp_fwd(
-                x.data_ptr(), table, out.data_ptr(), n, c_widths, n_layers,
-                rows, act, use_norm, torch.cuda.current_stream().cuda_stream)
+                x.data_ptr(), table, out.data_ptr(), None, 0, n, c_widths,
+                n_layers, rows, act, use_norm,
+                torch.cuda.current_stream().cuda_stream)
             assert err == 0, err
 
         calls = 50 if n <= 4096 else 10
@@ -164,6 +166,9 @@ def tile_sizes(mlp, model, gen, n: int) -> None:
     g = torch.randn(n, generator=gen).cuda()
     chosen = mlp._fwd_plan(mlp._widths(model.layers), n,
                            mlp._sm_count(x.device))[0]
+    chosen_k2 = mlp._bwd_plan(mlp._widths(model.layers), n,
+                              mlp._sm_count(x.device))[0]
+    residual = mlp.new_residual(model.layers, x, True)
     calls = 50 if n <= 4096 else 5
     times = {rows: [] for rows in mlp.ROWS_PER_BLOCK}
     order = list(mlp.ROWS_PER_BLOCK)
@@ -172,20 +177,26 @@ def tile_sizes(mlp, model, gen, n: int) -> None:
             with torch.inference_mode():
                 k1 = graph_ms(lambda: mlp.mlp_forward(
                     model.layers, x, "elu", True, _rows=rows), calls)
+                k1s = graph_ms(lambda: mlp.mlp_forward(
+                    model.layers, x, "elu", True, _rows=rows,
+                    residual=residual), calls)
             k2 = graph_ms(lambda: mlp.mlp_backward(
-                model.layers, x, g, "elu", True, _rows=rows), min(calls, 20))
-            times[rows].append((k1, k2))
+                model.layers, x, g, "elu", True, _rows=rows,
+                residual=residual), min(calls, 20))
+            times[rows].append((k1, k1s, k2))
     for rows, runs in times.items():
-        k1s = " / ".join(f"{k1:.4f}" for k1, _ in runs)
-        k2s = " / ".join(f"{k2:.4f}" for _, k2 in runs)
+        text = ", ".join(
+            f"{name} " + " / ".join(f"{t[i]:.4f}" for t in runs)
+            for i, name in enumerate(("K1", "K1 saving", "K2")))
         print(f"[tiles] {n} rows, {rows} a block ({-(-n // rows)} blocks"
-              f"{', the choice' if rows == chosen else ''}): K1 {k1s} ms, "
-              f"K2 {k2s} ms (two rounds)", flush=True)
-    fastest = {k: min(times, key=lambda r: sum(t[k] for t in times[r]))
-               for k in (0, 1)}
+              f"{', K1/K2 choice' if rows == chosen == chosen_k2 else ''}"
+              f"): {text} ms (two rounds; K2 on the saved residual)",
+              flush=True)
+    fastest = [min(times, key=lambda r: sum(t[i] for t in times[r]))
+               for i in range(3)]
     print(f"[tiles] {n} rows: fastest tile by the rounds' sum K1 "
-          f"{fastest[0]}, K2 {fastest[1]}; rows_per_block picks {chosen}",
-          flush=True)
+          f"{fastest[0]}, K1 saving {fastest[1]}, K2 {fastest[2]}; "
+          f"rows_per_block picks K1 {chosen}, K2 {chosen_k2}", flush=True)
 
 
 def k2_chunks(mlp, model, gen) -> None:
@@ -193,10 +204,13 @@ def k2_chunks(mlp, model, gen) -> None:
     x = torch.randn(n, FEATURES, generator=gen).cuda()
     g = torch.randn(n, generator=gen).cuda()
     widths = mlp._widths(model.layers)
+    residual = mlp.new_residual(model.layers, x, True)
+    with torch.inference_mode():
+        mlp.mlp_forward(model.layers, x, "elu", True, residual=residual)
     for per_sm in (2, 4, 8):
         def call():
             return mlp.mlp_backward(model.layers, x, g, "elu", True,
-                                    _dw_per_sm=per_sm)
+                                    _dw_per_sm=per_sm, residual=residual)
 
         ms = graph_ms(call, 20)
         split = {}

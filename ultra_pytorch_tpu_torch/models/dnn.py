@@ -8,7 +8,8 @@ elu) on all but the last layer, ``fold_norm_affine``, ``compute_dtype``
 keeps its name so existing settings strings and checkpoints load
 unchanged; here it selects the hand-written CUDA kernels
 (``ops/kernels/mlp.py``): K1 for the forward and, when autograd needs
-gradients, K2 for the backward, as the TPU's Pallas kernels did. Without
+gradients, K2 for the backward from the residuals K1 then saves, as the
+TPU's Pallas kernels split the work. Without
 it the DNN trains through autograd of its plain path.
 
 Weights cross from JAX through the generic bridge of ``models/base.py``

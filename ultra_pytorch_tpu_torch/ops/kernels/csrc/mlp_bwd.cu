@@ -2,11 +2,19 @@
 //
 // Replaces the TPU kernel `_bwd_kernel` of ultra_pytorch_tpu/ops/pallas/mlp.py:155
 // (launched by `_backward_pallas`, pallas_call at :254; custom_vjp
-// `_fused_bwd` :267). Given x [N, F] and the scores' cotangent g [N], it
-// recomputes the forward of K1 (csrc/mlp_fwd.cu) and backpropagates through
-// every layer's activation, Linear and LayerNorm. It writes dx [N, F] and
-// one gradient per parameter into one buffer, per layer [dscale (in),
-// dbias (in), dW (out x in, nn.Linear's layout), db (out)].
+// `_fused_bwd` :267). Given x [N, F], the scores' cotangent g [N] and the
+// residuals that K1 (csrc/mlp_fwd.cu) saved in its forward, it
+// backpropagates through every layer's activation, Linear and LayerNorm.
+// It writes dx [N, F] and one gradient per parameter into one buffer, per
+// layer [dscale (in), dbias (in), dW (out x in, nn.Linear's layout), db
+// (out)].
+//
+// The residuals (`residual_plan`, mlp_common.cuh): each layer's LayerNorm
+// output post_j [N, in], its input h_j [N, in] (j >= 1) and each row's mean
+// and rstd; without LayerNorm post_j alone. The TPU kernel recomputes the
+// forward per row tile, which fits its VMEM; here K1 writes these tensors
+// as it computes the scores, so K2 starts at the backward and runs no
+// forward product.
 //
 // The LayerNorm backward is the TPU kernel's formula (:196-203) on the
 // clamped one-pass variance:
@@ -18,32 +26,31 @@
 // The TPU grid runs in order and adds every tile's parameter gradients into
 // one block (:211-219). Hopper's blocks run concurrently, so K2 is three
 // kernels with no float atomics, and two runs give the same bits:
-//   Phase 1 (one block per row tile of 16, 32 or 64 rows): the forward
-//     recompute and dpost = dz @ W on the tensor cores (3xTF32, as K1),
-//     LayerNorm backward and activation derivatives on CUDA cores. Each
-//     layer's LayerNorm output post_j [N, in], its input h_j [N, in] and the
-//     Linear cotangent dz_j [N, out] go to a scratch buffer (in L2: 29 MB
-//     at the training shape); the tile's column sums for dscale, dbias and
-//     db go to a per-block partials buffer; dx is written directly. The
-//     backward rereads h_j from scratch instead of keeping every layer's
-//     input in shared memory (the previous kernel's 8.2 KB a row), so a
-//     tile holds only K1's two activation buffers, and tiles of 32 rows on
-//     16 warps (a training step: 80 blocks) or 64 rows fit, where the
-//     previous kernel was held to 16 rows on 8 warps.
-//   Phase 2: dW_j = dz_j^T post_j on the tensor cores (3xTF32), in 64 x 64
-//     tiles of [out, in], with the rows split into fixed chunks (chosen by
-//     the caller) so that tiles x chunks give four blocks per SM (the
-//     previous kernel ran 66 tiles, each summing all rows on CUDA cores, on
-//     half the SMs).
+//   Phase 1 (one block per row tile of 16, 32 or 64 rows): from the tile's
+//     mean and rstd, copied to shared memory, and dpost of the width-1
+//     layer (g * w), down the layers: LayerNorm backward and activation
+//     derivatives on CUDA cores, reading h_j from the residual, and dpost =
+//     dz @ W on the tensor cores (3xTF32, as K1). Each layer's Linear
+//     cotangent dz_j [N, out] goes to a scratch buffer; the tile's column
+//     sums for dscale, dbias and db go to a per-block partials buffer; dx
+//     is written directly. A tile holds K1's two activation buffers and its
+//     statistics, so tiles of 32 rows on 16 warps (a training step: 80
+//     blocks) or 64 rows fit.
+//   Phase 2: dW_j = dz_j^T post_j on the tensor cores (3xTF32), post_j from
+//     the residual, in 64 x 64 tiles of [out, in], with the rows split into
+//     fixed chunks (chosen by the caller) so that tiles x chunks give four
+//     blocks per SM.
 //   Phase 3: the chunk partials of dW summed in chunk order, and the
 //     per-block partials of dscale, dbias and db in block order.
 //
-// What bounds it: the forward recompute, dpost and dW make about
-// 3 x 2 x 233,600 = 1.4 MFLOP a row at the training widths (136, 512, 256,
-// 128, 1): 3.64 GFLOP at N = 2,560 rows. Bound at 3xTF32 (165 TFLOP/s
-// effective): 0.022 ms; at float32 on CUDA cores (67 TFLOP/s): 0.054 ms.
-// Compulsory traffic (x, dx, weights, gradients) is 4.7 MB, 1.4 us. So it
-// is bound by operations; the 29 MB of scratch stays in the 50 MB L2.
+// What bounds it: dpost and dW are 2 x 233,600 multiply-adds a row at the
+// training widths (136, 512, 256, 128, 1), 2.39 GFLOP at N = 2,560 rows,
+// and with LayerNorm, activation and bias work 2.43 GFLOP. Bound at 3xTF32
+// (165 TFLOP/s effective): 0.0147 ms; at float32 on CUDA cores (67
+// TFLOP/s): 0.036 ms. It reads the 19.8 MB residual, writes and rereads
+// its 9.2 MB of dz scratch (in the 50 MB L2), and moves 4.7 MB of x, dx,
+// weights and gradients: 42.9 MB, 0.0128 ms at 3.35 TB/s even if none of
+// it stayed in L2. So it is bound by operations.
 
 #include "mlp_common.cuh"
 
@@ -66,17 +73,13 @@ struct Plan {
   int chunks, chunk_rows;              // phase 2 row chunks
   int small;                           // partial floats per row block
   long long dw_total;                  // dW floats of one chunk
-  long long post_off[kMaxLayers];      // scratch: post_j [N, in]
   long long dz_off[kMaxLayers];        // scratch: dz_j [N, out]
-  long long h_off[kMaxLayers];         // scratch: h_j [N, in], j >= 1
   long long scratch;                   // scratch floats
   int small_off[kMaxLayers + 1];       // per block: dscale, dbias, db
   long long dw_off[kMaxLayers + 1];    // a chunk's dW_j [out, in]
   long long grad_off[kMaxLayers + 1];  // dparams: dscale, dbias, dW, db
   int tile_start[kMaxLayers + 1];      // phase 2 tiles, prefix sums
 };
-
-long long round4(long long v) { return (v + 3) / 4 * 4; }
 
 Plan make_plan(const Net& net, int n_rows, int rows, int chunks) {
   Plan p;
@@ -90,12 +93,8 @@ Plan make_plan(const Net& net, int n_rows, int rows, int chunks) {
   int small = 0, tiles = 0;
   for (int j = 0; j < n_layers; ++j) {
     const long long in = net.width[j], out = net.width[j + 1];
-    p.post_off[j] = s;
-    s += round4(n_rows * in);
     p.dz_off[j] = s;
     s += round4(n_rows * out);
-    p.h_off[j] = s;
-    if (j) s += round4(n_rows * in);
     p.small_off[j] = small;
     small += static_cast<int>(2 * in + out);
     p.dw_off[j] = dw;
@@ -118,6 +117,7 @@ Plan make_plan(const Net& net, int n_rows, int rows, int chunks) {
 template <int R>
 __global__ void __launch_bounds__(Tile<R>::kThreads, R == 16 ? 2 : 1)
 mlp_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                    const float* __restrict__ res, Residual rp,
                     float* __restrict__ dx, float* __restrict__ scratch,
                     float* __restrict__ partials, Net net, Smem sm, Plan plan,
                     int act, int use_norm) {
@@ -134,38 +134,21 @@ mlp_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const int f = net.width[0], n_layers = net.n_layers;
   float* part = partials + static_cast<long long>(blockIdx.x) * plan.small;
 
-  // ---- forward recompute: h_{j+1} = act(post_j @ W_j^T + b_j)
-  load_rows<R>(x + row0 * f, f, valid, smem + sm.buf_off[0], sm.stride[0]);
-  __syncthreads();
-  for (int j = 0; j < n_layers; ++j) {
-    const Layer& L = net.layer[j];
-    const int in = net.width[j];
-    float* cur = smem + sm.buf_off[j % 2];
-    const int s = sm.stride[j % 2];
-    float* post = scratch + plan.post_off[j] + row0 * in;
-    if (use_norm) {
-      layer_norm_rows<R>(cur, s, in, L.scale, L.bias, stats + 2 * j * R,
-                         stats + (2 * j + 1) * R,
-                         j ? scratch + plan.h_off[j] + row0 * in : nullptr,
-                         post, valid, stage, kCap);
-    } else {
-      for (int i = tid; i < valid * in; i += kT) {
-        const int r = i / in, k = i - r * in;
-        post[i] = cur[r * s + k];
-      }
-    }
-    __syncthreads();
-    if (j + 1 < n_layers) {  // the scores themselves are not needed
-      block_gemm<R, false>(cur, s, in, L.w, in, net.width[j + 1], stage,
-                           smem + sm.buf_off[(j + 1) % 2],
-                           sm.stride[(j + 1) % 2], L.b, act);
-      __syncthreads();
+  // ---- the tile's mean and rstd of every layer, from K1's residual
+  if (use_norm) {
+    for (int i = tid; i < n_layers * valid; i += kT) {
+      const int j = i / valid, r = i - j * valid;
+      stats[2 * j * R + r] = res[rp.mean_off[j] + row0 + r];
+      stats[(2 * j + 1) * R + r] = res[rp.rstd_off[j] + row0 + r];
     }
   }
 
-  // ---- the width-1 output layer: dz = g, dpost = g * w
+  // ---- the width-1 output layer: dz = g, dpost = g * w, and zeros in
+  // the columns up to round_up(in, 8) that the product's last k step reads
+  // (block_gemm writes them as zeros in every later buffer).
   {
     const int j = n_layers - 1, in = net.width[j], s = sm.stride[j % 2];
+    const int in8 = round_up(in, 8);
     float* p = smem + sm.buf_off[j % 2];
     const float* w = net.layer[j].w;
     float* dzs = scratch + plan.dz_off[j] + row0;
@@ -175,9 +158,9 @@ mlp_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
       for (int r = 0; r < valid; ++r) db += g[row0 + r];
       part[plan.small_off[j] + 2 * in] = db;
     }
-    for (int i = tid; i < R * in; i += kT) {
-      const int r = i / in, k = i - r * in;
-      p[r * s + k] = r < valid ? g[row0 + r] * w[k] : 0.f;
+    for (int i = tid; i < R * in8; i += kT) {
+      const int r = i / in8, k = i - r * in8;
+      p[r * s + k] = r < valid && k < in ? g[row0 + r] * w[k] : 0.f;
     }
     __syncthreads();
   }
@@ -188,8 +171,7 @@ mlp_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
     const int in = net.width[j], s = sm.stride[j % 2];
     float* p = smem + sm.buf_off[j % 2];
     const float* h = j == 0 ? x + row0 * f
-                            : scratch + (use_norm ? plan.h_off[j]
-                                                  : plan.post_off[j]) +
+                            : res + (use_norm ? rp.h_off[j] : rp.post_off[j]) +
                                   row0 * in;
     float* pj = part + plan.small_off[j];
     if (use_norm) {
@@ -281,6 +263,7 @@ mlp_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
 // sum_n dz_j[n, o] * post_j[n, i], into that chunk's partial.
 __global__ void __launch_bounds__(kP2Threads)
 mlp_bwd_dw_kernel(const float* __restrict__ scratch,
+                  const float* __restrict__ res, Residual rp,
                   float* __restrict__ dw_part, Net net, Plan plan) {
   extern __shared__ float4 smem4[];
   float* st = reinterpret_cast<float*>(smem4);  // kStages x kP2Stage
@@ -296,7 +279,7 @@ mlp_bwd_dw_kernel(const float* __restrict__ scratch,
                          ? static_cast<int>(plan.n_rows - r0)
                          : plan.chunk_rows;
   const float* dz = scratch + plan.dz_off[j] + r0 * out + o0;
-  const float* post = scratch + plan.post_off[j] + r0 * in + i0;
+  const float* post = res + rp.post_off[j] + r0 * in + i0;
   const bool vec_a = out % 4 == 0, vec_b = in % 4 == 0;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -402,9 +385,10 @@ mlp_bwd_reduce_kernel(const float* __restrict__ partials,
 }
 
 template <int R>
-int launch(const float* x, const float* g, float* dx, float* dparams,
-           float* scratch, float* partials, float* dw_part, const Net& net,
-           const Plan& plan, int act, int use_norm, cudaStream_t stream) {
+int launch(const float* x, const float* g, const float* res,
+           const Residual& rp, float* dx, float* dparams, float* scratch,
+           float* partials, float* dw_part, const Net& net, const Plan& plan,
+           int act, int use_norm, cudaStream_t stream) {
   const Smem sm = smem_layout<R>(net, true);
   const size_t bytes = static_cast<size_t>(sm.total) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -412,7 +396,7 @@ int launch(const float* x, const float* g, float* dx, float* dparams,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   mlp_bwd_rows_kernel<R><<<plan.n_blocks, Tile<R>::kThreads, bytes, stream>>>(
-      x, g, dx, scratch, partials, net, sm, plan, act, use_norm);
+      x, g, res, rp, dx, scratch, partials, net, sm, plan, act, use_norm);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int dw_smem = kStages * kP2Stage * sizeof(float);
   err = cudaFuncSetAttribute(mlp_bwd_dw_kernel,
@@ -420,8 +404,8 @@ int launch(const float* x, const float* g, float* dx, float* dparams,
                              dw_smem);
   if (err != cudaSuccess) return err;
   const dim3 tiles(plan.tile_start[net.n_layers], plan.chunks);
-  mlp_bwd_dw_kernel<<<tiles, kP2Threads, dw_smem, stream>>>(scratch, dw_part,
-                                                            net, plan);
+  mlp_bwd_dw_kernel<<<tiles, kP2Threads, dw_smem, stream>>>(
+      scratch, res, rp, dw_part, net, plan);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long total = plan.grad_off[net.n_layers];
   mlp_bwd_reduce_kernel<<<static_cast<unsigned>((total + kReduceThreads - 1) /
@@ -472,27 +456,32 @@ int ultra_mlp_bwd_workspace(const int* widths, int n_layers, int n_rows,
 }
 
 // dx [n_rows, widths[0]] and dparams (per layer dscale, dbias, dW [out, in],
-// db) from x, g [n_rows] and the parameters (params: 4 * n_layers device
-// pointers in host memory, per layer LayerNorm scale, bias, W [out, in],
-// b), on `stream`. scratch, partials and dw_part are sized by
-// ultra_mlp_bwd_workspace for the same rows and chunks. Returns
-// cudaGetLastError() after the launches.
-int ultra_mlp_bwd(const float* x, const float* g, const void* const* params,
-                  float* dx, float* dparams, float* scratch, float* partials,
+// db) from x, g [n_rows], the residual K1 saved for the same rows and
+// use_norm (res_floats floats, `residual_plan`'s total) and the parameters
+// (params: 4 * n_layers device pointers in host memory, per layer
+// LayerNorm scale, bias, W [out, in], b), on `stream`. scratch, partials
+// and dw_part are sized by ultra_mlp_bwd_workspace for the same rows and
+// chunks. Returns cudaGetLastError() after the launches.
+int ultra_mlp_bwd(const float* x, const float* g, const float* residual,
+                  long long res_floats, const void* const* params, float* dx,
+                  float* dparams, float* scratch, float* partials,
                   float* dw_part, int n_rows, const int* widths, int n_layers,
                   int rows, int chunks, int act, int use_norm, void* stream) {
   Net net;
-  if (n_rows < 1 || chunks < 1 || !make_net(widths, n_layers, params, &net))
+  if (n_rows < 1 || chunks < 1 || !residual ||
+      !make_net(widths, n_layers, params, &net))
     return cudaErrorInvalidValue;
+  const Residual rp = residual_plan(net, n_rows, use_norm);
+  if (res_floats != rp.total) return cudaErrorInvalidValue;
   const Plan plan = make_plan(net, n_rows, rows, chunks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rows) {
-    case 16: return launch<16>(x, g, dx, dparams, scratch, partials, dw_part,
-                               net, plan, act, use_norm, s);
-    case 32: return launch<32>(x, g, dx, dparams, scratch, partials, dw_part,
-                               net, plan, act, use_norm, s);
-    case 64: return launch<64>(x, g, dx, dparams, scratch, partials, dw_part,
-                               net, plan, act, use_norm, s);
+    case 16: return launch<16>(x, g, residual, rp, dx, dparams, scratch,
+                               partials, dw_part, net, plan, act, use_norm, s);
+    case 32: return launch<32>(x, g, residual, rp, dx, dparams, scratch,
+                               partials, dw_part, net, plan, act, use_norm, s);
+    case 64: return launch<64>(x, g, residual, rp, dx, dparams, scratch,
+                               partials, dw_part, net, plan, act, use_norm, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -86,7 +86,7 @@ __host__ __device__ inline int act_stride(int w) {
 // Shared memory of a row tile, in floats: two activation buffers (buffer
 // p holds the inputs of the layers j with j % 2 == p, so each is sized by
 // its own layers), kStages weight stages, then (K2) each layer's mean and
-// rstd.
+// rstd of the tile's rows, copied from the residual.
 struct Smem {
   int stride[2];
   int buf_off[2];
@@ -109,6 +109,46 @@ inline Smem smem_layout(const Net& net, bool stats) {
   s.stats_off = s.stage_off + kStages * Tile<R>::kStage;
   s.total = s.stats_off + (stats ? 2 * net.n_layers * R : 0);
   return s;
+}
+
+__host__ __device__ inline long long round4(long long v) {
+  return (v + 3) / 4 * 4;
+}
+
+// The forward's residuals that K1 saves for K2, for n_rows rows, as
+// offsets in floats into one buffer: per layer j its LayerNorm output
+// post_j [N, in] (the layer's input where there is no LayerNorm), and with
+// LayerNorm its input h_j [N, in] for j >= 1 (h_0 is x) and each row's
+// mean and rstd [N]. Every part starts on 16 bytes.
+struct Residual {
+  long long post_off[kMaxLayers];
+  long long h_off[kMaxLayers];
+  long long mean_off[kMaxLayers];
+  long long rstd_off[kMaxLayers];
+  long long total;  // floats
+};
+
+inline Residual residual_plan(const Net& net, long long n_rows,
+                              bool use_norm) {
+  Residual r;
+  long long s = 0;
+  for (int j = 0; j < net.n_layers; ++j) {
+    const long long in = net.width[j];
+    r.post_off[j] = s;
+    s += round4(n_rows * in);
+    r.h_off[j] = r.mean_off[j] = r.rstd_off[j] = -1;
+    if (!use_norm) continue;
+    if (j) {
+      r.h_off[j] = s;
+      s += round4(n_rows * in);
+    }
+    r.mean_off[j] = s;
+    s += round4(n_rows);
+    r.rstd_off[j] = s;
+    s += round4(n_rows);
+  }
+  r.total = s;
+  return r;
 }
 
 inline bool make_net(const int* widths, int n_layers,
@@ -432,10 +472,11 @@ __device__ void stage_pair(const float* __restrict__ a,
 }
 
 // LayerNorm of the tile's rows in place (clamped one-pass variance, as the
-// TPU kernel): one warp per row. Optionally keeps each row's mean and rstd
-// (K2), and writes the input h (`h_out`) and the output post (`post_out`)
-// of the tile's first `valid` rows to global rows of width `in`. The
-// affine is first copied to `tmp` (cap floats of idle shared memory).
+// TPU kernel): one warp per row. Optionally (K1 saving residuals for K2)
+// writes, for the tile's first `valid` rows, each row's mean and rstd
+// (`mean`, `rstd`), its input h (`h_out`) and its output post
+// (`post_out`), the last two as global rows of width `in`. The affine is
+// first copied to `tmp` (cap floats of idle shared memory).
 template <int R>
 __device__ void layer_norm_rows(float* h, int s, int in,
                                 const float* __restrict__ scale,
@@ -469,7 +510,7 @@ __device__ void layer_norm_rows(float* h, int s, int in,
       if (keep && h_out) h_out[off + k] = v;
       if (keep && post_out) post_out[off + k] = p;
     }
-    if (mean && lane == 0) {
+    if (keep && mean && lane == 0) {
       mean[r] = mu;
       rstd[r] = rs;
     }

@@ -7,6 +7,16 @@
 // then h @ W^T + b, then the activation on every layer but the last. The
 // last layer has width 1 and yields the row's score.
 //
+// Saving mode (a residual buffer given, where autograd will call the
+// backward): K1 also writes what K2 (csrc/mlp_bwd.cu) backpropagates
+// from, in the layout of `residual_plan` (mlp_common.cuh): each layer's
+// LayerNorm output post_j, its input h_j (j >= 1) and each row's mean and
+// rstd, or post_j alone without LayerNorm. At the training widths that is
+// 1,936 floats a row, 19.8 MB at 2,560 rows and 238 MB at 30,720; the
+// values are the very ones the scores are computed from, and the scores
+// are the same bits with or without saving. Without a buffer (serving,
+// validation, anything under no_grad) nothing is written but the scores.
+//
 // What bounds it: at the serving shape F = 136, widths 512/256/128/1 the
 // chain is 233,600 multiply-adds per row: 15.57 GFLOP at N = 32,768 rows
 // and 1.22 GFLOP at a training step's 2,560. Bound at 3xTF32 (165 TFLOP/s
@@ -55,10 +65,13 @@ namespace {
 
 using namespace mlp;
 
-template <int R>
+// kSave: the saving mode, its own instance, so that the scoring one
+// carries no store or branch of it.
+template <int R, bool kSave>
 __global__ void __launch_bounds__(Tile<R>::kThreads, R == 16 ? 2 : 1)
 mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
-               int n_rows, Net net, Smem sm, int act, int use_norm) {
+               float* __restrict__ res, Residual rp, int n_rows, Net net,
+               Smem sm, int act, int use_norm) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* stage = smem + sm.stage_off;
@@ -76,7 +89,22 @@ mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
     const int in = net.width[j], width = net.width[j + 1];
     float* cur = smem + sm.buf_off[j % 2];
     const int s = sm.stride[j % 2];
-    if (use_norm) {
+    if constexpr (kSave) {
+      float* post = res + rp.post_off[j] + row0 * in;
+      if (use_norm) {
+        layer_norm_rows<R>(cur, s, in, L.scale, L.bias,
+                           res + rp.mean_off[j] + row0,
+                           res + rp.rstd_off[j] + row0,
+                           j ? res + rp.h_off[j] + row0 * in : nullptr, post,
+                           valid, stage, kCap);
+        __syncthreads();
+      } else {
+        for (int i = threadIdx.x; i < valid * in; i += Tile<R>::kThreads) {
+          const int r = i / in, k = i - r * in;
+          post[i] = cur[r * s + k];
+        }
+      }
+    } else if (use_norm) {
       layer_norm_rows<R>(cur, s, in, L.scale, L.bias, nullptr, nullptr,
                          nullptr, nullptr, 0, stage, kCap);
       __syncthreads();
@@ -101,19 +129,30 @@ mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
-template <int R>
-int launch(const float* x, float* out, int n_rows, const Net& net, int act,
-           int use_norm, cudaStream_t stream) {
+template <int R, bool kSave>
+int launch_mode(const float* x, float* out, float* res, const Residual& rp,
+                int n_rows, const Net& net, int act, int use_norm,
+                cudaStream_t stream) {
   const Smem sm = smem_layout<R>(net, false);
   const size_t bytes = static_cast<size_t>(sm.total) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      mlp_fwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mlp_fwd_kernel<R, kSave>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>((n_rows + R - 1) / R);
-  mlp_fwd_kernel<R><<<grid, Tile<R>::kThreads, bytes, stream>>>(x, out, n_rows, net,
-                                                       sm, act, use_norm);
+  mlp_fwd_kernel<R, kSave><<<grid, Tile<R>::kThreads, bytes, stream>>>(
+      x, out, res, rp, n_rows, net, sm, act, use_norm);
   return cudaGetLastError();
+}
+
+template <int R>
+int launch(const float* x, float* out, float* res, const Residual& rp,
+           int n_rows, const Net& net, int act, int use_norm,
+           cudaStream_t stream) {
+  return res ? launch_mode<R, true>(x, out, res, rp, n_rows, net, act,
+                                    use_norm, stream)
+             : launch_mode<R, false>(x, out, res, rp, n_rows, net, act,
+                                     use_norm, stream);
 }
 
 long long smem_bytes(const Net& net, int rows) {
@@ -147,18 +186,27 @@ const char* ultra_cuda_error_string(int err) {
 // Scores n_rows rows of x [n_rows, widths[0]] into out [n_rows] on
 // `stream`, `rows` rows a block. widths (host memory) holds n_layers + 1
 // entries, the last 1; params (host memory) the 4 * n_layers device
-// pointers. Returns cudaGetLastError() after the launch.
+// pointers. With `residual` (res_floats floats, which must be
+// `residual_plan`'s total for these rows) the forward's residuals for K2
+// go there too; null saves nothing. Returns cudaGetLastError() after the
+// launch.
 int ultra_mlp_fwd(const float* x, const void* const* params, float* out,
-                  int n_rows, const int* widths, int n_layers, int rows,
-                  int act, int use_norm, void* stream) {
+                  float* residual, long long res_floats, int n_rows,
+                  const int* widths, int n_layers, int rows, int act,
+                  int use_norm, void* stream) {
   Net net;
   if (!make_net(widths, n_layers, params, &net) || n_rows < 1)
     return cudaErrorInvalidValue;
+  const Residual rp = residual_plan(net, n_rows, use_norm);
+  if (residual && res_floats != rp.total) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rows) {
-    case 16: return launch<16>(x, out, n_rows, net, act, use_norm, s);
-    case 32: return launch<32>(x, out, n_rows, net, act, use_norm, s);
-    case 64: return launch<64>(x, out, n_rows, net, act, use_norm, s);
+    case 16:
+      return launch<16>(x, out, residual, rp, n_rows, net, act, use_norm, s);
+    case 32:
+      return launch<32>(x, out, residual, rp, n_rows, net, act, use_norm, s);
+    case 64:
+      return launch<64>(x, out, residual, rp, n_rows, net, act, use_norm, s);
     default: return cudaErrorInvalidValue;
   }
 }

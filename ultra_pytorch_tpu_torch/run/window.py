@@ -25,9 +25,11 @@ What a replay needs that the recording fixed:
   rank's shard generator: the graphs own it, register it beside the
   replica generator and reseed it from the window's seed as
   ``parallel.shard_generator`` seeds the eager window's fresh one;
-* the launch counters. The kernel wrappers count in Python, so a capture
-  counts each launch once; :class:`Replayable` adds the count the capture
-  recorded on every replay, and the warm-up's launches are taken off.
+* the launch counters, and K1's count of launches that saved residuals
+  for K2 (``fused_mlp_score.saved``). The kernel wrappers count in
+  Python, so a capture counts each launch once; :class:`Replayable` adds
+  the counts the capture recorded on every replay, and the warm-up's
+  launches are taken off.
 
 A data-parallel window under NCCL is captured whole, the counterpart of
 ``make_dp_train_step(window=W)``: the gradient's and the batch
@@ -76,23 +78,34 @@ def set_launches(counts: Sequence[int]) -> None:
         fn.launches = n
 
 
+def saved_counter():
+    """The wrapper whose ``saved`` counts K1's launches that saved the
+    forward's residuals for K2."""
+    from ultra_pytorch_tpu_torch.ops.kernels import mlp
+
+    return mlp.fused_mlp_score
+
+
 class Replayable:
     """A captured graph (anything with ``replay()``) and the kernel
-    launches it holds, one count a counter of :func:`launch_counters`:
-    :meth:`replay` replays it and adds those counts, to the counters and
-    to ``Replayable.replayed`` (every replay's, in this process)."""
+    launches it holds, one count a counter of :func:`launch_counters`,
+    and of them K1's that saved residuals (`saved`): :meth:`replay`
+    replays it and adds those counts, to the counters and to
+    ``Replayable.replayed`` (every replay's launches, in this process)."""
 
     replayed = [0] * 5
 
-    def __init__(self, graph, launches: Sequence[int]):
+    def __init__(self, graph, launches: Sequence[int], saved: int = 0):
         self.graph = graph
         self.launches = list(launches)
+        self.saved = saved
 
     def replay(self) -> None:
         self.graph.replay()
         for i, (fn, n) in enumerate(zip(launch_counters(), self.launches)):
             fn.launches += n
             Replayable.replayed[i] += n
+        saved_counter().saved += self.saved
 
 
 def capture(fn: Callable[[], object],
@@ -119,7 +132,7 @@ def capture(fn: Callable[[], object],
     ``window.<steps>``, a validation pass ``validate.<split>``, a serving
     bucket ``serve.<bq>x<bl>``."""
     with spans.span(f"capture.{name}"):
-        before = read_launches()
+        before, saved_before = read_launches(), saved_counter().saved
         with spans.span("capture.warmup"):
             states = [g.get_state() for g in generators]
             current = torch.cuda.current_stream()
@@ -133,7 +146,7 @@ def capture(fn: Callable[[], object],
                 g.set_state(state)
             if restore is not None:
                 restore()
-        warmed = read_launches()
+        warmed, saved_warmed = read_launches(), saved_counter().saved
         with spans.span("capture.generators"):
             graph = torch.cuda.CUDAGraph()
             for g in generators:
@@ -161,8 +174,10 @@ def capture(fn: Callable[[], object],
             if collecting:
                 gc.enable()
         captured = [a - b for a, b in zip(read_launches(), warmed)]
+        saved = saved_counter().saved - saved_warmed
         set_launches(before)
-    return Replayable(graph, captured), out
+        saved_counter().saved = saved_before
+    return Replayable(graph, captured, saved), out
 
 
 class WindowGraphs:

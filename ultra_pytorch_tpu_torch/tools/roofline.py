@@ -22,10 +22,10 @@ Two counts of operations a step:
   ``mfu_vs_bf16_peak`` against the bfloat16 peak (the JAX tool's
   yardstick; null otherwise).
 * ``kernel_flops_per_step``, what the selected kernels execute: with
-  ``use_pallas`` K1's forward, K2's forward recompute and its backward
-  down to the features (``mlp_work``, ``mlp_bwd_work``), with the fused
-  loss K3/K4 twice (``loss_work``); null when neither runs. ``hfu`` is
-  this count against the 3xTF32 peak (null likewise).
+  ``use_pallas`` K1's forward and K2's backward down to the features,
+  from the residuals K1 saved (``mlp_work``, ``mlp_bwd_work``), with the
+  fused loss K3/K4 twice (``loss_work``); null when neither runs.
+  ``hfu`` is this count against the 3xTF32 peak (null likewise).
 
 ``flops_per_step``, ``bytes_per_step`` and ``mfu`` count the step's work
 from the ranker's widths, whatever implements the step, so the library
@@ -99,13 +99,15 @@ def mlp_work(model, n_rows: int):
 
 
 def mlp_bwd_work(model, n_rows: int):
-    """(operations, bytes) of K2 over `n_rows` rows: the forward recompute
-    (``mlp_work``) plus, per layer, the two backward products dz @ W^T and
-    post^T @ dz (2*in*out each), db (out), the LayerNorm backward
-    (dscale, dbias, dnhat, two means, dh: 10*in) and, on every layer but
-    the first, the activation's derivative (2*in). Bytes read x, g and
-    the weights once and write dx and one gradient per parameter once."""
-    ops, _ = mlp_work(model, n_rows)
+    """(operations, bytes) of K2 over `n_rows` rows, from the residuals
+    that K1 saved (no forward): per layer the two backward products
+    dz @ W^T and post^T @ dz (2*in*out each), db (out), the LayerNorm
+    backward (dscale, dbias, dnhat, two means, dh: 10*in) and, on every
+    layer but the first, the activation's derivative (2*in). Bytes read
+    x, g and the weights once and write dx and one gradient per parameter
+    once (the residual K1 writes and K2 reads is the fused step's
+    intermediate, not counted, as no other intermediate is)."""
+    ops = 0
     for j, (d_in, d_out) in enumerate(_widths(model)):
         ops += n_rows * (4 * d_in * d_out + d_out + NORM_BWD * d_in)
         if j:

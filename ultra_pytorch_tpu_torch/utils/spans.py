@@ -52,7 +52,10 @@ the graph instantiated).
 
 Counters: ``spans.device_unread``; :func:`snapshot` adds K1-K5's launch
 counts (``launches.K1`` ... ``launches.K5``), read from
-``run.window.read_launches``, not kept here.
+``run.window.read_launches``, and ``launches.K1_saved``, K1's launches
+that saved the forward's residuals for K2 (``fused_mlp_score.saved``;
+over ``launches.K2``, the share of K2's launches fed by them, 1 where
+every saving forward is backpropagated), neither kept here.
 
 While ``torch.profiler`` records, each host span and each phase of
 :func:`mark` is also a ``record_function`` range of the same name, so
@@ -393,7 +396,8 @@ class Registry:
         on the host clock, device spans in ms from their window's first
         stamp) with their ``parent``, ``window``, ``steps`` and
         ``profiled``, and every counter with K1-K5's launches."""
-        from ultra_pytorch_tpu_torch.run.window import read_launches
+        from ultra_pytorch_tpu_torch.run.window import (read_launches,
+                                                        saved_counter)
 
         self.resolve()
         keys = ("start", "end", "parent", "window", "steps", "profiled")
@@ -404,6 +408,7 @@ class Registry:
             counters = dict(self.counters)
         counters.update((f"launches.K{i + 1}", n)
                         for i, n in enumerate(read_launches()))
+        counters["launches.K1_saved"] = saved_counter().saved
         return {"spans": spans, "counters": counters}
 
 
