@@ -39,6 +39,18 @@ CLICK_JSON = os.path.join(REPO, "example", "ClickModel",
 F, L, B, STEPS = 16, 5, 16, 6
 SETRANK = "d_model=16,num_heads=2,num_layers=1,diff=8"
 PHASES = ("step.forward", "step.backward", "step.update")
+ONLINE_PHASES = ("step.forward", "step.candidates", "step.multileave",
+                 "step.update")
+# The stamp nodes of a captured window, in the order the window marks
+# them: an offline one's seven (as before the online points), an online
+# one's eight.
+STAMPED = {
+    "DLA": ["window.start", "window.plan", "step.start", "step.forward",
+            "step.backward", "step.update", "window.end"],
+    "MGD": ["window.start", "window.plan", "step.start", "step.feed",
+            "step.candidates", "step.multileave", "step.update",
+            "window.end"],
+}
 
 
 @pytest.fixture(autouse=True)
@@ -77,6 +89,27 @@ def _experiment(dev, tmp_path, ranker="DNN", kernels=False):
             "loss_func=fused_softmax_loss" if kernels else "",
         "metrics": ["ndcg"], "metrics_topn": [3, 5],
         "objective_metric": "ndcg_5", "selection_bias_cutoff": L,
+    }
+    exp = Experiment(settings, "unused", str(tmp_path), batch_size=B,
+                     device=dev)
+    exp.setup(datasets={"train": _data(64, 0), "valid": _data(40, 1)})
+    exp.init_state()
+    return exp
+
+
+def _online_experiment(dev, tmp_path, kernels=False):
+    """MGD over the stochastic online feed, scoring whole lists of L."""
+    settings = {
+        "train_input_feed": "StochasticOnlineSimulationFeed",
+        "train_input_hparams": f"click_model_json={CLICK_JSON}",
+        "valid_input_feed": "DirectLabelFeed", "valid_input_hparams": "",
+        "ranking_model": "DNN",
+        "ranking_model_hparams": "hidden_layer_sizes=[32, 16]"
+                                 + (",use_pallas=true" if kernels else ""),
+        "learning_algorithm": "MGD",
+        "learning_algorithm_hparams": f"click_model_json={CLICK_JSON}",
+        "metrics": ["ndcg"], "metrics_topn": [3, 5],
+        "objective_metric": "ndcg_5", "selection_bias_cutoff": 3,
     }
     exp = Experiment(settings, "unused", str(tmp_path), batch_size=B,
                      device=dev)
@@ -220,13 +253,13 @@ def test_profile_steps_writes_spans_json(tmp_path):
     assert {"window", "window.plan"} | set(PHASES) <= names
 
 
-def _host_marks():
+def _host_marks(recorded=tuple(spans.POINTS)):
     """A :class:`spans.Marks` whose rows this test writes in the card's
-    stead, every point recorded."""
+    stead, the points `recorded` (every point by default) recorded."""
     marks = object.__new__(spans.Marks)
     marks.slot = {p: i for i, p in enumerate(spans.POINTS)}
     marks.ns = np.zeros((spans.MARK_ROWS, len(spans.POINTS) + 1), np.int64)
-    marks.recorded = list(spans.POINTS)
+    marks.recorded = list(recorded)
     marks.replays = 0
     marks.owners = [None] * spans.MARK_ROWS
     return marks
@@ -311,6 +344,103 @@ def test_a_window_runs_without_the_stamp_library(monkeypatch, tmp_path):
                    ("window.device", "window.launch_wait"))
 
 
+class _RecordingMarks:
+    """Stands in for a capture's :class:`spans.Marks`: launches nothing;
+    ``mark`` records the points it stamps."""
+
+    def __init__(self):
+        self.recorded = []
+
+    def stamp(self, point, stream):
+        pass
+
+
+@pytest.mark.parametrize("algorithm", sorted(STAMPED))
+def test_a_window_stamps_its_last_step_alone(monkeypatch, tmp_path,
+                                             algorithm):
+    """The stamp nodes a window's capture records, the capture standing
+    in for CUDA's: the edges, the plan's end and the last step's points
+    alone; an offline window's seven as before the online points, an
+    online window's eight."""
+    exp = (_experiment if algorithm == "DLA" else _online_experiment)(
+        "cpu", tmp_path)
+    exp.train_steps(1)
+    marks = _RecordingMarks()
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("Stream", (), {"cuda_stream": 0}))
+    spans.REGISTRY.marks, spans.REGISTRY.sampled = marks, False
+    exp.train_steps_device(STEPS)
+    assert marks.recorded == STAMPED[algorithm]
+
+
+def test_an_online_row_gives_the_online_phases():
+    """An online window's row: step.feed from step.start, then
+    step.candidates and step.multileave, and step.update closing after
+    step.multileave; no step.forward or step.backward."""
+    marks = _host_marks(STAMPED["MGD"])
+    spans.replay(lambda: None, marks, 0, STEPS)
+    at_us = dict(zip(STAMPED["MGD"], (0, 100, 300, 1300, 4300, 4800, 4900,
+                                      5000)))
+    row = marks.ns[1]
+    for point, us in at_us.items():
+        row[marks.slot[point]] = 7_000_000 + 1000 * us
+    row[-1] = 1
+    got = {name: [s["ms"] for s in _samples(name)] for name in
+           ("step.feed", "step.candidates", "step.multileave",
+            "step.update", "window.device", "step.forward",
+            "step.backward")}
+    assert got == {"step.feed": [1.0], "step.candidates": [3.0],
+                   "step.multileave": [0.5],
+                   "step.update": [pytest.approx(0.1)],
+                   "window.device": [5.0], "step.forward": [],
+                   "step.backward": []}
+
+
+def test_the_online_passes_are_counted_and_replayed(tmp_path):
+    """The feed's pass and the rankers' (1 + ranker_num) a step, in an
+    eager window; a replay adds what its capture counted."""
+    exp = _online_experiment("cpu", tmp_path)
+    exp.train_steps(STEPS)
+    counters = spans.snapshot()["counters"]
+    assert counters["online.feed_scored"] == STEPS
+    assert counters["online.rankers_scored"] == 5 * STEPS
+    graph = window.Replayable(type("Graph", (), {"replay": lambda s: None})(),
+                              [0] * 5, counts={"online.feed_scored": 50,
+                                               "online.rankers_scored": 250})
+    graph.replay()
+    graph.replay()
+    counters = spans.snapshot()["counters"]
+    assert counters["online.feed_scored"] == STEPS + 100
+    assert counters["online.rankers_scored"] == 5 * STEPS + 500
+
+
+def test_the_online_window_ranges_under_the_cpu_profiler(tmp_path):
+    """Each online step's ranges in order: the feed's batch (under the
+    name step.start opens, step.forward), the candidates, the
+    multileave and the update."""
+    exp = _online_experiment("cpu", tmp_path)
+    exp.train_steps(1)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        exp.train_steps(STEPS)
+    ranges = {}
+    for e in prof.events():
+        if e.name in ("window",) + ONLINE_PHASES:
+            ranges.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    (win,) = ranges["window"]
+    steps = list(zip(*(sorted(ranges[p]) for p in ONLINE_PHASES)))
+    assert len(steps) == STEPS and "step.backward" not in ranges
+    last = win[0]
+    for phases in steps:
+        for start, end in phases:
+            assert last <= start <= end <= win[1]
+            last = end
+    assert not spans.REGISTRY._ranges
+
+
 # -- on the card ----------------------------------------------------------
 
 @pytest.fixture
@@ -327,8 +457,9 @@ def test_a_replay_resolves_the_seven_stamp_nodes(cuda, tmp_path):
     exp.train_steps(STEPS)        # captured, then replayed once
     torch.cuda.synchronize()
     marks = exp._window_graphs.marks[STEPS]
-    assert sorted(marks.recorded) == sorted(spans.POINTS)
-    got = {name: _samples(name) for name, *_ in spans.DEVICE_SPANS}
+    assert marks.recorded == STAMPED["DLA"]
+    got = {name: _samples(name) for name, *_ in spans.DEVICE_SPANS
+           if name not in spans.ONLINE_POINTS}
     for name, samples in got.items():
         assert len(samples) == 1, name
         assert (samples[0]["window"], samples[0]["steps"]) == (0, STEPS)
@@ -354,6 +485,33 @@ def test_a_replay_resolves_the_seven_stamp_nodes(cuda, tmp_path):
     exp.train_steps(STEPS)        # a second replay: the wait between
     (wait,) = _samples("window.launch_wait")
     assert wait["window"] == STEPS and 0.0 < wait["ms"] < 1e3
+
+
+@pytest.mark.gpu
+def test_an_online_graph_stamps_and_replays_its_counts(cuda, tmp_path):
+    """An MGD window's graph: its eight stamp nodes, the online phases
+    within its device time, and the passes its capture counted added on
+    every replay."""
+    exp = _online_experiment(cuda, tmp_path, kernels=True)
+    for _ in range(3):
+        exp.train_steps(STEPS)
+    torch.cuda.synchronize()
+    marks = exp._window_graphs.marks[STEPS]
+    assert marks.recorded == STAMPED["MGD"]
+    ms = {name: [s["ms"] for s in _samples(name)] for name in
+          ("step.feed", "step.candidates", "step.multileave",
+           "step.update", "window.device")}
+    assert all(len(v) == 3 and min(v) > 0 for v in ms.values()), ms
+    assert sum(ms[p][0] for p in ("step.feed", "step.candidates",
+                                  "step.multileave", "step.update")) \
+        <= ms["window.device"][0]
+    assert not _samples("step.backward")
+    graph = exp._window_graphs.graphs[STEPS][0]
+    assert graph.counts == {"online.feed_scored": STEPS,
+                            "online.rankers_scored": 5 * STEPS}
+    counters = spans.snapshot()["counters"]
+    assert counters["online.feed_scored"] == 3 * STEPS
+    assert counters["online.rankers_scored"] == 15 * STEPS
 
 
 @pytest.mark.gpu

@@ -23,6 +23,14 @@ algorithm keeps one scratch copy of the ranker (never checkpointed) and
 writes each candidate's weights into it, so a DNN with
 ``use_pallas=true`` scores every candidate with K1.
 
+Spans (``utils/spans.py``): the step marks ``step.feed`` as it starts
+(the online feed's batch lies between ``step.start`` and it),
+``step.candidates`` once the current ranker and the candidates are
+scored, and ``step.multileave`` once the credit is known;
+``window_steps``' ``step.update`` closes the update. A captured window
+stamps them at its last step alone. The rankers' passes over the whole
+lists count in ``online.rankers_scored`` (1 + ``ranker_num`` a step).
+
 Draws come from the step's generator in this order: the noises (one
 ``torch.randn`` a perturbed leaf), each fresh candidate's initialisation
 (``fresh`` only), the rankings' Plackett-Luce uniforms (``Stochastic``
@@ -49,6 +57,7 @@ from ultra_pytorch_tpu_torch.sim.interleave import (
     draft, infer_winners, round_assignments)
 from ultra_pytorch_tpu_torch.sim.sampling import (
     deterministic_rank, plackett_luce_sample, rerank)
+from ultra_pytorch_tpu_torch.utils import spans
 from ultra_pytorch_tpu_torch.utils.checkpoint import tree_leaves
 from ultra_pytorch_tpu_torch.utils.registry import register
 
@@ -121,6 +130,7 @@ class DBGD(BaseAlgorithm):
                                 [n[r] for n in noises], lr)
             scores.append(self.score_with_params(cand, batch,
                                                  training=False))
+        spans.count("online.rankers_scored", len(scores))
         return scores
 
     def interleave_winners(self, scores: List[torch.Tensor],
@@ -205,8 +215,10 @@ class DBGD(BaseAlgorithm):
             torch._foreach_copy_(tree_leaves(state.aux), tree_leaves(new))
 
     def train_step(self, state, batch, generator=None):
+        spans.mark("step.feed")
         noises = self.sample_noises(state, generator)
         scores = self.candidate_scores(state, batch, noises, generator)
+        spans.mark("step.candidates")
         metrics = {}
         if self.hparams.need_interleave:
             winners, clicks, online_ndcg = self.interleave_winners(
@@ -218,6 +230,7 @@ class DBGD(BaseAlgorithm):
                                self.sync(torch.stack(online)).unbind(0)))
         else:
             win_share = win_totals = self.ndcg_winners(scores, batch)
+        spans.mark("step.multileave")
         # Averaged over the ranks: the noises are the same on every rank,
         # so the credit is the global batch's, and NSGD's losers (a zero
         # total) are the same everywhere.

@@ -31,7 +31,8 @@ click model's sampler, never with K5, as the JAX online feed does. The
 click model's eta is that of `step`, which a captured window passes as a
 0-dim int64 tensor on the device (its start plus the step's index), so a
 replay reads the step it runs, as the JAX feed reads the traced
-``state.step``.
+``state.step``. Each ranking of the whole lists counts one in the spans'
+``online.feed_scored`` (``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from ultra_pytorch_tpu_torch.ops.kernels import click_sim
 from ultra_pytorch_tpu_torch.sim import click_models as cm
 from ultra_pytorch_tpu_torch.sim.sampling import (
     deterministic_rank, plackett_luce_sample, rerank)
+from ultra_pytorch_tpu_torch.utils import spans
 from ultra_pytorch_tpu_torch.utils.hparams import HParams
 from ultra_pytorch_tpu_torch.utils.registry import register
 
@@ -322,6 +324,7 @@ class _OnlineSimulationFeed(BaseInputFeed, _ClickFeedMixin):
         qs = _randint(generator, ds.num_queries, (self.batch_size,))
         batch = ds.gather(qs)
         scores = self.algorithm.score(state, batch)       # eval mode: K1
+        spans.count("online.feed_scored")
         ranking = self._rank(generator, scores, batch["mask"])
         u = None
         if not self.hparams.oracle_mode:

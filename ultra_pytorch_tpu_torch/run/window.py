@@ -25,11 +25,12 @@ What a replay needs that the recording fixed:
   rank's shard generator: the graphs own it, register it beside the
   replica generator and reseed it from the window's seed as
   ``parallel.shard_generator`` seeds the eager window's fresh one;
-* the launch counters, and K1's count of launches that saved residuals
-  for K2 (``fused_mlp_score.saved``). The kernel wrappers count in
-  Python, so a capture counts each launch once; :class:`Replayable` adds
-  the counts the capture recorded on every replay, and the warm-up's
-  launches are taken off.
+* the launch counters, K1's count of launches that saved residuals
+  for K2 (``fused_mlp_score.saved``) and the counters of the spans'
+  registry (the DBGD family's ``online.*`` passes). They count in
+  Python, so a capture counts each once; :class:`Replayable` adds the
+  counts the capture recorded on every replay, and the warm-up's are
+  taken off.
 
 A data-parallel window under NCCL is captured whole, the counterpart of
 ``make_dp_train_step(window=W)``: the gradient's and the batch
@@ -42,9 +43,9 @@ device tensor) and a copy from pageable host memory; the run then raises.
 Nothing falls back to the eager window.
 
 Spans (``utils/spans.py``): a capture's host time in parts, under
-``capture.<name>``; a window's graph holds seven stamp nodes (the device
-clock at the window's edges, the plan's end and its last step's phases),
-none where the stamp kernel cannot run.
+``capture.<name>``; a window's graph holds seven stamp nodes, eight in
+an online window (the device clock at the window's edges, the plan's end
+and its last step's phases), none where the stamp kernel cannot run.
 """
 
 from __future__ import annotations
@@ -89,16 +90,19 @@ def saved_counter():
 class Replayable:
     """A captured graph (anything with ``replay()``) and the kernel
     launches it holds, one count a counter of :func:`launch_counters`,
-    and of them K1's that saved residuals (`saved`): :meth:`replay`
-    replays it and adds those counts, to the counters and to
+    of them K1's that saved residuals (`saved`), and what it counted of
+    the spans' counters (`counts`, by name): :meth:`replay` replays it
+    and adds those counts to their counters, and the launches also to
     ``Replayable.replayed`` (every replay's launches, in this process)."""
 
     replayed = [0] * 5
 
-    def __init__(self, graph, launches: Sequence[int], saved: int = 0):
+    def __init__(self, graph, launches: Sequence[int], saved: int = 0,
+                 counts: Optional[Dict[str, int]] = None):
         self.graph = graph
         self.launches = list(launches)
         self.saved = saved
+        self.counts = dict(counts or {})
 
     def replay(self) -> None:
         self.graph.replay()
@@ -106,6 +110,8 @@ class Replayable:
             fn.launches += n
             Replayable.replayed[i] += n
         saved_counter().saved += self.saved
+        for name, n in self.counts.items():
+            spans.count(name, n)
 
 
 def capture(fn: Callable[[], object],
@@ -119,8 +125,9 @@ def capture(fn: Callable[[], object],
     initialisation, a library's first-call set-up and the kernels' builds
     may not happen under capture); then every generator's state is put
     back and `restore()` undoes what else that run changed. The capture
-    runs with garbage collection off. The counters end as they began: a
-    replay adds what the capture counted. Each of `generators` is
+    runs with garbage collection off. The counters (the launches, K1's
+    saving ones and the spans' registry's) end as they began: a replay
+    adds what the capture counted. Each of `generators` is
     registered with the graph, so reseed it before each replay. `pool` (``torch.cuda.graph_pool_handle()``) shares one memory
     pool between graphs that never replay at once. A call that capture
     refuses inside `fn` raises here.
@@ -133,6 +140,7 @@ def capture(fn: Callable[[], object],
     bucket ``serve.<bq>x<bl>``."""
     with spans.span(f"capture.{name}"):
         before, saved_before = read_launches(), saved_counter().saved
+        counts_before = spans.counters()
         with spans.span("capture.warmup"):
             states = [g.get_state() for g in generators]
             current = torch.cuda.current_stream()
@@ -147,6 +155,7 @@ def capture(fn: Callable[[], object],
             if restore is not None:
                 restore()
         warmed, saved_warmed = read_launches(), saved_counter().saved
+        counts_warmed = spans.counters()
         with spans.span("capture.generators"):
             graph = torch.cuda.CUDAGraph()
             for g in generators:
@@ -175,9 +184,13 @@ def capture(fn: Callable[[], object],
                 gc.enable()
         captured = [a - b for a, b in zip(read_launches(), warmed)]
         saved = saved_counter().saved - saved_warmed
+        counts = {k: n - counts_warmed.get(k, 0)
+                  for k, n in spans.counters().items()
+                  if n != counts_warmed.get(k, 0)}
         set_launches(before)
         saved_counter().saved = saved_before
-    return Replayable(graph, captured, saved), out
+        spans.set_counters(counts_before)
+    return Replayable(graph, captured, saved, counts), out
 
 
 class WindowGraphs:

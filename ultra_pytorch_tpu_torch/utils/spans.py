@@ -11,8 +11,9 @@ two clocks:
 * device spans: the card's global timer (``%globaltimer``, ns), written
   by a one-thread kernel (``ops/kernels/csrc/timer.cu``, a "stamp") into
   pinned host memory and read lazily. A training window's graph
-  (``run/window.py`` ``WindowGraphs``) holds seven stamp nodes
-  (:func:`mark`, captured from ``algorithms/base.py``) that write the
+  (``run/window.py`` ``WindowGraphs``) holds seven stamp nodes, eight
+  in an online window (:func:`mark`, captured from
+  ``algorithms/base.py`` and ``algorithms/dbgd.py``) that write the
   replay's row of a ring of :data:`MARK_ROWS` rows; the first also writes
   the replay's number into the row, so a row is read only when it holds
   that replay's last stamp. Each replay, after its launch, and
@@ -39,9 +40,19 @@ from the plan and ``algorithm.losses``), ``step.backward``
 and the stacking and adding of the step's metrics) of the window's last
 step alone, since a mark a step would add about 250 nodes to a graph.
 Algorithms whose step is the base ``_step`` (DLA, IPW, Regression-EM and
-the rest of the offline family) get the three phases; the DBGD family
-overrides ``train_step`` and gets the window's spans only (under a
-profiler its whole step is one ``step.forward`` range). Host spans:
+the rest of the offline family) get those three phases. The DBGD family
+(DBGD, MGD, NSGD) overrides ``train_step`` and splits its step at its
+own points (:data:`ONLINE_POINTS`), in place of ``step.forward`` and
+``step.backward``: ``step.feed``, from ``step.start`` to the start of
+``train_step`` (the online feed's batch: its ranking of the whole lists
+with the current ranker, its Plackett-Luce draw and its click rounds);
+``step.candidates`` (the noises, and the current ranker and each
+candidate scored); ``step.multileave`` (the rankers' rankings, the
+draft, the click uniforms and clicks, and the credit by
+``infer_winners``; the nDCG credit under ``need_interleave=false``); and
+``step.update``, which there runs from ``step.multileave`` (the noise
+update, NSGD's memory, the loss and the metrics). An offline window's
+graph keeps its seven stamp nodes; an online one has eight. Host spans:
 ``window.replay`` (the replay's ``cudaGraphLaunch``) and, under
 ``capture.<name>``, ``capture.warmup``, ``capture.restore``,
 ``capture.generators`` and ``capture.record``, which holds
@@ -55,11 +66,20 @@ counts (``launches.K1`` ... ``launches.K5``), read from
 ``run.window.read_launches``, and ``launches.K1_saved``, K1's launches
 that saved the forward's residuals for K2 (``fused_mlp_score.saved``;
 over ``launches.K2``, the share of K2's launches fed by them, 1 where
-every saving forward is backpropagated), neither kept here.
+every saving forward is backpropagated), neither kept here. The DBGD
+family counts its passes of a ranker over whole lists (:func:`count`):
+``online.feed_scored``, the online feed's (one a step), and
+``online.rankers_scored``, the algorithm's (1 + ``ranker_num`` a step),
+in passes and not in K1 launches, so they read the same with
+``use_pallas`` off. A counter counted while a window's graph is captured
+is counted again at each replay (``run/window.py`` ``Replayable``), as
+the launches are.
 
 While ``torch.profiler`` records, each host span and each phase of
 :func:`mark` is also a ``record_function`` range of the same name, so
-the program's ranges share the device trace's timeline. Without a
+the program's ranges share the device trace's timeline (in an online
+step the range that ``step.start`` opens keeps the offline family's
+first name, ``step.forward``, and holds the feed's batch). Without a
 profiler no range is opened. Memory is bounded: the last :data:`RING`
 samples of each name.
 """
@@ -87,9 +107,10 @@ STAMP_FLAGS = ("-gencode", "arch=compute_90,code=sm_90",
 
 # The points of a window that mark() takes, in order: the ranges each
 # closes and opens. The window's edges and the plan's end are marked in
-# every captured window, the step's points at its last step alone. A
-# step that never reaches step.forward (the DBGD family's) shows under a
-# profiler as one step.forward range.
+# every captured window, the step's points at its last step alone. The
+# DBGD family's step marks ONLINE_POINTS in place of step.forward and
+# step.backward; they come last, so an offline window's slots are as
+# they were.
 POINTS = {
     "window.start": ((), ("window", "window.plan")),
     "window.plan": (("window.plan",), ()),
@@ -98,17 +119,29 @@ POINTS = {
     "step.backward": (("step.backward",), ("step.update",)),
     "step.update": (("step.forward", "step.backward", "step.update"), ()),
     "window.end": (("window",), ()),
+    "step.feed": (("step.forward",), ("step.candidates",)),
+    "step.candidates": (("step.candidates",), ("step.multileave",)),
+    "step.multileave": (("step.multileave",), ("step.update",)),
 }
 EDGES = ("window.start", "window.plan", "window.end")
+ONLINE_POINTS = ("step.feed", "step.candidates", "step.multileave")
 
 # A window's device spans between two of its points: (name, from, to,
-# parent). window.launch_wait runs from the previous window's end.
+# parent); a span whose two points the graph did not stamp is not
+# recorded, so step.update runs from step.backward in an offline window
+# and from step.multileave in an online one. window.launch_wait runs
+# from the previous window's end.
 DEVICE_SPANS = (
     ("window.device", "window.start", "window.end", None),
     ("window.plan", "window.start", "window.plan", "window.device"),
     ("step.forward", "step.start", "step.forward", "window.device"),
     ("step.backward", "step.forward", "step.backward", "window.device"),
     ("step.update", "step.backward", "step.update", "window.device"),
+    ("step.feed", "step.start", "step.feed", "window.device"),
+    ("step.candidates", "step.feed", "step.candidates", "window.device"),
+    ("step.multileave", "step.candidates", "step.multileave",
+     "window.device"),
+    ("step.update", "step.multileave", "step.update", "window.device"),
 )
 
 
@@ -133,7 +166,7 @@ def _library():
 
 
 class Marks:
-    """The seven stamp nodes of one captured window graph: a row of
+    """The stamp nodes of one captured window graph: a row of
     pinned host memory a replay, one slot a point of :data:`POINTS` and a
     last slot for the replay's number, in a ring of :data:`MARK_ROWS`
     rows. A device counter picks the row: the stamp of ``window.start``
@@ -231,6 +264,17 @@ class Registry:
     def count(self, name: str, n: int = 1) -> None:
         with self._lock:
             self.counters[name] += n
+
+    def read_counters(self) -> Dict[str, int]:
+        """A copy of the registry's own counters."""
+        with self._lock:
+            return dict(self.counters)
+
+    def set_counters(self, values: Dict[str, int]) -> None:
+        """Put the registry's own counters back to `values` (a capture
+        takes its count off)."""
+        with self._lock:
+            self.counters = collections.Counter(values)
 
     def _stack(self) -> list:
         stack = getattr(self._local, "stack", None)
@@ -439,6 +483,18 @@ def in_window(window: int, steps: int):
 
 def replay(launch, marks: Optional[Marks], window: int, steps: int) -> None:
     REGISTRY.replay(launch, marks, window, steps)
+
+
+def count(name: str, n: int = 1) -> None:
+    REGISTRY.count(name, n)
+
+
+def counters() -> Dict[str, int]:
+    return REGISTRY.read_counters()
+
+
+def set_counters(values: Dict[str, int]) -> None:
+    REGISTRY.set_counters(values)
 
 
 def snapshot() -> Dict:
