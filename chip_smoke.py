@@ -8,10 +8,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Device: the card's name and power limit (nvidia-smi); TF32 off.
-2. Build: K1-K5 (``ops/kernels/csrc/*.cu``), one nvcc per source, all
+2. Build: K1-K5 (``ops/kernels/csrc/*.cu``), one nvcc per library, all
    started together, and ptxas's register / shared-memory / spill report;
    K1 and K2 must spill nothing and must hold tensor-core instructions
-   (``HMMA``/``HGMMA`` in ``cuobjdump --dump-sass`` of their libraries).
+   (``cuobjdump --dump-sass`` of their libraries): ``HMMA`` in both, and
+   ``HGMMA`` in K1 (its wgmma instance, ``mlp_fwd_wg.cu``).
 3. Kernel parity, each kernel against its plain PyTorch version on the
    card: K1 at the full serving width (F = 136, hidden [512, 256, 128])
    at 32,768 rows (64-row tiles), 2,560 (a training step, 32-row tiles)
@@ -30,7 +31,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    checked against the plain version, and the K1 launch count of that
    run, counted through the replays, one a device call.
 5. Serving timing: K1, plain version and a chain of library calls at the
-   serving buckets and a training step's rows, as device time a call
+   serving buckets, a training step's rows and the online lists (where K1
+   runs its wgmma instance, also the mma.sync instance it replaced, forced
+   through the plan), as device time a call
    (CUDA graph replay) and back to back, with the least time the card
    could take at 3xTF32 (K1's products run so: the ``bound_ms`` of the
    kernels line) and at float32 on CUDA cores (``bound_f32_ms``); K1 held
@@ -327,6 +330,7 @@ import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from typing import Dict
 
 import numpy as np
 import torch
@@ -479,17 +483,19 @@ def phase_device():
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
 
-def tensor_core_instructions(lib_path) -> int:
-    """Tensor-core instructions (``HMMA``, ``HGMMA``) in a library's SASS,
-    from ``cuobjdump --dump-sass`` beside the nvcc that built it."""
+def tensor_core_instructions(lib_path) -> Dict[str, int]:
+    """Tensor-core instructions in a library's SASS, ``HMMA`` (mma.sync)
+    and ``HGMMA`` (wgmma) apart, from ``cuobjdump --dump-sass`` beside the
+    nvcc that built it."""
     from ultra_pytorch_tpu_torch.ops.kernels import build
 
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     proc = subprocess.run([cuobjdump, "--dump-sass", str(lib_path)],
                           capture_output=True, text=True, timeout=300)
     check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr[-500:]}")
-    return sum(1 for line in proc.stdout.splitlines()
-               if " HMMA." in line or " HGMMA." in line)
+    lines = proc.stdout.splitlines()
+    return {op: sum(1 for line in lines if f" {op}." in line)
+            for op in ("HMMA", "HGMMA")}
 
 
 def phase_build():
@@ -512,14 +518,17 @@ def phase_build():
             if any(w in line for w in ("Compiling", "registers", "spill",
                                        "smem")):
                 print(f"[build] {name} ptxas: {line.strip()}", flush=True)
-    for name in ("K1", "K2"):
+    # K1's mma.sync instances and K2 hold HMMA, K1's wgmma instance HGMMA.
+    for name, ops in (("K1", ("HMMA", "HGMMA")), ("K2", ("HMMA",))):
         spills = [int(v) for v in re.findall(r"(\d+) bytes spill",
                                              built[name].log)]
         check(spills and not any(spills), f"{name} spills registers")
         count = tensor_core_instructions(built[name].path)
-        print(f"[build] {name}: {count} tensor-core instructions "
-              "(HMMA/HGMMA) in its SASS; no spills", flush=True)
-        check(count > 0, f"{name} has no tensor-core instruction")
+        print(f"[build] {name}: {count['HMMA']} HMMA and {count['HGMMA']} "
+              "HGMMA tensor-core instructions in its SASS; no spills",
+              flush=True)
+        for op in ops:
+            check(count[op] > 0, f"{name} has no {op} instruction")
 
 
 def phase_parity(mlp, gen, dev):
@@ -846,9 +855,20 @@ def phase_timing(mlp, gen, dev, model_dir):
             rows[(q, docs)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                    bound_ms=bound_ms, bound_by=by,
                                    bound_f32_ms=f32_ms)
-            tile = mlp._fwd_plan(mlp._widths(layers), n,
-                                 mlp._sm_count(dev))[0]
-            print(f"[timing] K1 {q}x{docs} ({n} rows, {tile}-row tiles): K1 "
+            plan = mlp._fwd_plan(mlp._widths(layers), n, mlp._sm_count(dev))
+            tile = f"{plan.rows}-row tiles" + (", wgmma" if plan.wgmma
+                                                else "")
+            if plan.wgmma:
+                # The mma.sync instance these rows took before: the previous
+                # design's time, beside its bound share.
+                sync_ms = graph_ms(lambda: mlp.mlp_forward(
+                    layers, x, "elu", True, _rows=plan.rows), calls)
+                rows[(q, docs)]["mma_sync_ms"] = sync_ms
+                print(f"[timing] K1 {q}x{docs} previous design (mma.sync, "
+                      f"{plan.rows}-row tiles): {sync_ms:.4f} ms, bound "
+                      f"share {100 * bound_ms / sync_ms:.1f}%; wgmma "
+                      f"{ms:.4f} ms, {100 * bound_ms / ms:.1f}%", flush=True)
+            print(f"[timing] K1 {q}x{docs} ({n} rows, {tile}): K1 "
                   f"{ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (device time "
                   f"a call) | back to back: K1 {call_ms:.4f} ms, library "

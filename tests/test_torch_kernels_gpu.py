@@ -1,4 +1,5 @@
-"""K2-K5 on the card against their plain PyTorch versions.
+"""K1's wgmma instance and K2-K5 on the card against their plain PyTorch
+versions.
 
 These need a CUDA device (the kernels have no CPU mode) and skip without
 one. The file imports nothing of JAX, so it runs on a machine with the
@@ -361,3 +362,148 @@ def test_k5_position_rates(cuda):
     rate = clicks.mean(0)
     sigma = (p * (1 - p) / n).sqrt()
     assert bool(((rate - p).abs() <= 4 * sigma).all()), (rate, p)
+
+
+# K1's wgmma instance (csrc/mlp_fwd_wg.cu): 8,448 rows are 132 full 64-row
+# tiles, one a block on an H100; 8,449 and 30,721 end in a ragged tile of
+# one row; 30,720 and 32,768 are the online lists and the 256x128 bucket.
+WG_ROWS = [8448, 8449, 30720, 30721, 32768]
+
+
+@pytest.mark.parametrize("features", [136, 220])
+@pytest.mark.parametrize("n_rows", WG_ROWS)
+def test_k1_wgmma_matches_plain_version(cuda, n_rows, features):
+    """The wgmma instance, forced through the plan (8,448 and 8,449 rows
+    take it only so), against the plain float32 version at the tolerance
+    of K1's other card tests."""
+    model, gen = _seeded_dnn(FULL, features, n_rows, cuda)
+    x = torch.randn(n_rows, features, generator=gen).to(cuda)
+    before = mlp.fused_mlp_score.wgmma
+    with torch.inference_mode():
+        got = mlp.mlp_forward(model.layers, x, "elu", True, _rows=mlp.WGMMA)
+        ref = mlp.fused_mlp_score_reference(model.layers, x, "elu", True)
+    torch.cuda.synchronize()
+    assert mlp.fused_mlp_score.wgmma == before + 1
+    torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("use_norm", [True, False])
+@pytest.mark.parametrize("activation", ["elu", "relu", "selu", "tanh",
+                                        "sigmoid"])
+def test_k1_wgmma_every_activation(cuda, activation, use_norm):
+    """Each activation, with and without LayerNorm, at the online lists'
+    30,720 rows, where the plan takes the wgmma instance itself."""
+    model, gen = _seeded_dnn(FULL, 136, 7, cuda)
+    x = torch.randn(256, 120, 136, generator=gen).to(cuda)
+    before = mlp.fused_mlp_score.wgmma
+    with torch.no_grad():
+        got = mlp.fused_mlp_score(model.layers, x, activation, use_norm)
+        ref = mlp.fused_mlp_score_reference(model.layers, x, activation,
+                                            use_norm)
+    torch.cuda.synchronize()
+    assert mlp.fused_mlp_score.wgmma == before + 1
+    torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("hparams,features,activation,use_norm,n_rows", [
+    (FULL, 136, "elu", True, 30720), (FULL, 220, "selu", True, 8449),
+    (WITNESS[0], WITNESS[1], "sigmoid", False, 1000),
+    (WITNESS[0], WITNESS[1], "sigmoid", False, 32768)])
+def test_k1_wgmma_against_float64(cuda, hparams, features, activation,
+                                  use_norm, n_rows):
+    """Against float64, the witness of torch_mlp_probe.py: the wgmma
+    instance's scores lie as close to it as the mma.sync instance's on the
+    same inputs (both 3xTF32), on widths whose LayerNorm is well
+    conditioned. (Over the witness's 5 sigmoid outputs a LayerNorm makes
+    the distance to float64 a matter of each float32 order's rounding;
+    there K1 is held to the plain version, as in
+    test_k1_k2_ill_conditioned_layer_norm_against_float64.)"""
+    model, gen = seeded_dnn(hparams, features, n_rows, cuda)
+    x = torch.randn(n_rows, features, generator=gen).to(cuda)
+    with torch.inference_mode():
+        wg = mlp.mlp_forward(model.layers, x, activation, use_norm,
+                             _rows=mlp.WGMMA)
+        sync = mlp.mlp_forward(model.layers, x, activation, use_norm,
+                               _rows=64)
+        plain = mlp.fused_mlp_score_reference(model.layers, x, activation,
+                                              use_norm)
+    exact, _ = float64_grads(model.layers, x, torch.ones(n_rows, device=cuda),
+                             activation, use_norm)
+    torch.cuda.synchronize()
+    offs = [off_float64([s], [exact]) for s in (wg, sync, plain)]
+    print("wgmma, mma.sync, plain off float64:", offs)
+    assert offs[0] <= 2 * max(offs[1], offs[2]), offs
+
+
+@pytest.mark.parametrize("hparams,features,n_rows", [
+    (FULL, 136, 30720), (FULL, 220, 8449), (WITNESS[0], WITNESS[1], 1000)])
+def test_k1_wgmma_gives_the_mma_sync_bits(cuda, hparams, features, n_rows):
+    """The two designs take every sum in the same order (the three
+    products of each k8 step, LayerNorm's statistics a warp a row), so the
+    wgmma instance's scores are the 64-row mma.sync instance's bits."""
+    model, gen = seeded_dnn(hparams, features, n_rows, cuda)
+    x = torch.randn(n_rows, features, generator=gen).to(cuda)
+    with torch.inference_mode():
+        wg = mlp.mlp_forward(model.layers, x, "elu", True, _rows=mlp.WGMMA)
+        sync = mlp.mlp_forward(model.layers, x, "elu", True, _rows=64)
+    torch.cuda.synchronize()
+    assert torch.equal(wg, sync)
+
+
+def test_k1_wgmma_bits_repeat_and_replay(cuda):
+    """Two calls give the same bits, and a call captured in a CUDA graph
+    and replayed gives the eager call's: tiles go to blocks at a static
+    stride and every sum has a fixed order."""
+    model, gen = _seeded_dnn(FULL, 136, 3, cuda)
+    x = torch.randn(30720, 136, generator=gen).to(cuda)
+    with torch.inference_mode():
+        first = mlp.fused_mlp_score(model.layers, x)
+        again = mlp.fused_mlp_score(model.layers, x)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            mlp.fused_mlp_score(model.layers, x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = mlp.fused_mlp_score(model.layers, x)
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(first, replayed)
+
+
+def test_k1_wgmma_is_chosen_for_scoring_alone(cuda):
+    """``launches.K1_wgmma`` moves for a no-grad call on 64-row tiles, and
+    not for a training step's 2,560 rows or a call that saves K2's
+    residual."""
+    from ultra_pytorch_tpu_torch.utils import spans
+
+    model, gen = _seeded_dnn(FULL, 136, 4, cuda)
+    lists = torch.randn(30720, 136, generator=gen).to(cuda)
+    step = torch.randn(2560, 136, generator=gen).to(cuda)
+
+    def counts():
+        c = spans.snapshot()["counters"]
+        return c["launches.K1"], c["launches.K1_wgmma"]
+
+    k1, wg = counts()
+    with torch.no_grad():
+        mlp.fused_mlp_score(model.layers, lists)
+    assert counts() == (k1 + 1, wg + 1)
+    with torch.no_grad():
+        mlp.fused_mlp_score(model.layers, step)
+    assert counts() == (k1 + 2, wg + 1)
+    mlp.fused_mlp_score(model.layers, lists.requires_grad_(True)).sum()
+    assert counts() == (k1 + 3, wg + 1)
+
+
+@pytest.mark.parametrize("widths", [
+    (136, 512, 256, 128, 1), (220, 512, 256, 128, 1),
+    (700, 512, 256, 128, 1), (37, 300, 70, 5, 1), (136, 1024, 1)])
+def test_k1_wgmma_shared_memory_matches_the_kernel(cuda, widths):
+    """The plan's count of the wgmma instance's shared memory is the
+    kernel's own."""
+    lib, _ = mlp._library()
+    assert lib.ultra_mlp_fwd_wg_smem_bytes(
+        mlp._c_ints(widths), len(widths) - 1) == mlp.wg_smem_bytes(widths)

@@ -279,6 +279,48 @@ def test_rows_per_block_skips_tiles_that_do_not_fit():
         mlp.rows_per_block(32768, 132, _smem(8))
 
 
+DNN_WIDTHS = (136, 512, 256, 128, 1)
+
+
+@pytest.mark.parametrize("n_rows", [30720, 32768])
+def test_wgmma_instance_scores_the_online_lists(n_rows):
+    """K1 without a residual on 64-row tiles at the DNN's widths runs its
+    wgmma instance: the online learners' whole lists (256 x 120) and the
+    256x128 serving bucket."""
+    rows = mlp.rows_per_block(n_rows, 132, _smem(64))
+    assert rows == mlp.WG_ROWS
+    assert mlp.takes_wgmma(rows, False, DNN_WIDTHS)
+
+
+@pytest.mark.parametrize("n_rows,saving,widths,smem", [
+    (2560, False, DNN_WIDTHS, _smem(64)),      # a training step: 32 rows
+    (128, False, DNN_WIDTHS, _smem(64)),       # a small bucket: 16 rows
+    (30720, True, DNN_WIDTHS, _smem(64)),      # saving K2's residual
+    (32768, True, DNN_WIDTHS, _smem(64)),
+    (7680, False, (700, 512, 256, 128, 1), _smem(16)),   # F = 700
+    (30720, False, (700, 512, 256, 128, 1), _smem(64)),  # its buffer
+    (30720, False, (136, 1024, 1), _smem(64)),  # wider than 2 x 256
+])
+def test_wgmma_instance_is_not_taken(n_rows, saving, widths, smem):
+    """The mma.sync instances stay where a residual is saved, where
+    rows_per_block picks 16- or 32-row tiles, and where the wgmma
+    instance's shared memory does not fit the widths."""
+    rows = mlp.rows_per_block(n_rows, 132, smem)
+    assert not mlp.takes_wgmma(rows, saving, widths)
+
+
+def test_wgmma_shared_memory_at_the_dnn_widths():
+    """Three 32 KB weight stages, one 64-row buffer of the widest layer
+    input (width 512, row stride 516) and six barriers: 230,448 bytes of
+    the 232,448 a block has."""
+    assert mlp.wg_smem_bytes(DNN_WIDTHS) == (
+        3 * 32768 + 4 * 64 * 516 + 48) == 230448
+    assert mlp.wg_smem_bytes((220, 512, 256, 128, 1)) == 230448
+    assert mlp.wg_smem_bytes((700, 512, 256, 128, 1)) > mlp.SMEM_LIMIT
+    assert mlp.wg_smem_bytes((136, 513, 1)) == 0
+    assert 0 < mlp.wg_smem_bytes((37, 300, 70, 5, 1)) <= mlp.SMEM_LIMIT
+
+
 def test_dw_tiles_and_chunks():
     """K2's dW phase: 64x64 tiles of every layer's [out, in] gradient, and
     row chunks enough for four blocks per SM, none shorter than a stage."""

@@ -187,6 +187,20 @@ def test_snapshot_holds_the_launch_counters():
         window.saved_counter().saved = saved
 
 
+def test_snapshot_holds_the_wgmma_launches():
+    """``launches.K1_wgmma`` beside ``launches.K1_saved``: K1's launches
+    through its wgmma instance, read from the same wrapper."""
+    k1 = window.saved_counter()
+    before = (k1.saved, k1.wgmma)
+    try:
+        k1.saved, k1.wgmma = 1, 300
+        counters = spans.snapshot()["counters"]
+        assert counters["launches.K1_wgmma"] == 300
+        assert counters["launches.K1_saved"] == 1
+    finally:
+        k1.saved, k1.wgmma = before
+
+
 def test_no_range_without_a_profiler(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.profiler, "record_function", _CountingRange)
     _CountingRange.entered = 0
@@ -477,7 +491,8 @@ def test_a_replay_resolves_the_seven_stamp_nodes(cuda, tmp_path):
     assert spans.snapshot()["counters"] == {
         **{f"launches.K{i}": n
            for i, n in enumerate(window.read_launches(), 1)},
-        "launches.K1_saved": window.saved_counter().saved}
+        "launches.K1_saved": window.saved_counter().saved,
+        "launches.K1_wgmma": window.saved_counter().wgmma}
     assert len(_samples(f"capture.window.{STEPS}")) == 1
     for part in ("warmup", "restore", "generators", "record", "sync",
                  "trace", "instantiate"):
@@ -550,9 +565,11 @@ def test_the_launch_counters_read_as_before(cuda, tmp_path):
     counters = spans.snapshot()["counters"]
     assert [counters[f"launches.K{i}"] for i in range(1, 6)] == \
         window.read_launches()
-    # Every K1 launch of a training step saves the residuals its K2 reads.
-    assert graph.saved == STEPS
+    # Every K1 launch of a training step saves the residuals its K2 reads,
+    # so none runs the wgmma instance.
+    assert graph.saved == STEPS and graph.wgmma == 0
     assert counters["launches.K1_saved"] == window.saved_counter().saved
+    assert counters["launches.K1_wgmma"] == window.saved_counter().wgmma
 
 
 @pytest.mark.gpu

@@ -373,6 +373,52 @@ def test_replays_add_the_captured_saves():
         window.Replayable.replayed[:] = replayed
 
 
+def test_replays_add_the_captured_wgmma_launches():
+    """K1's launches through its wgmma instance count like its saving
+    ones: once at capture, then the capture's count on each replay."""
+    k1 = window.saved_counter()
+    before, counts = (k1.saved, k1.wgmma), window.read_launches()
+    replayed = list(window.Replayable.replayed)
+    try:
+        graph = window.Replayable(_FakeGraph(), [6, 0, 0, 0, 0], wgmma=6)
+        for _ in range(3):
+            graph.replay()
+        assert (k1.saved, k1.wgmma) == (before[0], before[1] + 18)
+        assert window.Replayable(_FakeGraph(), [0] * 5).wgmma == 0
+    finally:
+        k1.saved, k1.wgmma = before
+        window.set_launches(counts)
+        window.Replayable.replayed[:] = replayed
+
+
+def test_capture_counts_the_wgmma_launches_once():
+    """A capture ends with the wgmma count as it began and hands the
+    captured launches to its Replayable (the warm-up's taken off)."""
+    from ultra_pytorch_tpu_torch.ops.kernels import mlp
+
+    k1 = window.saved_counter()
+    before = k1.wgmma
+
+    def fn():
+        mlp.fused_mlp_score.wgmma += 2
+
+    class _Stream:
+        def wait_stream(self, other):
+            pass
+
+    import contextlib
+    from unittest import mock
+    with mock.patch.object(torch.cuda, "current_stream", _Stream), \
+            mock.patch.object(torch.cuda, "Stream", _Stream), \
+            mock.patch.object(torch.cuda, "stream",
+                              lambda s: contextlib.nullcontext()), \
+            mock.patch.object(torch.cuda, "CUDAGraph", _FakeGraph), \
+            mock.patch.object(torch.cuda, "graph",
+                              lambda g, pool=None: contextlib.nullcontext()):
+        graph, _ = window.capture(fn)
+    assert graph.wgmma == 2 and k1.wgmma == before
+
+
 def test_cpu_windows_run_eager_and_say_so(tmp_path, capsys):
     exp = _experiment("DLA", tmp_path)
     assert exp.eager_reason() == "CUDA graphs exist only on the card"

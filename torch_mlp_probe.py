@@ -16,7 +16,9 @@ It prints, each as one line:
   warp, SM clocks counted with ``clock64``;
 * K1's device time (CUDA graph replay) at a training step's 2,560 rows and
   the 32,768-row serving bucket, as it runs, without its activation and
-  without LayerNorm (the same launch with those parts switched off);
+  without LayerNorm (the same launch with those parts switched off), for
+  the mma.sync instance of the plan's tile and, at 32,768 rows, the wgmma
+  instance the plan takes there;
 * K1's device time, without and with saving the residuals for K2, and
   K2's on those residuals, at 128, 1,000, 2,560, 30,720 (the online
   family's whole lists, 256 x 120) and 32,768 rows, and at 6,000, 10,000,
@@ -24,7 +26,8 @@ It prints, each as one line:
   choice from 16-row tiles to 64 or 32, with each tile size forced
   (``_rows``), in two rounds of opposite order, so that the gap between
   the rounds shows the noise, against the one ``rows_per_block`` picks,
-  and which tile was fastest;
+  and which tile was fastest; where K1 takes its wgmma instance, its time
+  too;
 * K2's device time at 2,560 rows with 2, 4 and 8 dW blocks per SM
   (``_dw_per_sm``), and torch.profiler's split of it into its kernels;
 * the witness: on the odd widths (F = 37, hidden [300, 70, 5]) with sigmoid
@@ -132,40 +135,55 @@ def mma_rate(mlp, n_sms: int) -> None:
 
 def k1_parts(mlp, model, gen) -> None:
     """K1 as launched, and with its activation (code -1) or LayerNorm
-    switched off: the library's own entry point, called directly."""
+    switched off: the library's own entry points, called directly, for the
+    mma.sync instance the plan's tile takes and, where the plan takes it,
+    the wgmma instance."""
     lib, _ = mlp._library()
     layers = model.layers
     n_layers = len(layers)
     for n in (2560, 32768):
         x = torch.randn(n, FEATURES, generator=gen).cuda()
         out = torch.empty(n, device="cuda")
-        rows, c_widths = mlp._fwd_plan(mlp._widths(layers), n,
-                                       mlp._sm_count(x.device))
+        sms = mlp._sm_count(x.device)
+        plan = mlp._fwd_plan(mlp._widths(layers), n, sms)
+        scratch = torch.empty(plan.scratch_floats, device="cuda")
         ptrs = mlp._param_pointers(layers, x.device)
         table = (ctypes.c_void_p * len(ptrs))(*ptrs)
 
-        def launch(act, use_norm):
+        def mma_sync(act, use_norm):
             err = lib.ultra_mlp_fwd(
-                x.data_ptr(), table, out.data_ptr(), None, 0, n, c_widths,
-                n_layers, rows, act, use_norm,
+                x.data_ptr(), table, out.data_ptr(), None, 0, n,
+                plan.c_widths, n_layers, plan.rows, act, use_norm,
                 torch.cuda.current_stream().cuda_stream)
             assert err == 0, err
 
+        def wgmma(act, use_norm):
+            err = lib.ultra_mlp_fwd_wg(
+                x.data_ptr(), table, out.data_ptr(), scratch.data_ptr(),
+                plan.scratch_floats, n, plan.c_widths, n_layers, act,
+                use_norm, sms, torch.cuda.current_stream().cuda_stream)
+            assert err == 0, err
+
         calls = 50 if n <= 4096 else 10
-        full = graph_ms(lambda: launch(mlp.ACTIVATION_CODES["elu"], 1), calls)
-        no_act = graph_ms(lambda: launch(-1, 1), calls)
-        no_norm = graph_ms(lambda: launch(mlp.ACTIVATION_CODES["elu"], 0),
-                           calls)
-        print(f"[k1] {n} rows ({rows} a block): {full:.4f} ms; without the "
-              f"activation {no_act:.4f} ms; without LayerNorm {no_norm:.4f} "
-              "ms (device time a call)", flush=True)
+        elu = mlp.ACTIVATION_CODES["elu"]
+        for name, launch in (("mma.sync", mma_sync), ("wgmma", wgmma)):
+            if name == "wgmma" and not plan.wgmma:
+                continue
+            full = graph_ms(lambda: launch(elu, 1), calls)
+            no_act = graph_ms(lambda: launch(-1, 1), calls)
+            no_norm = graph_ms(lambda: launch(elu, 0), calls)
+            print(f"[k1] {n} rows ({plan.rows} a block, {name}): "
+                  f"{full:.4f} ms; without the activation {no_act:.4f} ms; "
+                  f"without LayerNorm {no_norm:.4f} ms (device time a call)",
+                  flush=True)
 
 
 def tile_sizes(mlp, model, gen, n: int) -> None:
     x = torch.randn(n, FEATURES, generator=gen).cuda()
     g = torch.randn(n, generator=gen).cuda()
-    chosen = mlp._fwd_plan(mlp._widths(model.layers), n,
-                           mlp._sm_count(x.device))[0]
+    plan = mlp._fwd_plan(mlp._widths(model.layers), n,
+                         mlp._sm_count(x.device))
+    chosen = plan.rows
     chosen_k2 = mlp._bwd_plan(mlp._widths(model.layers), n,
                               mlp._sm_count(x.device))[0]
     residual = mlp.new_residual(model.layers, x, True)
@@ -192,11 +210,21 @@ def tile_sizes(mlp, model, gen, n: int) -> None:
               f"{', K1/K2 choice' if rows == chosen == chosen_k2 else ''}"
               f"): {text} ms (two rounds; K2 on the saved residual)",
               flush=True)
+    if plan.wgmma:
+        with torch.inference_mode():
+            wg = [graph_ms(lambda: mlp.mlp_forward(
+                model.layers, x, "elu", True, _rows=mlp.WGMMA), calls)
+                for _ in range(2)]
+        print(f"[tiles] {n} rows, the wgmma instance (64-row tiles, K1's "
+              f"choice without a residual): K1 {wg[0]:.4f} / {wg[1]:.4f} ms",
+              flush=True)
     fastest = [min(times, key=lambda r: sum(t[i] for t in times[r]))
                for i in range(3)]
     print(f"[tiles] {n} rows: fastest tile by the rounds' sum K1 "
           f"{fastest[0]}, K1 saving {fastest[1]}, K2 {fastest[2]}; "
-          f"rows_per_block picks K1 {chosen}, K2 {chosen_k2}", flush=True)
+          f"rows_per_block picks K1 {chosen}"
+          f"{' (wgmma without a residual)' if plan.wgmma else ''}, K2 "
+          f"{chosen_k2}", flush=True)
 
 
 def k2_chunks(mlp, model, gen) -> None:

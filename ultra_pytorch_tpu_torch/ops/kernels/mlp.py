@@ -1,5 +1,11 @@
 """K1 and K2: the DNN ranker's fused MLP forward and backward, CUDA
-kernels for Hopper.
+kernels for Hopper. K1 has two designs: ``mma.sync`` on 16-, 32- or
+64-row tiles (``csrc/mlp_fwd.cu``), which also saves K2's residuals, and
+warpgroup MMAs (``wgmma``) on 64-row tiles fed by bulk copies of the
+weights split once a call (``csrc/mlp_fwd_wg.cu``). :func:`takes_wgmma`
+chooses the second where no residual is saved, ``rows_per_block`` picks
+64-row tiles and its shared memory fits the widths (the online learners'
+whole lists, the 256x128 serving bucket); the first everywhere else.
 
 Port of the TPU kernels ``_kernel`` (K1) and ``_bwd_kernel`` (K2) of
 ``ultra_pytorch_tpu/ops/pallas/mlp.py`` (entry ``fused_mlp_score``, a
@@ -15,7 +21,8 @@ at the widths 136, 512, 256, 128, 1), and K2 runs only the backward:
 2.43 GFLOP there, with 9.2 MB of scratch. Both run their products on the
 tensor cores at float32 accuracy (3xTF32, ``csrc/mlp_common.cuh``) and
 read the parameters where PyTorch keeps them (``nn.Linear``'s ``[out,
-in]`` weight included), so nothing is repacked after an optimizer step.
+in]`` weight included), so nothing is repacked after an optimizer step
+(the wgmma instance splits them into a scratch at every call).
 
 :func:`fused_mlp_score` keeps the JAX signature and is differentiable: it
 applies :class:`FusedMLP`, a ``torch.autograd.Function`` whose forward is
@@ -37,7 +44,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple, Union)
 
 import torch
 
@@ -65,7 +73,13 @@ DW_ROWS = 32  # K2's rows of N a dW stage (csrc/mlp_bwd.cu kKr)
 # with eight (torch_mlp_probe.py on an H100 at 700 W); four keeps
 # the partials that its last kernel sums fewer.
 DW_BLOCKS_PER_SM = 4
+# K1's wgmma instance (csrc/mlp_fwd_wg.cu), built into K1's library:
+# 64-row tiles, two consumer warpgroups of at most 256 columns each, a ring
+# of three 32 KB weight stages. `_rows=WGMMA` forces it.
+WG_ROWS, WG_MAX_WIDTH, WG_RING_BYTES = 64, 512, 3 * 32768
+WGMMA = "wgmma"
 SOURCE = build.CSRC_DIR / "mlp_fwd.cu"
+WG_SOURCE = build.CSRC_DIR / "mlp_fwd_wg.cu"
 BWD_SOURCE = build.CSRC_DIR / "mlp_bwd.cu"
 
 
@@ -187,8 +201,8 @@ def mlp_backward_reference(layers, x: torch.Tensor, g: torch.Tensor,
     return grads[0], grads[1:]
 
 
-def _load(name: str, source):
-    built = build.build_library(name, [source])
+def _load(name: str, *sources):
+    built = build.build_library(name, sources)
     lib = ctypes.CDLL(str(built.path))
     lib.ultra_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ultra_cuda_error_string.restype = ctypes.c_char_p
@@ -200,7 +214,7 @@ _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib, built = _load("mlp_fwd", SOURCE)
+    lib, built = _load("mlp_fwd", SOURCE, WG_SOURCE)
     lib.ultra_mlp_fwd.argtypes = [
         _PTR, ctypes.POINTER(_PTR), _PTR, _PTR, _I64, _I32,
         ctypes.POINTER(_I32), _I32, _I32, _I32, _I32, _PTR]
@@ -210,6 +224,14 @@ def _library():
     lib.ultra_mlp_fwd_smem_bytes.restype = _I64
     lib.ultra_mlp_fwd_max_layers.argtypes = []
     lib.ultra_mlp_fwd_max_layers.restype = _I32
+    lib.ultra_mlp_fwd_wg.argtypes = [
+        _PTR, ctypes.POINTER(_PTR), _PTR, _PTR, _I64, _I32,
+        ctypes.POINTER(_I32)] + [_I32] * 4 + [_PTR]
+    lib.ultra_mlp_fwd_wg.restype = _I32
+    for name in ("ultra_mlp_fwd_wg_smem_bytes",
+                 "ultra_mlp_fwd_wg_scratch_floats"):
+        getattr(lib, name).argtypes = [ctypes.POINTER(_I32), _I32]
+        getattr(lib, name).restype = _I64
     return lib, built
 
 
@@ -334,12 +356,46 @@ def _check_layers(lib_max: int, n_layers: int) -> None:
         raise ValueError(f"{n_layers} layers exceed the kernel's {lib_max}")
 
 
+def wg_smem_bytes(widths: Sequence[int]) -> int:
+    """Shared memory of K1's wgmma instance for these widths, as
+    csrc/mlp_fwd_wg.cu ``wg_smem`` counts it: the weight ring, one
+    activation buffer of the widest layer input (64 rows at mlp_common.cuh's
+    ``act_stride``) and six barriers; 0 where a hidden layer is wider than
+    its two warpgroups' 512 columns."""
+    if any(w > WG_MAX_WIDTH for w in widths[1:-1]):
+        return 0
+    stride = -(-max(widths[:-1]) // 8) * 8 + 4
+    return WG_RING_BYTES + 4 * WG_ROWS * stride + 48
+
+
+def takes_wgmma(rows: int, saving: bool, widths: Sequence[int]) -> bool:
+    """Whether K1 runs its wgmma instance (csrc/mlp_fwd_wg.cu) rather than
+    a ``mma.sync`` one: no residual is saved, ``rows_per_block`` picked
+    64-row tiles (so it is a function of the rows and SMs too) and its
+    shared memory fits these widths. At F = 700, where 64-row tiles do
+    not fit, the 16-row ``mma.sync`` instance stays."""
+    return (not saving and rows == WG_ROWS
+            and 0 < wg_smem_bytes(widths) <= SMEM_LIMIT)
+
+
+class _FwdPlan(NamedTuple):
+    """K1's instance for a shape (:func:`_fwd_plan`)."""
+
+    rows: int            # rows a block
+    wgmma: bool          # the wgmma instance, else mma.sync's of `rows`
+    scratch_floats: int  # the wgmma instance's split weights
+    c_widths: ctypes.Array
+
+
 @functools.lru_cache(maxsize=256)
 def _fwd_plan(widths: Tuple[int, ...], n: int, n_sms: int,
-              rows: Optional[int] = None):
-    """(rows a block, widths as C ints) of K1 for `n` rows: pure in its
+              saving: bool = False,
+              rows: Optional[Union[int, str]] = None) -> _FwdPlan:
+    """K1's instance for `n` rows, saving residuals or not: pure in its
     arguments, so chosen once per shape and not on every call. `rows`
-    forces a tile instance instead of ``rows_per_block``'s choice."""
+    forces a ``mma.sync`` tile instance (16, 32 or 64) or, as ``WGMMA``,
+    the wgmma instance, instead of ``rows_per_block`` and
+    ``takes_wgmma``'s choice."""
     lib, _ = _library()
     n_layers = len(widths) - 1
     _check_layers(lib.ultra_mlp_fwd_max_layers(), n_layers)
@@ -347,9 +403,19 @@ def _fwd_plan(widths: Tuple[int, ...], n: int, n_sms: int,
     if rows is None:
         rows = rows_per_block(n, n_sms, lambda r: lib.ultra_mlp_fwd_smem_bytes(
             c_widths, n_layers, r))
-    elif rows not in ROWS_PER_BLOCK:
+        wgmma = takes_wgmma(rows, saving, widths)
+    elif rows == WGMMA:
+        if saving or not 0 < wg_smem_bytes(widths) <= SMEM_LIMIT:
+            raise ValueError("the wgmma instance of K1 saves no residual and "
+                             f"takes hidden widths up to {WG_MAX_WIDTH}")
+        rows, wgmma = WG_ROWS, True
+    elif rows in ROWS_PER_BLOCK:
+        wgmma = False
+    else:
         raise ValueError(f"no K1 instance of {rows} rows a block")
-    return rows, c_widths
+    floats = (lib.ultra_mlp_fwd_wg_scratch_floats(c_widths, n_layers)
+              if wgmma else 0)
+    return _FwdPlan(rows, wgmma, floats, c_widths)
 
 
 def new_residual(layers, x: torch.Tensor, use_norm: bool) -> torch.Tensor:
@@ -360,13 +426,14 @@ def new_residual(layers, x: torch.Tensor, use_norm: bool) -> torch.Tensor:
 
 
 def mlp_forward(layers, x: torch.Tensor, activation: str, use_norm: bool,
-                _rows: Optional[int] = None,
+                _rows: Optional[Union[int, str]] = None,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1's wrapper: ``[N, F]`` float32 rows -> ``[N]`` scores. A CPU tensor
     runs the plain version; a CUDA tensor launches K1, which with
     `residual` (from :func:`new_residual`) also saves the forward's
-    residuals there for K2. `_rows` forces its tile size (for
-    measurements)."""
+    residuals there for K2. `_rows` forces its instance (for
+    measurements): 16, 32 or 64 rows a block of ``mma.sync``, or
+    ``WGMMA``."""
     if x.device.type == "cpu":
         if residual is not None:
             raise ValueError("the plain version keeps no residual")
@@ -380,18 +447,30 @@ def mlp_forward(layers, x: torch.Tensor, activation: str, use_norm: bool,
     ptrs = _param_pointers(layers, x.device)
     out = torch.empty(n, dtype=torch.float32, device=x.device)
     if n:
-        rows, c_widths = _fwd_plan(_widths(layers), n, _sm_count(x.device),
-                                   _rows)
-        res_ptr, res_floats = ((None, 0) if residual is None
-                               else (residual.data_ptr(), residual.numel()))
+        plan = _fwd_plan(_widths(layers), n, _sm_count(x.device),
+                         residual is not None, _rows)
+        table = (_PTR * len(ptrs))(*ptrs)
+        act = ACTIVATION_CODES[activation]
         with torch.cuda.device(x.device):
-            err = lib.ultra_mlp_fwd(
-                x.data_ptr(), (_PTR * len(ptrs))(*ptrs), out.data_ptr(),
-                res_ptr, res_floats, n, c_widths, len(layers), rows,
-                ACTIVATION_CODES[activation], int(use_norm),
-                torch.cuda.current_stream().cuda_stream)
+            stream = torch.cuda.current_stream().cuda_stream
+            if plan.wgmma:
+                scratch = torch.empty(plan.scratch_floats,
+                                      dtype=torch.float32, device=x.device)
+                err = lib.ultra_mlp_fwd_wg(
+                    x.data_ptr(), table, out.data_ptr(), scratch.data_ptr(),
+                    plan.scratch_floats, n, plan.c_widths, len(layers), act,
+                    int(use_norm), _sm_count(x.device), stream)
+            else:
+                res_ptr, res_floats = (
+                    (None, 0) if residual is None
+                    else (residual.data_ptr(), residual.numel()))
+                err = lib.ultra_mlp_fwd(
+                    x.data_ptr(), table, out.data_ptr(), res_ptr, res_floats,
+                    n, plan.c_widths, len(layers), plan.rows, act,
+                    int(use_norm), stream)
         _check_launch(lib, err, "K1")
         fused_mlp_score.launches += 1
+        fused_mlp_score.wgmma += plan.wgmma
         if residual is not None:
             fused_mlp_score.saved += 1
     return out
@@ -544,3 +623,4 @@ def fused_mlp_score(layers, features: torch.Tensor, activation: str = "elu",
 
 fused_mlp_score.launches = 0  # K1 launches, for run-time evidence
 fused_mlp_score.saved = 0  # of them, those that saved residuals for K2
+fused_mlp_score.wgmma = 0  # of them, those through the wgmma instance

@@ -25,8 +25,9 @@ What a replay needs that the recording fixed:
   rank's shard generator: the graphs own it, register it beside the
   replica generator and reseed it from the window's seed as
   ``parallel.shard_generator`` seeds the eager window's fresh one;
-* the launch counters, K1's count of launches that saved residuals
-  for K2 (``fused_mlp_score.saved``) and the counters of the spans'
+* the launch counters, K1's counts of launches that saved residuals
+  for K2 (``fused_mlp_score.saved``) and that ran its wgmma instance
+  (``fused_mlp_score.wgmma``), and the counters of the spans'
   registry (the DBGD family's ``online.*`` passes). They count in
   Python, so a capture counts each once; :class:`Replayable` adds the
   counts the capture recorded on every replay, and the warm-up's are
@@ -81,7 +82,8 @@ def set_launches(counts: Sequence[int]) -> None:
 
 def saved_counter():
     """The wrapper whose ``saved`` counts K1's launches that saved the
-    forward's residuals for K2."""
+    forward's residuals for K2, and ``wgmma`` those through K1's wgmma
+    instance."""
     from ultra_pytorch_tpu_torch.ops.kernels import mlp
 
     return mlp.fused_mlp_score
@@ -90,7 +92,8 @@ def saved_counter():
 class Replayable:
     """A captured graph (anything with ``replay()``) and the kernel
     launches it holds, one count a counter of :func:`launch_counters`,
-    of them K1's that saved residuals (`saved`), and what it counted of
+    of them K1's that saved residuals (`saved`) and K1's through its
+    wgmma instance (`wgmma`), and what it counted of
     the spans' counters (`counts`, by name): :meth:`replay` replays it
     and adds those counts to their counters, and the launches also to
     ``Replayable.replayed`` (every replay's launches, in this process)."""
@@ -98,10 +101,10 @@ class Replayable:
     replayed = [0] * 5
 
     def __init__(self, graph, launches: Sequence[int], saved: int = 0,
-                 counts: Optional[Dict[str, int]] = None):
+                 counts: Optional[Dict[str, int]] = None, wgmma: int = 0):
         self.graph = graph
         self.launches = list(launches)
-        self.saved = saved
+        self.saved, self.wgmma = saved, wgmma
         self.counts = dict(counts or {})
 
     def replay(self) -> None:
@@ -110,6 +113,7 @@ class Replayable:
             fn.launches += n
             Replayable.replayed[i] += n
         saved_counter().saved += self.saved
+        saved_counter().wgmma += self.wgmma
         for name, n in self.counts.items():
             spans.count(name, n)
 
@@ -139,7 +143,8 @@ def capture(fn: Callable[[], object],
     ``window.<steps>``, a validation pass ``validate.<split>``, a serving
     bucket ``serve.<bq>x<bl>``."""
     with spans.span(f"capture.{name}"):
-        before, saved_before = read_launches(), saved_counter().saved
+        k1 = saved_counter()
+        before, saved_before = read_launches(), (k1.saved, k1.wgmma)
         counts_before = spans.counters()
         with spans.span("capture.warmup"):
             states = [g.get_state() for g in generators]
@@ -154,7 +159,7 @@ def capture(fn: Callable[[], object],
                 g.set_state(state)
             if restore is not None:
                 restore()
-        warmed, saved_warmed = read_launches(), saved_counter().saved
+        warmed, saved_warmed = read_launches(), (k1.saved, k1.wgmma)
         counts_warmed = spans.counters()
         with spans.span("capture.generators"):
             graph = torch.cuda.CUDAGraph()
@@ -183,14 +188,15 @@ def capture(fn: Callable[[], object],
             if collecting:
                 gc.enable()
         captured = [a - b for a, b in zip(read_launches(), warmed)]
-        saved = saved_counter().saved - saved_warmed
+        saved = k1.saved - saved_warmed[0]
+        wgmma = k1.wgmma - saved_warmed[1]
         counts = {k: n - counts_warmed.get(k, 0)
                   for k, n in spans.counters().items()
                   if n != counts_warmed.get(k, 0)}
         set_launches(before)
-        saved_counter().saved = saved_before
+        k1.saved, k1.wgmma = saved_before
         spans.set_counters(counts_before)
-    return Replayable(graph, captured, saved, counts), out
+    return Replayable(graph, captured, saved, counts, wgmma), out
 
 
 class WindowGraphs:

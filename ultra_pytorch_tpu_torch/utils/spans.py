@@ -66,7 +66,10 @@ counts (``launches.K1`` ... ``launches.K5``), read from
 ``run.window.read_launches``, and ``launches.K1_saved``, K1's launches
 that saved the forward's residuals for K2 (``fused_mlp_score.saved``;
 over ``launches.K2``, the share of K2's launches fed by them, 1 where
-every saving forward is backpropagated), neither kept here. The DBGD
+every saving forward is backpropagated), and ``launches.K1_wgmma``,
+K1's launches through its wgmma instance (``fused_mlp_score.wgmma``;
+equal to ``launches.K1`` where every call scores 64-row tiles without
+saving, as the online learners' passes do), none kept here. The DBGD
 family counts its passes of a ranker over whole lists (:func:`count`):
 ``online.feed_scored``, the online feed's (one a step), and
 ``online.rankers_scored``, the algorithm's (1 + ``ranker_num`` a step),
@@ -453,6 +456,7 @@ class Registry:
         counters.update((f"launches.K{i + 1}", n)
                         for i, n in enumerate(read_launches()))
         counters["launches.K1_saved"] = saved_counter().saved
+        counters["launches.K1_wgmma"] = saved_counter().wgmma
         return {"spans": spans, "counters": counters}
 
 
