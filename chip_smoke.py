@@ -340,11 +340,13 @@ import torch.nn.functional as F
 # 10), its data and settings, the card's line and the H100's peaks, and
 # the work counts behind each kernel's bound: the port's tools share them.
 from ultra_pytorch_tpu_torch.tools.bench_common import (
-    BATCH, FEATURES, HIDDEN, LIST, PEAK_3XTF32, PEAK_BF16, PEAK_BYTES,
-    PEAK_F32, PEAK_TF32, card_line, device_events, dla_launches,
-    dla_settings, synthetic, write_click_model, write_ultra_split)
+    BATCH, FEATURES, HIDDEN, KERNELS, LIST, PEAK_3XTF32, PEAK_BF16,
+    PEAK_BYTES, PEAK_F32, PEAK_TF32, card_line, device_events, dla_launches,
+    dla_settings, launch_counts, synthetic, write_click_model,
+    write_ultra_split)
 from ultra_pytorch_tpu_torch.tools.roofline import (loss_work, mlp_bwd_work,
                                                     mlp_work)
+from ultra_pytorch_tpu_torch.utils import spans
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -452,24 +454,10 @@ def library_chain(model, x):
     return h[:, 0]
 
 
-def counters():
-    """The five kernels' launch counters as (holder, attribute name)."""
-    from ultra_pytorch_tpu_torch.ops.kernels import click_sim, listwise_loss
-    from ultra_pytorch_tpu_torch.ops.kernels import mlp
-
-    return {"K1": mlp.fused_mlp_score, "K2": mlp.mlp_backward,
-            "K3": listwise_loss.listwise_loss_forward,
-            "K4": listwise_loss.listwise_loss_backward,
-            "K5": click_sim.pbm_clicks}
-
-
 def reset_counts() -> None:
-    for fn in counters().values():
-        fn.launches = 0
-
-
-def read_counts():
-    return {k: fn.launches for k, fn in counters().items()}
+    """Zero K1-K5's launch counts in the spans' registry."""
+    spans.set_counters({**spans.counters(),
+                        **dict.fromkeys(spans.KERNEL_LAUNCHES, 0)})
 
 
 def phase_device():
@@ -767,7 +755,7 @@ def phase_serving(mlp, gen, dev):
         reset_counts()
         with ThreadPoolExecutor(len(bodies)) as pool:
             replies = list(pool.map(post, bodies))
-        launches = mlp.fused_mlp_score.launches
+        launches = launch_counts()["K1"]
     finally:
         server.shutdown()
         server.server_close()
@@ -989,7 +977,7 @@ def phase_training(dev, click_json):
     reset_counts()
     seconds, metrics, summaries, exp = train_run(
         dla_settings(True, click_json), dev, data, 0)
-    counts = read_counts()
+    counts = launch_counts()
     losses = [m["loss"] for m in metrics]
     print(f"[training] kernels on: {steps} steps in {WINDOWS} windows; "
           f"pool {exp.feeds['train']._pool_size(BATCH)} candidates a step; "
@@ -1019,7 +1007,7 @@ def phase_training(dev, click_json):
             dla_settings(kernels, click_json), dev, data, 0)
         run_losses = [m["loss"] for m in run_metrics]
         if not kernels:
-            check(not any(read_counts().values()),
+            check(not any(launch_counts().values()),
                   "the plain path launched a kernel")
         check(all(math.isfinite(v) for v in run_losses),
               "non-finite training loss")
@@ -1489,7 +1477,7 @@ def train_in_turns(tag: str, name: str, settings_of, want, dev, data,
         reset_counts()
         seconds, metrics, summaries, exp = train_run(
             settings_of(name, kernels), dev, data, 0, OFFLINE_WINDOWS)
-        counts = read_counts()
+        counts = launch_counts()
         losses = [m["loss"] for m in metrics]
         online = [m[k] for m in metrics for k in ONLINE_METRICS if k in m]
         check(all(math.isfinite(v) for v in online),
@@ -1539,7 +1527,7 @@ def phase_offline_training(dev, click_json, data):
     steps = OFFLINE_WINDOWS * WINDOW
     valid_batches = OFFLINE_WINDOWS * math.ceil(
         data["valid"].num_queries / BATCH)
-    total = dict.fromkeys(counters(), 0)
+    total = dict.fromkeys(KERNELS, 0)
     rates, pair_exp = {}, None
     for algo in OFFLINE:
         softmax = algo in SOFTMAX_ALGOS
@@ -1799,7 +1787,7 @@ def phase_rankers(dev, data):
     steps = OFFLINE_WINDOWS * WINDOW
     valid_batches = OFFLINE_WINDOWS * math.ceil(
         data["valid"].num_queries / BATCH)
-    total = dict.fromkeys(counters(), 0)
+    total = dict.fromkeys(KERNELS, 0)
     rates = {}
     for config in RANKER_CONFIGS:
         runs, counts, rates[config] = train_in_turns(
@@ -1842,16 +1830,16 @@ def ranker_click_flag(dev, data):
     loss and the window plan's clicks under one generator equal those
     without the flag, bit for bit (every kernel of the path sums in a
     fixed order). Returns the flagged windows' launches."""
-    total = dict.fromkeys(counters(), 0)
+    total = dict.fromkeys(KERNELS, 0)
     valid_batches = math.ceil(data["valid"].num_queries / BATCH)
     for config in ("dla_ubm", "naive_cascade"):
         plans, losses = [], []
         for flag in (",use_pallas_click=true", ""):
             settings = ranker_settings(config, True)
             settings["train_input_hparams"] += flag
-            before = read_counts()
+            before = launch_counts()
             _, metrics, _, exp = train_run(settings, dev, data, 0, 1)
-            counts = {k: n - before[k] for k, n in read_counts().items()}
+            counts = {k: n - before[k] for k, n in launch_counts().items()}
             losses.append(metrics[0]["loss"])
             gen = torch.Generator(device=dev).manual_seed(11)
             plans.append(exp.feeds["train"].train_batch_plan(gen, 0, WINDOW))
@@ -2176,7 +2164,7 @@ def phase_online(mlp, dev, data_dir):
     steps = OFFLINE_WINDOWS * WINDOW
     valid_batches = OFFLINE_WINDOWS * math.ceil(
         data["valid"].num_queries / BATCH)
-    total = dict.fromkeys(counters(), 0)
+    total = dict.fromkeys(KERNELS, 0)
     rates = {}
     for config in ONLINE:
         runs, counts, rates[config] = train_in_turns(
@@ -2398,11 +2386,11 @@ def phase_formats(click_json):
          {"K1": 2 * math.ceil(FORMAT_QUERIES["test"] / BATCH), "K2": 0,
           "K3": 0, "K4": 0, "K5": 0}),
     )
-    total = dict.fromkeys(counters(), 0)
+    total = dict.fromkeys(KERNELS, 0)
     for name, argv, expected in runs:
         reset_counts()
         out = run_cli_here(f"formats {name}", common + argv)
-        counts = read_counts()
+        counts = launch_counts()
         print(f"[formats] {name}: launches {counts} (expected {expected})",
               flush=True)
         check(counts == expected, f"{name} CLI launches {counts}, expected "
@@ -2485,7 +2473,7 @@ def dp_rank(rank, world, init_method, click_json, ultra_dir, long_dir,
         exp, metrics, _, same = dp_window_run(
             dla_settings(True, click_json), ultra_dir, model_dirs[rank], dev,
             2)
-        out["dla"] = {"counts": read_counts(), "metrics": metrics,
+        out["dla"] = {"counts": launch_counts(), "metrics": metrics,
                       "same": same, "batch": exp.feeds["train"].batch_size}
         exp.save({"step": exp.state.step})
 
@@ -2581,7 +2569,7 @@ def phase_dp(dev, click_json, ultra_dir, long_dir):
 
     want = cli_launches(2 * WINDOW, 2,
                         read_data(ultra_dir, "valid").num_queries)
-    total = dict.fromkeys(counters(), 0)
+    total = dict.fromkeys(KERNELS, 0)
     for r, res in enumerate(ranks):
         dla = res["dla"]
         print(f"[dp] rank {r}: {dla['batch']} queries a step, launches "
@@ -2795,7 +2783,7 @@ def fused_run(settings, dev, data, fuse: bool, windows: int = 2, dp=None):
         t0 = time.perf_counter()
         metrics.append(exp.train_steps(WINDOW, fuse))   # ends with a read
         seconds.append(time.perf_counter() - t0)
-    return exp, metrics, seconds, read_counts()
+    return exp, metrics, seconds, launch_counts()
 
 
 def max_leaf_diff(a_leaves, b_leaves) -> float:
@@ -2837,7 +2825,7 @@ def fused_against_eager(name: str, dev, data, click_json):
           f"{diff:.3e})")
     reset_counts()
     keys, replayed = graph.validate_device("valid")
-    valid_counts = read_counts()
+    valid_counts = launch_counts()
     direct = graph._validation_pass("valid", graph._eval_generator())
     batches = math.ceil(data["valid"].num_queries / BATCH)
     dnn = settings["ranking_model"] == "DNN"
@@ -2899,7 +2887,7 @@ def fused_validation_long(dev, click_json):
     reset_counts()
     first = exp.validate_device("valid")[1]
     again = exp.validate_device("valid")[1]
-    counts = read_counts()
+    counts = launch_counts()
     direct = exp._validation_pass("valid", exp._eval_generator())
     batches = math.ceil(512 / BATCH)
     check(torch.equal(first, direct) and torch.equal(again, direct),
@@ -2925,7 +2913,7 @@ def fused_cli(data_dir: str, settings, tag: str, want):
     with open(setting_file, "w") as fout:
         json.dump(settings, fout)
     steps = 2 * WINDOW + WINDOW // 2
-    lines, ckpts, total = {}, {}, dict.fromkeys(counters(), 0)
+    lines, ckpts, total = {}, {}, dict.fromkeys(KERNELS, 0)
     for mode, extra in (("pipelined", []), ("sync", ["--sync_readback"])):
         model_dir = f"{stem}_{mode}"
         shutil.rmtree(model_dir, ignore_errors=True)
@@ -2935,7 +2923,7 @@ def fused_cli(data_dir: str, settings, tag: str, want):
             "--model_dir", model_dir, "--batch_size", str(BATCH),
             "--max_train_iteration", str(steps),
             "--steps_per_checkpoint", str(WINDOW)] + extra)
-        counts = read_counts()
+        counts = launch_counts()
         check(counts == want, f"the {mode} CLI launched {counts}, expected "
               f"{want}")
         check("Training windows: captured CUDA graphs" in out,
@@ -2971,7 +2959,7 @@ def phase_fused(dev, click_json, data, data_dir):
     FUSED_RATES, and the CLI pipelined against ``--sync_readback``.
     Returns the graph runs' launches, summed."""
     t0 = time.perf_counter()
-    total = dict.fromkeys(counters(), 0)
+    total = dict.fromkeys(KERNELS, 0)
     for name in ("dla", *FUSED_ALGOS, "naive_oracle", *RANKER_CONFIGS):
         counts, _ = fused_against_eager(name, dev, data, click_json)
         for k, n in counts.items():
@@ -3086,7 +3074,7 @@ def phase_online_fused(dev, data, data_dir):
     and ONLINE_CLI through the CLI pipelined against ``--sync_readback``.
     Returns the graph runs' launches, summed."""
     t0 = time.perf_counter()
-    total = dict.fromkeys(counters(), 0)
+    total = dict.fromkeys(KERNELS, 0)
     summary = {}
     for config in ONLINE:
         counts, rates, profiles = online_graph_turns(config, dev, data)
@@ -3256,7 +3244,7 @@ def phase_convergence(dev):
     results = conv.study(data_dir, expected, list(conv.ALGORITHMS),
                          conv.PROTOCOL["seeds"], dev,
                          log=lambda line: print(line, flush=True))
-    counts = read_counts()
+    counts = launch_counts()
     valid_batches = math.ceil(generated["args"]["valid_queries"]
                               / conv.PROTOCOL["batch"])
     want = dict.fromkeys(counts, 0)
@@ -3318,7 +3306,7 @@ def dp_graph_configs(dev, click_json, data, online_data):
     bit for bit, launches exact both ways; DLA's also against the graph
     windows without a group. Returns the graph runs' launches, summed,
     and DLA's graph run and settings."""
-    total = dict.fromkeys(counters(), 0)
+    total = dict.fromkeys(KERNELS, 0)
     dla = None
     for name in DP_GRAPH:
         online = name in ONLINE
@@ -3453,16 +3441,15 @@ def serve_graph_ranker(ranker: str, config: str, dev, data):
     reference; the graph Scorer's calls launch K1 once each for the DNN,
     never for another ranker. Returns the graph and the eager Scorer and
     the graph Scorer's K1 launches."""
-    from ultra_pytorch_tpu_torch.ops.kernels import mlp
     from ultra_pytorch_tpu_torch.run.experiment import Experiment
     from ultra_pytorch_tpu_torch.serve import Scorer
 
     counted = {"calls": 0, "K1": 0}
 
     def on_graph(fn, *args):
-        before = mlp.fused_mlp_score.launches
+        before = launch_counts()["K1"]
         out = fn(*args)
-        counted["K1"] += mlp.fused_mlp_score.launches - before
+        counted["K1"] += launch_counts()["K1"] - before
         return out
 
     model_dir = os.path.join(WORK, "serve_graph", config)
@@ -3533,7 +3520,7 @@ def serve_graph_timing(graph, eager):
         reset_counts()
         events = device_events(lambda: [graph._score_ranked(feats, None)
                                         for _ in range(calls)])
-        counted = read_counts()["K1"]
+        counted = launch_counts()["K1"]
         launches += counted
         k1 = [us for name, us in events if "mlp_fwd" in name]
         if len(k1) < calls:
@@ -3618,8 +3605,8 @@ def phase_tools():
     from ultra_pytorch_tpu_torch.models.dnn import DNN
 
     t0 = time.perf_counter()
-    counts = dict.fromkeys(counters(), 0)
-    zero = dict.fromkeys(counters(), 0)
+    counts = dict.fromkeys(KERNELS, 0)
+    zero = dict.fromkeys(KERNELS, 0)
     # Both profile_step runs first: torch.profiler keeps every record
     # early in a process (section 7 of PERF.md).
     prof_steps, roof_steps, roof_chunk = 100, 200, 50
@@ -3744,12 +3731,12 @@ def demo_step(dev, cutoff: int):
         settings["selection_bias_cutoff"] = cutoff
         alg = create_algorithm(settings, DEMO_FEATURES, 4.0, dev)
         state = alg.init_state(torch.Generator().manual_seed(1))
-        before = read_counts()
+        before = launch_counts()
         losses = alg.losses(state, batch)
         grads = torch.autograd.grad(losses[0], alg.trainable(state))
         torch.cuda.synchronize()
         if kernels:
-            launches = {k: n - before[k] for k, n in read_counts().items()}
+            launches = {k: n - before[k] for k, n in launch_counts().items()}
         n = len(state.params.jax_leaves())
         out[kernels] = (losses[0].item(),
                         torch.cat([g.reshape(-1) for g in grads[:n]]),
@@ -3877,14 +3864,14 @@ def phase_multi_device(dev, gen):
     from ultra_pytorch_tpu_torch.tools import bench_scaling, shard_data_demo
 
     t0 = time.perf_counter()
-    counts = dict.fromkeys(counters(), 0)
+    counts = dict.fromkeys(KERNELS, 0)
 
     # (a) The flagship forward: one K1 launch over [8, 10, 136].
     fn, (ranker, feats, mask) = dryrun.entry()
-    before = read_counts()["K1"]
+    before = launch_counts()["K1"]
     scores = fn(ranker, feats, mask)
     torch.cuda.synchronize()
-    k1 = read_counts()["K1"] - before
+    k1 = launch_counts()["K1"] - before
     counts["K1"] += k1
     with torch.no_grad():
         ref = mlp.fused_mlp_score_reference(ranker.layers, feats)
@@ -3954,7 +3941,7 @@ def phase_multi_device(dev, gen):
         res = shard_data_demo.main(args)
         ranks = res["ranks"]
         want = (dla_launches(res["steps"], res["steps"], ranks)
-                if "--kernels" in args else dict.fromkeys(counters(), 0))
+                if "--kernels" in args else dict.fromkeys(KERNELS, 0))
         print(f"[multi-device] (d) shard_data_demo {' '.join(args)} in "
               f"{time.perf_counter() - t1:.1f} s on {card_line()}: "
               f"{res['gb_per_device_sharded']:.4f} GB a rank of "
@@ -4024,8 +4011,8 @@ def bench_window_against_eager(dev):
             print(f"[bench] (e) {'graph' if fuse else 'eager'} window of "
                   f"{steps} steps: {seconds:.1f} s {what}; loss "
                   f"{metrics[-1]['loss']:.6f}", flush=True)
-        check(read_counts() == dict.fromkeys(counters(), 0),
-              f"(e) the bench protocol launched {read_counts()}")
+        check(launch_counts() == dict.fromkeys(KERNELS, 0),
+              f"(e) the bench protocol launched {launch_counts()}")
         check(exp.eager_reason() is None, "(e) no graphs on the card")
         runs[fuse] = (exp, metrics)
     check(same_runs(runs[True], runs[False]), "(e) the 800-step graph window "
@@ -4052,12 +4039,12 @@ def bench_exp_step(dev):
             settings["ranking_model_hparams"] += ",use_pallas=true"
         alg = create_algorithm(settings, YAHOO_FEATURES, 2.0, dev)
         state = alg.init_state(torch.Generator().manual_seed(1))
-        before = read_counts()
+        before = launch_counts()
         losses = alg.losses(state, batch)
         grads = torch.autograd.grad(losses[0], alg.trainable(state))
         torch.cuda.synchronize()
         if kernels:
-            launches = {k: n - before[k] for k, n in read_counts().items()}
+            launches = {k: n - before[k] for k, n in launch_counts().items()}
         n = len(state.params.jax_leaves())
         out[kernels] = (losses[0].item(),
                         torch.cat([g.reshape(-1) for g in grads[:n]]),
@@ -4088,8 +4075,8 @@ def phase_bench(dev, gen):
     from ultra_pytorch_tpu_torch.tools import bench_kernels
 
     t0 = time.perf_counter()
-    counts = dict.fromkeys(counters(), 0)
-    zero = dict.fromkeys(counters(), 0)
+    counts = dict.fromkeys(KERNELS, 0)
+    zero = dict.fromkeys(KERNELS, 0)
     pools, peaks = bench_window_against_eager(dev)
 
     # The five runs in one child process with their default device (the
@@ -4279,7 +4266,8 @@ def main() -> int:
     from ultra_pytorch_tpu_torch.run.window import Replayable
 
     print("[kernels] launches through CUDA graph replays in this run: "
-          + json.dumps(dict(zip(sources, Replayable.replayed))), flush=True)
+          + json.dumps({k: Replayable.replayed[f"launches.{k}"]
+                        for k in sources}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

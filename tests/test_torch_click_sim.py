@@ -19,6 +19,7 @@ pytest.importorskip("flax")  # its click models and algorithms need it
 from ultra_pytorch_tpu.sim import click_models as jax_cm
 from ultra_pytorch_tpu_torch.ops.kernels import click_sim
 from ultra_pytorch_tpu_torch.sim import click_models as cm
+from ultra_pytorch_tpu_torch.utils import spans
 
 # Random123's known answers for philox4x32_10: (counter, key, output).
 PHILOX_KAT = [
@@ -76,9 +77,9 @@ def test_wrapper_on_cpu_is_the_plain_version():
     probs = torch.rand(labels.shape,
                        generator=torch.Generator().manual_seed(1))
     key = torch.tensor([12345, 67890], dtype=torch.int64)
-    before = click_sim.pbm_clicks.launches
+    before = spans.counters()["launches.K5"]
     got = click_sim.pbm_clicks(probs, torch.from_numpy(mask), key)
-    assert click_sim.pbm_clicks.launches == before
+    assert spans.counters()["launches.K5"] == before
     torch.testing.assert_close(
         got, click_sim.pbm_clicks_reference(probs, torch.from_numpy(mask),
                                             key), rtol=0, atol=0)

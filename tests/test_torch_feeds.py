@@ -21,7 +21,7 @@ from ultra_pytorch_tpu.input_layer import feeds as jax_feeds
 from ultra_pytorch_tpu.sim.click_models import main as jax_cm_main
 from ultra_pytorch_tpu_torch.data.dataset import RankingDataset
 from ultra_pytorch_tpu_torch.input_layer import feeds
-from ultra_pytorch_tpu_torch.ops.kernels import click_sim
+from ultra_pytorch_tpu_torch.utils import spans
 
 Q, L, F = 300, 12, 6
 CUT = 10
@@ -115,10 +115,10 @@ def test_plan_statistics_match_jax(click_json, hparams):
     jax_feed, feed = _pair(click_json, hparams)
     n = 150
     want_qs, want_clicks, want_valid = _jax_plan(jax_feed, n)
-    before = click_sim.pbm_clicks.launches
+    before = spans.counters()["launches.K5"]
     qs, clicks, valid = feed.train_batch_plan(
         torch.Generator().manual_seed(0), 0, n)
-    assert click_sim.pbm_clicks.launches == before  # CPU: the plain version
+    assert spans.counters()["launches.K5"] == before  # CPU: the plain version
     assert qs.shape == want_qs.shape and clicks.shape == want_clicks.shape
     assert valid.shape == want_valid.shape
     qs, clicks, valid = qs.numpy(), clicks.numpy(), valid.numpy()

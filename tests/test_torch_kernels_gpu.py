@@ -14,6 +14,7 @@ import torch
 from ultra_pytorch_tpu_torch.models.dnn import DNN
 from ultra_pytorch_tpu_torch.ops import losses
 from ultra_pytorch_tpu_torch.ops.kernels import click_sim, listwise_loss, mlp
+from ultra_pytorch_tpu_torch.utils import spans
 
 from test_torch_mlp_kernel import (WITNESS, float64_grads, kink_free_rows,
                                    off_float64, seeded_dnn)
@@ -64,12 +65,12 @@ def test_k2_matches_autograd_of_plain_version(cuda, n_rows, activation,
     model, gen = _seeded_dnn(FULL, 136, n_rows, cuda)
     x = torch.randn(n_rows, 136, generator=gen).to(cuda)
     g = torch.randn(n_rows, generator=gen).to(cuda)
-    before = mlp.mlp_backward.launches
+    before = spans.counters()["launches.K2"]
     dx, grads = mlp.mlp_backward(model.layers, x, g, activation, use_norm)
     ref_dx, ref_grads = mlp.mlp_backward_reference(model.layers, x, g,
                                                    activation, use_norm)
     torch.cuda.synchronize()
-    assert mlp.mlp_backward.launches == before + 1
+    assert spans.counters()["launches.K2"] == before + 1
     _close(dx, ref_dx, 2e-4)
     for got, ref in zip(grads, ref_grads):
         assert got.shape == ref.shape
@@ -131,10 +132,11 @@ def test_k2_is_deterministic_and_trains_through_autograd(cuda):
                              torch.ones(2560, device=cuda), "elu", True)
     for a, b in zip([first[0]] + first[1], [again[0]] + again[1]):
         assert torch.equal(a, b)
-    k1, k2 = mlp.fused_mlp_score.launches, mlp.mlp_backward.launches
+    before = spans.counters()
     (mlp.fused_mlp_score(model.layers, x) ** 2).sum().backward()
-    assert (mlp.fused_mlp_score.launches, mlp.mlp_backward.launches) == (
-        k1 + 1, k2 + 1)
+    after = spans.counters()
+    assert (after["launches.K1"], after["launches.K2"]) == (
+        before["launches.K1"] + 1, before["launches.K2"] + 1)
     got = [p.grad.clone() for p in model.parameters()]
     model.zero_grad()
     (mlp.fused_mlp_score_reference(model.layers, x) ** 2).sum().backward()
@@ -176,12 +178,12 @@ def test_k2_from_k1_residual_against_float64(cuda, activation, use_norm):
     with torch.inference_mode():
         mlp.mlp_forward(model.layers, x, activation, use_norm,
                         residual=residual)
-    k2 = mlp.mlp_backward.launches
+    k2 = spans.counters()["launches.K2"]
     dx, grads = mlp.mlp_backward(model.layers, x, g, activation, use_norm,
                                  residual=residual)
     _, exact = float64_grads(model.layers, x, g, activation, use_norm)
     torch.cuda.synchronize()
-    assert mlp.mlp_backward.launches == k2 + 1
+    assert spans.counters()["launches.K2"] == k2 + 1
     assert off_float64([dx] + grads, exact) <= 2e-4
 
 
@@ -194,13 +196,13 @@ def test_autograd_gradients_equal_direct_k2(cuda, n_rows, features):
     model, gen = _seeded_dnn(FULL, features, n_rows, cuda)
     x = torch.randn(n_rows, features, generator=gen).to(cuda)
     g = torch.randn(n_rows, generator=gen).to(cuda)
-    saved = mlp.fused_mlp_score.saved
+    saved = spans.counters()["launches.K1_saved"]
     xg = x.clone().requires_grad_(True)
     mlp.fused_mlp_score(model.layers, xg).backward(g)
     got = [xg.grad] + [p.grad for p in mlp._flat_params(model.layers)]
     dx, grads = mlp.mlp_backward(model.layers, x, g, "elu", True)
     torch.cuda.synchronize()
-    assert mlp.fused_mlp_score.saved == saved + 2
+    assert spans.counters()["launches.K1_saved"] == saved + 2
     for a, b in zip(got, [dx] + grads):
         assert torch.equal(a, b)
 
@@ -227,8 +229,7 @@ def test_k3_k4_match_softmax_loss(cuda, batch, length):
     sr = s.clone().requires_grad_(True)
     ref = losses.softmax_loss(sr, y, w, m)
     (ref_ds,) = torch.autograd.grad(2.5 * ref, sr)
-    k3, k4 = (listwise_loss.listwise_loss_forward.launches,
-              listwise_loss.listwise_loss_backward.launches)
+    before = spans.counters()
     sk = s.clone().requires_grad_(True)
     got = listwise_loss.fused_softmax_loss(sk, y, w, m)
     (ds,) = torch.autograd.grad(2.5 * got, sk)
@@ -236,8 +237,9 @@ def test_k3_k4_match_softmax_loss(cuda, batch, length):
                                                    return_stats=True)
     ref_stats = listwise_loss.listwise_loss_stats_reference(s, y, w, m)
     torch.cuda.synchronize()
-    assert (listwise_loss.listwise_loss_forward.launches,
-            listwise_loss.listwise_loss_backward.launches) == (k3 + 2, k4 + 1)
+    after = spans.counters()
+    assert (after["launches.K3"], after["launches.K4"]) == (
+        before["launches.K3"] + 2, before["launches.K4"] + 1)
     torch.testing.assert_close(got, ref.detach(), rtol=1e-5, atol=1e-6)
     _close(ds, ref_ds, 1e-5)
     assert torch.equal(ds[0], torch.zeros_like(ds[0]))
@@ -341,11 +343,11 @@ def test_k5_equals_its_plain_version(cuda, shape):
     probs = torch.rand(shape, generator=gen, device=cuda)
     mask = (torch.rand(shape, generator=gen, device=cuda) < 0.9).float()
     key = click_sim.draw_key(gen)
-    before = click_sim.pbm_clicks.launches
+    before = spans.counters()["launches.K5"]
     got = click_sim.pbm_clicks(probs, mask, key)
     ref = click_sim.pbm_clicks_reference(probs, mask, key)
     torch.cuda.synchronize()
-    assert click_sim.pbm_clicks.launches == before + 1
+    assert spans.counters()["launches.K5"] == before + 1
     assert torch.equal(got, ref)
 
 
@@ -378,12 +380,12 @@ def test_k1_wgmma_matches_plain_version(cuda, n_rows, features):
     of K1's other card tests."""
     model, gen = _seeded_dnn(FULL, features, n_rows, cuda)
     x = torch.randn(n_rows, features, generator=gen).to(cuda)
-    before = mlp.fused_mlp_score.wgmma
+    before = spans.counters()["launches.K1_wgmma"]
     with torch.inference_mode():
         got = mlp.mlp_forward(model.layers, x, "elu", True, _rows=mlp.WGMMA)
         ref = mlp.fused_mlp_score_reference(model.layers, x, "elu", True)
     torch.cuda.synchronize()
-    assert mlp.fused_mlp_score.wgmma == before + 1
+    assert spans.counters()["launches.K1_wgmma"] == before + 1
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
 
 
@@ -395,13 +397,13 @@ def test_k1_wgmma_every_activation(cuda, activation, use_norm):
     30,720 rows, where the plan takes the wgmma instance itself."""
     model, gen = _seeded_dnn(FULL, 136, 7, cuda)
     x = torch.randn(256, 120, 136, generator=gen).to(cuda)
-    before = mlp.fused_mlp_score.wgmma
+    before = spans.counters()["launches.K1_wgmma"]
     with torch.no_grad():
         got = mlp.fused_mlp_score(model.layers, x, activation, use_norm)
         ref = mlp.fused_mlp_score_reference(model.layers, x, activation,
                                             use_norm)
     torch.cuda.synchronize()
-    assert mlp.fused_mlp_score.wgmma == before + 1
+    assert spans.counters()["launches.K1_wgmma"] == before + 1
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
 
 
@@ -477,8 +479,6 @@ def test_k1_wgmma_is_chosen_for_scoring_alone(cuda):
     """``launches.K1_wgmma`` moves for a no-grad call on 64-row tiles, and
     not for a training step's 2,560 rows or a call that saves K2's
     residual."""
-    from ultra_pytorch_tpu_torch.utils import spans
-
     model, gen = _seeded_dnn(FULL, 136, 4, cuda)
     lists = torch.randn(30720, 136, generator=gen).to(cuda)
     step = torch.randn(2560, 136, generator=gen).to(cuda)

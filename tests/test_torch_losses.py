@@ -18,6 +18,7 @@ from ultra_pytorch_tpu.ops.pallas.listwise_loss import (
     fused_softmax_loss as jax_fused)
 from ultra_pytorch_tpu_torch.ops import losses
 from ultra_pytorch_tpu_torch.ops.kernels import listwise_loss
+from ultra_pytorch_tpu_torch.utils import spans
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -90,14 +91,12 @@ def test_fused_plain_version_edge_cases():
     """A zero-denominator list and a fully masked list take no gradient;
     masked positions take none; the CPU path launches nothing."""
     s, y, w, m = _inputs(3)
-    before = (listwise_loss.listwise_loss_forward.launches,
-              listwise_loss.listwise_loss_backward.launches)
+    before = spans.counters()
     _, ds = _torch_value_and_grad(losses.LOSS_FUNCTIONS["fused_softmax_loss"],
                                   s, y, w, m)
     assert not ds[0].any() and not ds[1].any()
     assert not ds[m == 0].any()
-    assert (listwise_loss.listwise_loss_forward.launches,
-            listwise_loss.listwise_loss_backward.launches) == before
+    assert spans.counters() == before
 
 
 def test_fused_loss_takes_no_gradient_in_labels_weights_or_mask():

@@ -20,6 +20,7 @@ from ultra_pytorch_tpu.models.dnn import DNN as JaxDNN
 from ultra_pytorch_tpu.ops.pallas.mlp import fused_mlp_score as jax_fused
 from ultra_pytorch_tpu_torch.models.dnn import DNN, params_from_jax
 from ultra_pytorch_tpu_torch.ops.kernels import mlp
+from ultra_pytorch_tpu_torch.utils import spans
 
 F = 24
 HIDDEN = "hidden_layer_sizes=[16, 8]"
@@ -91,10 +92,10 @@ def test_autograd_through_fused_score_matches_jax_grad(pair):
 
     want = jax.grad(loss)(params)
     model.zero_grad()
-    before = (mlp.fused_mlp_score.launches, mlp.mlp_backward.launches)
+    before = spans.counters()
     s = mlp.fused_mlp_score(model.layers, torch.from_numpy(x))
     ((s - torch.from_numpy(target)) ** 2).sum().backward()
-    assert (mlp.fused_mlp_score.launches, mlp.mlp_backward.launches) == before
+    assert spans.counters() == before
     for mine, theirs in zip(model.layers, want["layers"]):
         np.testing.assert_allclose(mine.linear.weight.grad.numpy().T,
                                    theirs["linear"]["w"], rtol=TOL, atol=TOL)

@@ -14,6 +14,7 @@ import torch
 
 from ultra_pytorch_tpu_torch.models.dnn import DNN, params_from_jax
 from ultra_pytorch_tpu_torch.ops.kernels import mlp
+from ultra_pytorch_tpu_torch.utils import spans
 
 # JAX is imported inside the tests that compare with it, so that the gpu
 # tests also run on a machine with the card and no JAX.
@@ -100,10 +101,10 @@ def test_wrapper_checks_its_inputs(pair):
 
 def test_cpu_path_never_launches(pair):
     _, model = pair
-    before = mlp.fused_mlp_score.launches
+    before = spans.counters()["launches.K1"]
     with torch.no_grad():
         mlp.fused_mlp_score(model.layers, torch.zeros(4, F))
-    assert mlp.fused_mlp_score.launches == before
+    assert spans.counters()["launches.K1"] == before
 
 
 def test_autograd_records_only_where_a_backward_can_follow():
@@ -128,10 +129,10 @@ def test_cpu_path_keeps_no_residual(pair):
     """The plain version trains by autograd through the plain chain: no
     residual is made or counted, and K1's wrapper refuses one."""
     _, model = pair
-    saved = mlp.fused_mlp_score.saved
+    before = spans.counters()
     x = torch.from_numpy(_features((4, F))).requires_grad_(True)
     mlp.fused_mlp_score(model.layers, x).sum().backward()
-    assert x.grad is not None and mlp.fused_mlp_score.saved == saved
+    assert x.grad is not None and spans.counters() == before
     model.zero_grad()
     with pytest.raises(ValueError, match="no residual"):
         mlp.mlp_forward(model.layers, x.detach(), "elu", True,
@@ -540,13 +541,13 @@ def test_kernel_matches_plain_version_on_card(n_rows, activation, use_norm):
     model = DNN("hidden_layer_sizes=[512, 256, 128]", 136,
                 generator=gen).cuda()
     x = torch.randn(n_rows, 136, generator=gen).cuda()
-    before = mlp.fused_mlp_score.launches
+    before = spans.counters()["launches.K1"]
     with torch.inference_mode():
         got = mlp.fused_mlp_score(model.layers, x, activation, use_norm)
         ref = mlp.fused_mlp_score_reference(model.layers, x, activation,
                                             use_norm)
     torch.cuda.synchronize()
-    assert mlp.fused_mlp_score.launches == before + 1
+    assert spans.counters()["launches.K1"] == before + 1
     # Sums over K <= 512 taken in another order than cuBLAS's.
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
     # With gradients on, the same call trains through K2; its gradients
@@ -554,10 +555,10 @@ def test_kernel_matches_plain_version_on_card(n_rows, activation, use_norm):
     # another order, so relative to the largest gradient).
     g = torch.randn(n_rows, generator=gen).cuda() * kink_free_rows(
         model, x, activation, use_norm)
-    k2 = mlp.mlp_backward.launches
+    k2 = spans.counters()["launches.K2"]
     xg = x.clone().requires_grad_(True)
     mlp.fused_mlp_score(model.layers, xg, activation, use_norm).backward(g)
-    assert mlp.mlp_backward.launches == k2 + 1
+    assert spans.counters()["launches.K2"] == k2 + 1
     got_grads = [xg.grad] + [p.grad for p in model.parameters()]
     model.zero_grad()
     xr = x.clone().requires_grad_(True)
@@ -703,17 +704,20 @@ def test_no_grad_scores_save_nothing_on_card():
         pytest.skip("needs a CUDA device (K1 has no CPU mode)")
     model, gen = seeded_dnn(HIDDEN, F, 3, "cuda")
     x = torch.randn(4, 16, F, generator=gen).cuda()
-    k1, saved, k2 = (mlp.fused_mlp_score.launches, mlp.fused_mlp_score.saved,
-                     mlp.mlp_backward.launches)
+    before = spans.counters()
+    names = ("launches.K1", "launches.K1_saved", "launches.K2")
+
+    def counted():
+        after = spans.counters()
+        return tuple(after[k] - before[k] for k in names)
+
     with torch.no_grad():
         mlp.fused_mlp_score(model.layers, x)
     with torch.inference_mode():
         mlp.fused_mlp_score(model.layers, x)
-    assert (mlp.fused_mlp_score.launches, mlp.fused_mlp_score.saved) == (
-        k1 + 2, saved)
+    assert counted() == (2, 0, 0)
     mlp.fused_mlp_score(model.layers, x).sum().backward()
-    assert (mlp.fused_mlp_score.launches, mlp.fused_mlp_score.saved,
-            mlp.mlp_backward.launches) == (k1 + 3, saved + 1, k2 + 1)
+    assert counted() == (3, 1, 1)
 
 
 @pytest.mark.gpu

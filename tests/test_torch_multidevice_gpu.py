@@ -26,6 +26,7 @@ from ultra_pytorch_tpu_torch.run import dryrun
 from ultra_pytorch_tpu_torch.run.launch import shared_card
 from ultra_pytorch_tpu_torch.tools import bench_scaling, shard_data_demo
 from ultra_pytorch_tpu_torch.tools.bench_common import dla_launches
+from ultra_pytorch_tpu_torch.utils import spans
 
 pytestmark = pytest.mark.gpu
 
@@ -46,9 +47,9 @@ def cuda():
 
 def test_entry_is_one_k1_launch(cuda):
     fn, (ranker, features, mask) = dryrun.entry()
-    before = mlp.fused_mlp_score.launches
+    before = spans.counters()["launches.K1"]
     scores = fn(ranker, features, mask)
-    assert mlp.fused_mlp_score.launches - before == 1
+    assert spans.counters()["launches.K1"] - before == 1
     with torch.no_grad():
         ref = mlp.fused_mlp_score_reference(ranker.layers, features)
     assert scores.shape == (8, 10)

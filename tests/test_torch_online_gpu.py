@@ -12,9 +12,9 @@ import os
 import pytest
 import torch
 
-from ultra_pytorch_tpu_torch.ops.kernels import mlp
 from ultra_pytorch_tpu_torch.run.experiment import create_algorithm
 from ultra_pytorch_tpu_torch.sim.interleave import draft, round_assignments
+from ultra_pytorch_tpu_torch.utils import spans
 
 pytestmark = pytest.mark.gpu
 
@@ -86,13 +86,14 @@ def test_pdgd_step_kernels_on_equals_plain(cuda):
     out = {}
     for kernels in (True, False):
         alg, state = _algorithm("PDGD", kernels, cuda)
-        mlp.fused_mlp_score.launches = mlp.mlp_backward.launches = 0
+        before = spans.counters()
         losses = alg.losses(state, batch)
         grads = torch.autograd.grad(losses[0], alg.trainable(state))
+        after = spans.counters()
         out[kernels] = (losses[0].item(),
                         torch.cat([g.reshape(-1) for g in grads]),
-                        (mlp.fused_mlp_score.launches,
-                         mlp.mlp_backward.launches))
+                        tuple(after[k] - before[k]
+                              for k in ("launches.K1", "launches.K2")))
     (loss_k, grad_k, launches_k), (loss_p, grad_p, launches_p) = (
         out[True], out[False])
     assert launches_k == (2, 1) and launches_p == (0, 0)
@@ -108,9 +109,9 @@ def test_mgd_candidates_and_update_kernels_on_equals_plain(cuda):
         alg, state = _algorithm("MGD", kernels, cuda)
         gen = torch.Generator(device=cuda).manual_seed(2)
         noises = alg.sample_noises(state, gen)
-        mlp.fused_mlp_score.launches = 0
+        k1 = spans.counters()["launches.K1"]
         scores = alg.candidate_scores(state, batch, noises, gen)
-        launches = mlp.fused_mlp_score.launches
+        launches = spans.counters()["launches.K1"] - k1
         share = torch.tensor([0.1, 0.4, 0.0, 0.3, 0.2], device=cuda)
         state = alg.apply_noise_update(state, noises, share)
         out[kernels] = (torch.stack(scores),

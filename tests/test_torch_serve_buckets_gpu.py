@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from ultra_pytorch_tpu_torch.ops.kernels import mlp
 from ultra_pytorch_tpu_torch.serve import Scorer
+from ultra_pytorch_tpu_torch.utils import spans
 from ultra_pytorch_tpu_torch.utils.registry import find_class
 
 pytestmark = pytest.mark.gpu
@@ -67,7 +67,7 @@ def test_every_bucket_replay_equals_its_eager_body(cuda, name):
     buckets = [(b, li) for b in (8, 16, 32, 64) for li in (8, 16, 32, 64)]
     assert sorted(graph._ranked) == sorted(buckets)
     requests = [(b, li) for b, li in buckets] + list(SHRINKING)
-    before = mlp.fused_mlp_score.launches
+    before = spans.counters()["launches.K1"]
     for i, (q, length) in enumerate(requests):
         feats, n_valid = _request(q, length, seed=i)
         s_graph, o_graph = graph._score_ranked(feats, n_valid)
@@ -78,4 +78,4 @@ def test_every_bucket_replay_equals_its_eager_body(cuda, name):
                                       err_msg=f"{name} {q}x{length}")
     calls = 2 * len(requests)   # each request once each way
     want = calls if name == "DNN" else 0
-    assert mlp.fused_mlp_score.launches - before == want
+    assert spans.counters()["launches.K1"] - before == want

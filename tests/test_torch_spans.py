@@ -21,6 +21,8 @@ import json
 import os
 import re
 import statistics
+import subprocess
+import sys
 import warnings
 
 import numpy as np
@@ -171,34 +173,46 @@ def test_parents_and_window_ids():
 
 
 def test_snapshot_holds_the_launch_counters():
-    before = window.read_launches()
-    saved = window.saved_counter().saved
-    try:
-        window.set_launches([3, 1, 4, 1, 5])
-        window.saved_counter().saved = 2
-        spans.REGISTRY.count("spans.device_unread", 2)
-        counters = spans.snapshot()["counters"]
-        assert [counters[f"launches.K{i}"] for i in range(1, 6)] == \
-            window.read_launches() == [3, 1, 4, 1, 5]
-        assert counters["launches.K1_saved"] == 2
-        assert counters["spans.device_unread"] == 2
-    finally:
-        window.set_launches(before)
-        window.saved_counter().saved = saved
+    for name, n in zip(spans.KERNEL_LAUNCHES, [3, 1, 4, 1, 5]):
+        spans.count(name, n)
+    spans.count("launches.K1_saved", 2)
+    spans.REGISTRY.count("spans.device_unread", 2)
+    counters = spans.snapshot()["counters"]
+    assert [counters[f"launches.K{i}"] for i in range(1, 6)] == \
+        window.read_launches() == [3, 1, 4, 1, 5]
+    assert counters["launches.K1_saved"] == 2
+    assert counters["launches.K1_wgmma"] == 0
+    assert counters["spans.device_unread"] == 2
 
 
 def test_snapshot_holds_the_wgmma_launches():
     """``launches.K1_wgmma`` beside ``launches.K1_saved``: K1's launches
-    through its wgmma instance, read from the same wrapper."""
-    k1 = window.saved_counter()
-    before = (k1.saved, k1.wgmma)
-    try:
-        k1.saved, k1.wgmma = 1, 300
-        counters = spans.snapshot()["counters"]
-        assert counters["launches.K1_wgmma"] == 300
-        assert counters["launches.K1_saved"] == 1
-    finally:
-        k1.saved, k1.wgmma = before
+    through its wgmma instance, in the same table."""
+    spans.count("launches.K1_saved")
+    spans.count("launches.K1_wgmma", 300)
+    counters = spans.snapshot()["counters"]
+    assert counters["launches.K1_wgmma"] == 300
+    assert counters["launches.K1_saved"] == 1
+
+
+def test_a_snapshot_loads_no_run_module():
+    """``utils/spans.py`` sits below the run layer: a snapshot in a fresh
+    interpreter imports nothing of ``ultra_pytorch_tpu_torch.run`` and
+    reports the seven launch counters at 0."""
+    code = ("import json, sys\n"
+            "from ultra_pytorch_tpu_torch.utils import spans\n"
+            "counters = spans.snapshot()['counters']\n"
+            "run = [m for m in sys.modules\n"
+            "       if m.startswith('ultra_pytorch_tpu_torch.run')]\n"
+            "print(json.dumps([counters, run]))\n")
+    done = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stderr
+    counters, run = json.loads(done.stdout.splitlines()[-1])
+    assert run == []
+    assert counters == dict.fromkeys(
+        ["launches.K1", "launches.K2", "launches.K3", "launches.K4",
+         "launches.K5", "launches.K1_saved", "launches.K1_wgmma"], 0)
 
 
 def test_no_range_without_a_profiler(monkeypatch, tmp_path):
@@ -337,7 +351,7 @@ def test_a_window_runs_without_the_stamp_library(monkeypatch, tmp_path):
     def captured(fn, generators=(), restore=None, pool=None, name=""):
         out = fn()
         restore()
-        return window.Replayable(_Graph(fn), [0] * 5), out
+        return window.Replayable(_Graph(fn), {}), out
 
     monkeypatch.setattr(spans, "_library", broken)
     monkeypatch.setattr(window, "capture", captured)
@@ -421,8 +435,8 @@ def test_the_online_passes_are_counted_and_replayed(tmp_path):
     assert counters["online.feed_scored"] == STEPS
     assert counters["online.rankers_scored"] == 5 * STEPS
     graph = window.Replayable(type("Graph", (), {"replay": lambda s: None})(),
-                              [0] * 5, counts={"online.feed_scored": 50,
-                                               "online.rankers_scored": 250})
+                              {"online.feed_scored": 50,
+                               "online.rankers_scored": 250})
     graph.replay()
     graph.replay()
     counters = spans.snapshot()["counters"]
@@ -488,11 +502,10 @@ def test_a_replay_resolves_the_seven_stamp_nodes(cuda, tmp_path):
     (replay,) = _samples("window.replay")
     assert replay["window"] == 0 and replay["ms"] > 0.0
     assert not _samples("window.launch_wait")   # no window before it
-    assert spans.snapshot()["counters"] == {
-        **{f"launches.K{i}": n
-           for i, n in enumerate(window.read_launches(), 1)},
-        "launches.K1_saved": window.saved_counter().saved,
-        "launches.K1_wgmma": window.saved_counter().wgmma}
+    counters = spans.snapshot()["counters"]
+    assert set(counters) == set(spans.LAUNCHES)
+    assert [counters[k] for k in spans.KERNEL_LAUNCHES] == \
+        window.read_launches()
     assert len(_samples(f"capture.window.{STEPS}")) == 1
     for part in ("warmup", "restore", "generators", "record", "sync",
                  "trace", "instantiate"):
@@ -505,8 +518,8 @@ def test_a_replay_resolves_the_seven_stamp_nodes(cuda, tmp_path):
 @pytest.mark.gpu
 def test_an_online_graph_stamps_and_replays_its_counts(cuda, tmp_path):
     """An MGD window's graph: its eight stamp nodes, the online phases
-    within its device time, and the passes its capture counted added on
-    every replay."""
+    within its device time, and the passes and K1 launches its capture
+    counted added on every replay."""
     exp = _online_experiment(cuda, tmp_path, kernels=True)
     for _ in range(3):
         exp.train_steps(STEPS)
@@ -522,7 +535,9 @@ def test_an_online_graph_stamps_and_replays_its_counts(cuda, tmp_path):
         <= ms["window.device"][0]
     assert not _samples("step.backward")
     graph = exp._window_graphs.graphs[STEPS][0]
-    assert graph.counts == {"online.feed_scored": STEPS,
+    # K1 a pass: the feed's and the five rankers' a step.
+    assert graph.counts == {"launches.K1": 6 * STEPS,
+                            "online.feed_scored": STEPS,
                             "online.rankers_scored": 5 * STEPS}
     counters = spans.snapshot()["counters"]
     assert counters["online.feed_scored"] == 3 * STEPS
@@ -556,20 +571,23 @@ def test_pipelined_replays_keep_their_stamps(cuda, tmp_path):
 def test_the_launch_counters_read_as_before(cuda, tmp_path):
     exp = _experiment(cuda, tmp_path, kernels=True)
     before = window.read_launches()
+    saved = spans.counters()["launches.K1_saved"]
     for _ in range(3):
         exp.train_steps(STEPS)
     graph = exp._window_graphs.graphs[STEPS][0]
-    assert graph.launches == [STEPS, STEPS, 2 * STEPS, 2 * STEPS, 1]
+    launches = [graph.counts.get(k, 0) for k in spans.KERNEL_LAUNCHES]
+    assert launches == [STEPS, STEPS, 2 * STEPS, 2 * STEPS, 1]
     assert [a - b for a, b in zip(window.read_launches(), before)] == [
-        3 * n for n in graph.launches]
+        3 * n for n in launches]
     counters = spans.snapshot()["counters"]
     assert [counters[f"launches.K{i}"] for i in range(1, 6)] == \
         window.read_launches()
     # Every K1 launch of a training step saves the residuals its K2 reads,
     # so none runs the wgmma instance.
-    assert graph.saved == STEPS and graph.wgmma == 0
-    assert counters["launches.K1_saved"] == window.saved_counter().saved
-    assert counters["launches.K1_wgmma"] == window.saved_counter().wgmma
+    assert graph.counts["launches.K1_saved"] == STEPS
+    assert "launches.K1_wgmma" not in graph.counts
+    assert counters["launches.K1_saved"] - saved == 3 * STEPS
+    assert counters["launches.K1_wgmma"] == 0
 
 
 @pytest.mark.gpu

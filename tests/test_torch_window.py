@@ -29,6 +29,7 @@ from ultra_pytorch_tpu_torch.run.experiment import (  # noqa: E402
 from ultra_pytorch_tpu_torch.sim.click_models import (  # noqa: E402
     click_model_json_numpy)
 from ultra_pytorch_tpu_torch.utils import checkpoint as ckpt_lib  # noqa
+from ultra_pytorch_tpu_torch.utils import spans  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLICK_JSON = os.path.join(REPO, "example", "ClickModel",
@@ -332,75 +333,50 @@ class _FakeGraph:
         self.replays += 1
 
 
-def test_replays_add_the_captured_launches():
+@pytest.mark.parametrize("name,counts", [
+    ("launches.K1", {f"launches.K{i}": i for i in range(1, 6)}),
+    ("launches.K1_saved", {"launches.K1": 2, "launches.K2": 2,
+                           "launches.K3": 4, "launches.K4": 4,
+                           "launches.K5": 1, "launches.K1_saved": 2}),
+    ("launches.K1_wgmma", {"launches.K1": 6, "launches.K1_wgmma": 6}),
+])
+def test_replays_add_the_captured_launches(name, counts):
     """The counters count a captured launch once, at capture: each replay
-    adds the capture's count, so three replays add three times it."""
-    before = window.read_launches()
-    replayed = list(window.Replayable.replayed)
+    adds the capture's counts, so three replays add three times them to
+    the spans' registry and to ``Replayable.replayed``, and nothing
+    else."""
+    before = spans.counters()
+    replayed = dict(window.Replayable.replayed)
     try:
-        captured = [1, 2, 3, 4, 5]
-        graph = window.Replayable(_FakeGraph(), captured)
+        graph = window.Replayable(_FakeGraph(), counts)
         for _ in range(3):
             graph.replay()
         assert graph.graph.replays == 3
-        assert [a - b for a, b in zip(window.read_launches(), before)] == [
-            3 * n for n in captured]
-        assert [a - b for a, b in zip(window.Replayable.replayed,
-                                      replayed)] == [3 * n for n in captured]
+        assert {k: n - before.get(k, 0) for k, n in spans.counters().items()
+                if n != before.get(k, 0)} == {
+            k: 3 * n for k, n in counts.items()}
+        assert [a - before[k] for k, a in zip(
+            spans.KERNEL_LAUNCHES, window.read_launches())] == [
+            3 * counts.get(k, 0) for k in spans.KERNEL_LAUNCHES]
+        assert window.Replayable.replayed[name] - replayed.get(name, 0) \
+            == 3 * counts[name]
+        assert window.Replayable(_FakeGraph(), {}).counts == {}
     finally:
-        window.set_launches(before)
-        window.Replayable.replayed[:] = replayed
+        spans.set_counters(before)
+        window.Replayable.replayed.clear()
+        window.Replayable.replayed.update(replayed)
 
 
-def test_replays_add_the_captured_saves():
-    """K1's launches that saved residuals for K2 count like the launches:
-    once at capture, then the capture's count on each replay, beside
-    launch counters that keep their five entries."""
-    saved = window.saved_counter().saved
-    before = window.read_launches()
-    replayed = list(window.Replayable.replayed)
-    try:
-        graph = window.Replayable(_FakeGraph(), [2, 2, 4, 4, 1], saved=2)
-        for _ in range(3):
-            graph.replay()
-        assert window.saved_counter().saved - saved == 6
-        assert len(window.launch_counters()) == len(window.read_launches()) \
-            == 5
-        assert window.Replayable(_FakeGraph(), [0] * 5).saved == 0
-    finally:
-        window.set_launches(before)
-        window.saved_counter().saved = saved
-        window.Replayable.replayed[:] = replayed
-
-
-def test_replays_add_the_captured_wgmma_launches():
-    """K1's launches through its wgmma instance count like its saving
-    ones: once at capture, then the capture's count on each replay."""
-    k1 = window.saved_counter()
-    before, counts = (k1.saved, k1.wgmma), window.read_launches()
-    replayed = list(window.Replayable.replayed)
-    try:
-        graph = window.Replayable(_FakeGraph(), [6, 0, 0, 0, 0], wgmma=6)
-        for _ in range(3):
-            graph.replay()
-        assert (k1.saved, k1.wgmma) == (before[0], before[1] + 18)
-        assert window.Replayable(_FakeGraph(), [0] * 5).wgmma == 0
-    finally:
-        k1.saved, k1.wgmma = before
-        window.set_launches(counts)
-        window.Replayable.replayed[:] = replayed
-
-
-def test_capture_counts_the_wgmma_launches_once():
-    """A capture ends with the wgmma count as it began and hands the
-    captured launches to its Replayable (the warm-up's taken off)."""
-    from ultra_pytorch_tpu_torch.ops.kernels import mlp
-
-    k1 = window.saved_counter()
-    before = k1.wgmma
+@pytest.mark.parametrize("name", ["launches.K1", "launches.K1_saved",
+                                  "launches.K1_wgmma",
+                                  "online.rankers_scored"])
+def test_capture_counts_the_wgmma_launches_once(name):
+    """A capture ends with the counters as they began and hands what it
+    counted (the warm-up's taken off) to its Replayable."""
+    before = spans.counters()
 
     def fn():
-        mlp.fused_mlp_score.wgmma += 2
+        spans.count(name, 2)
 
     class _Stream:
         def wait_stream(self, other):
@@ -416,7 +392,7 @@ def test_capture_counts_the_wgmma_launches_once():
             mock.patch.object(torch.cuda, "graph",
                               lambda g, pool=None: contextlib.nullcontext()):
         graph, _ = window.capture(fn)
-    assert graph.wgmma == 2 and k1.wgmma == before
+    assert graph.counts == {name: 2} and spans.counters() == before
 
 
 def test_cpu_windows_run_eager_and_say_so(tmp_path, capsys):

@@ -31,6 +31,7 @@ import functools
 import torch
 
 from ultra_pytorch_tpu_torch.ops.kernels import build
+from ultra_pytorch_tpu_torch.utils import spans
 
 SOURCE = build.CSRC_DIR / "click_sim.cu"
 
@@ -137,11 +138,8 @@ def pbm_clicks(probs: torch.Tensor, mask: torch.Tensor,
             raise RuntimeError(f"K5 launch failed: "
                                f"{lib.ultra_cuda_error_string(err)} "
                                f"(CUDA error {err})")
-        pbm_clicks.launches += 1
+        spans.count("launches.K5")
     return out
-
-
-pbm_clicks.launches = 0  # kernel launches, for run-time evidence
 
 
 def draw_key(generator: torch.Generator) -> torch.Tensor:

@@ -29,6 +29,7 @@ import torch
 
 from ultra_pytorch_tpu_torch.ops import losses
 from ultra_pytorch_tpu_torch.ops.kernels import build
+from ultra_pytorch_tpu_torch.utils import spans
 
 SOURCE = build.CSRC_DIR / "listwise_loss.cu"
 PER_LANE = 8        # elements a lane holds per chunk (``kPer`` in the source)
@@ -221,11 +222,8 @@ def listwise_loss_forward(s, y, w, m, return_stats: bool = False,
                 length, geo.lanes, geo.threads, geo.blocks, out.data_ptr(),
                 stats.data_ptr(), partials.data_ptr(),
                 _ticket(device).data_ptr())
-        listwise_loss_forward.launches += 1
+        spans.count("launches.K3")
     return (out, LossStats(stats)) if return_stats else out
-
-
-listwise_loss_forward.launches = 0  # kernel launches, for run-time evidence
 
 
 def listwise_loss_backward(s, y, w, m, g, stats: LossStats,
@@ -257,11 +255,8 @@ def listwise_loss_backward(s, y, w, m, g, stats: LossStats,
     _launch(s.device, "ultra_listwise_loss_bwd", "K4", *args, batch, length,
             geo.lanes, geo.threads, geo.blocks, buffer.data_ptr(),
             g.data_ptr(), ds.data_ptr())
-    listwise_loss_backward.launches += 1
+    spans.count("launches.K4")
     return ds
-
-
-listwise_loss_backward.launches = 0  # kernel launches, for run-time evidence
 
 
 class FusedSoftmaxLoss(torch.autograd.Function):

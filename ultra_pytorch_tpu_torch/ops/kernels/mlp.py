@@ -51,6 +51,7 @@ import torch
 
 from ultra_pytorch_tpu_torch.models.base import ACTIVATIONS, normalize_f32
 from ultra_pytorch_tpu_torch.ops.kernels import build
+from ultra_pytorch_tpu_torch.utils import spans
 
 # The kernels' activation codes (``activate`` in csrc/mlp_common.cuh).
 ACTIVATION_CODES = {"elu": 0, "relu": 1, "selu": 2, "tanh": 3, "sigmoid": 4}
@@ -469,10 +470,11 @@ def mlp_forward(layers, x: torch.Tensor, activation: str, use_norm: bool,
                     n, plan.c_widths, len(layers), plan.rows, act,
                     int(use_norm), stream)
         _check_launch(lib, err, "K1")
-        fused_mlp_score.launches += 1
-        fused_mlp_score.wgmma += plan.wgmma
+        spans.count("launches.K1")
+        if plan.wgmma:
+            spans.count("launches.K1_wgmma")
         if residual is not None:
-            fused_mlp_score.saved += 1
+            spans.count("launches.K1_saved")
     return out
 
 
@@ -556,13 +558,10 @@ def mlp_backward(layers, x: torch.Tensor, g: torch.Tensor, activation: str,
                 ACTIVATION_CODES[activation], int(use_norm),
                 torch.cuda.current_stream().cuda_stream)
         _check_launch(lib, err, "K2")
-        mlp_backward.launches += 1
+        spans.count("launches.K2")
     else:
         dparams.zero_()
     return dx, grad_views(dparams, widths)
-
-
-mlp_backward.launches = 0  # kernel launches, for run-time evidence
 
 
 def autograd_records(tensors: Sequence[torch.Tensor]) -> bool:
@@ -619,8 +618,3 @@ def fused_mlp_score(layers, features: torch.Tensor, activation: str = "elu",
     save = x.is_cuda and autograd_records([x, *params])
     out = FusedMLP.apply(x, layers, activation, use_norm, save, *params)
     return out.reshape(features.shape[:-1])
-
-
-fused_mlp_score.launches = 0  # K1 launches, for run-time evidence
-fused_mlp_score.saved = 0  # of them, those that saved residuals for K2
-fused_mlp_score.wgmma = 0  # of them, those through the wgmma instance

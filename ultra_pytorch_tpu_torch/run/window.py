@@ -25,13 +25,12 @@ What a replay needs that the recording fixed:
   rank's shard generator: the graphs own it, register it beside the
   replica generator and reseed it from the window's seed as
   ``parallel.shard_generator`` seeds the eager window's fresh one;
-* the launch counters, K1's counts of launches that saved residuals
-  for K2 (``fused_mlp_score.saved``) and that ran its wgmma instance
-  (``fused_mlp_score.wgmma``), and the counters of the spans'
-  registry (the DBGD family's ``online.*`` passes). They count in
-  Python, so a capture counts each once; :class:`Replayable` adds the
-  counts the capture recorded on every replay, and the warm-up's are
-  taken off.
+* the counters, one table: the spans' registry (``utils/spans.py``; the
+  kernels' launches, the DBGD family's ``online.*`` passes). They count
+  in Python, so a capture counts each once; :class:`Replayable` adds
+  what the capture counted on every replay, and the warm-up's count is
+  taken off. A new counter is one ``spans.count`` call where it counts,
+  replayed with its graph with no further edit here.
 
 A data-parallel window under NCCL is captured whole, the counterpart of
 ``make_dp_train_step(window=W)``: the gradient's and the batch
@@ -51,6 +50,7 @@ and its last step's phases), none where the stamp kernel cannot run.
 
 from __future__ import annotations
 
+import collections
 import gc
 import sys
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -61,61 +61,29 @@ from ultra_pytorch_tpu_torch.algorithms.base import TrainState, train_window
 from ultra_pytorch_tpu_torch.utils import spans
 
 
-def launch_counters():
-    """The wrappers whose ``launches`` count K1-K5's launches."""
-    from ultra_pytorch_tpu_torch.ops.kernels import click_sim, listwise_loss
-    from ultra_pytorch_tpu_torch.ops.kernels import mlp
-
-    return (mlp.fused_mlp_score, mlp.mlp_backward,
-            listwise_loss.listwise_loss_forward,
-            listwise_loss.listwise_loss_backward, click_sim.pbm_clicks)
-
-
 def read_launches() -> List[int]:
-    return [fn.launches for fn in launch_counters()]
-
-
-def set_launches(counts: Sequence[int]) -> None:
-    for fn, n in zip(launch_counters(), counts):
-        fn.launches = n
-
-
-def saved_counter():
-    """The wrapper whose ``saved`` counts K1's launches that saved the
-    forward's residuals for K2, and ``wgmma`` those through K1's wgmma
-    instance."""
-    from ultra_pytorch_tpu_torch.ops.kernels import mlp
-
-    return mlp.fused_mlp_score
+    """K1-K5's launch counts, in that order, from the spans' registry."""
+    counted = spans.counters()
+    return [counted[name] for name in spans.KERNEL_LAUNCHES]
 
 
 class Replayable:
-    """A captured graph (anything with ``replay()``) and the kernel
-    launches it holds, one count a counter of :func:`launch_counters`,
-    of them K1's that saved residuals (`saved`) and K1's through its
-    wgmma instance (`wgmma`), and what it counted of
-    the spans' counters (`counts`, by name): :meth:`replay` replays it
-    and adds those counts to their counters, and the launches also to
-    ``Replayable.replayed`` (every replay's launches, in this process)."""
+    """A captured graph (anything with ``replay()``) and what its capture
+    counted into the spans' registry (`counts`, by name): :meth:`replay`
+    replays it and adds those counts to the registry and to
+    ``Replayable.replayed`` (every replay's counts, in this process)."""
 
-    replayed = [0] * 5
+    replayed: Dict[str, int] = collections.Counter()
 
-    def __init__(self, graph, launches: Sequence[int], saved: int = 0,
-                 counts: Optional[Dict[str, int]] = None, wgmma: int = 0):
+    def __init__(self, graph, counts: Dict[str, int]):
         self.graph = graph
-        self.launches = list(launches)
-        self.saved, self.wgmma = saved, wgmma
-        self.counts = dict(counts or {})
+        self.counts = dict(counts)
 
     def replay(self) -> None:
         self.graph.replay()
-        for i, (fn, n) in enumerate(zip(launch_counters(), self.launches)):
-            fn.launches += n
-            Replayable.replayed[i] += n
-        saved_counter().saved += self.saved
-        saved_counter().wgmma += self.wgmma
         for name, n in self.counts.items():
             spans.count(name, n)
+            Replayable.replayed[name] += n
 
 
 def capture(fn: Callable[[], object],
@@ -129,10 +97,10 @@ def capture(fn: Callable[[], object],
     initialisation, a library's first-call set-up and the kernels' builds
     may not happen under capture); then every generator's state is put
     back and `restore()` undoes what else that run changed. The capture
-    runs with garbage collection off. The counters (the launches, K1's
-    saving ones and the spans' registry's) end as they began: a replay
-    adds what the capture counted. Each of `generators` is
-    registered with the graph, so reseed it before each replay. `pool` (``torch.cuda.graph_pool_handle()``) shares one memory
+    runs with garbage collection off. The spans' counters end as they
+    began: a replay adds what the capture counted. Each of `generators`
+    is registered with the graph, so reseed it before each replay.
+    `pool` (``torch.cuda.graph_pool_handle()``) shares one memory
     pool between graphs that never replay at once. A call that capture
     refuses inside `fn` raises here.
 
@@ -143,9 +111,7 @@ def capture(fn: Callable[[], object],
     ``window.<steps>``, a validation pass ``validate.<split>``, a serving
     bucket ``serve.<bq>x<bl>``."""
     with spans.span(f"capture.{name}"):
-        k1 = saved_counter()
-        before, saved_before = read_launches(), (k1.saved, k1.wgmma)
-        counts_before = spans.counters()
+        before = spans.counters()
         with spans.span("capture.warmup"):
             states = [g.get_state() for g in generators]
             current = torch.cuda.current_stream()
@@ -159,8 +125,7 @@ def capture(fn: Callable[[], object],
                 g.set_state(state)
             if restore is not None:
                 restore()
-        warmed, saved_warmed = read_launches(), (k1.saved, k1.wgmma)
-        counts_warmed = spans.counters()
+        warmed = spans.counters()
         with spans.span("capture.generators"):
             graph = torch.cuda.CUDAGraph()
             for g in generators:
@@ -187,16 +152,11 @@ def capture(fn: Callable[[], object],
         finally:
             if collecting:
                 gc.enable()
-        captured = [a - b for a, b in zip(read_launches(), warmed)]
-        saved = k1.saved - saved_warmed[0]
-        wgmma = k1.wgmma - saved_warmed[1]
-        counts = {k: n - counts_warmed.get(k, 0)
+        counts = {k: n - warmed.get(k, 0)
                   for k, n in spans.counters().items()
-                  if n != counts_warmed.get(k, 0)}
-        set_launches(before)
-        k1.saved, k1.wgmma = saved_before
-        spans.set_counters(counts_before)
-    return Replayable(graph, captured, saved, counts, wgmma), out
+                  if n != warmed.get(k, 0)}
+        spans.set_counters(before)
+    return Replayable(graph, counts), out
 
 
 class WindowGraphs:

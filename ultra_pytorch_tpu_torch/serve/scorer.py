@@ -185,9 +185,9 @@ class Scorer:
         """Bucket (bq, bl)'s program, made at its first call: a function of
         no arguments that scores what is staged and returns the masked
         scores and the ranked indices. On CUDA it replays the bucket's
-        graph (K1's launch counted a replay, as ``run/window.Replayable``
-        counts them in training); on the CPU, or with ``graphs=False``, it
-        runs the body eagerly."""
+        graph (a ``run/window.Replayable``, which adds K1's launch to the
+        spans' counters at each replay); on the CPU, or with
+        ``graphs=False``, it runs the body eagerly."""
         key = (bq, bl)
         if key not in self._ranked:
             self._reserve(bq * bl)

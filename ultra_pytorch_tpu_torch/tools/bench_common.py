@@ -314,7 +314,7 @@ def sync(device) -> None:
 
 
 def launch_counts() -> Dict[str, int]:
-    """K1-K5's launch counters, by kernel."""
+    """K1-K5's launch counts (the spans' registry), by kernel."""
     from ultra_pytorch_tpu_torch.run.window import read_launches
 
     return dict(zip(KERNELS, read_launches()))

@@ -61,22 +61,22 @@ allocator's cache freed), ``capture.trace`` (the function run under
 capture) and ``capture.instantiate`` (its exit: the capture ended and
 the graph instantiated).
 
-Counters: ``spans.device_unread``; :func:`snapshot` adds K1-K5's launch
-counts (``launches.K1`` ... ``launches.K5``), read from
-``run.window.read_launches``, and ``launches.K1_saved``, K1's launches
-that saved the forward's residuals for K2 (``fused_mlp_score.saved``;
-over ``launches.K2``, the share of K2's launches fed by them, 1 where
-every saving forward is backpropagated), and ``launches.K1_wgmma``,
-K1's launches through its wgmma instance (``fused_mlp_score.wgmma``;
-equal to ``launches.K1`` where every call scores 64-row tiles without
-saving, as the online learners' passes do), none kept here. The DBGD
-family counts its passes of a ranker over whole lists (:func:`count`):
+Counters: one table, the registry's (:func:`count`), and every count the
+program keeps is in it under its name. The kernel wrappers
+(``ops/kernels``) count K1-K5's launches (:data:`KERNEL_LAUNCHES`,
+``launches.K1`` ... ``launches.K5``), ``launches.K1_saved``, K1's launches
+that saved the forward's residuals for K2 (over ``launches.K2``, the share
+of K2's launches fed by them), and ``launches.K1_wgmma``, K1's launches
+through its wgmma instance; :func:`counters` and :func:`snapshot` report
+these seven (:data:`LAUNCHES`) at 0 before their first count. The DBGD
+family counts its passes of a ranker over whole lists, in passes and not
+in K1 launches, so they read the same with ``use_pallas`` off:
 ``online.feed_scored``, the online feed's (one a step), and
-``online.rankers_scored``, the algorithm's (1 + ``ranker_num`` a step),
-in passes and not in K1 launches, so they read the same with
-``use_pallas`` off. A counter counted while a window's graph is captured
-is counted again at each replay (``run/window.py`` ``Replayable``), as
-the launches are.
+``online.rankers_scored``, the algorithm's (1 + ``ranker_num`` a step).
+``spans.device_unread`` counts the lost rows. A counter counted while a
+graph is captured is counted again at each of its replays
+(``run/window.py`` ``Replayable``): a new counter is one :func:`count`
+call where it counts, and nothing more.
 
 While ``torch.profiler`` records, each host span and each phase of
 :func:`mark` is also a ``record_function`` range of the same name, so
@@ -146,6 +146,11 @@ DEVICE_SPANS = (
      "window.device"),
     ("step.update", "step.multileave", "step.update", "window.device"),
 )
+
+# The kernels' launch counters: K1-K5's, then K1's that saved residuals
+# for K2 and K1's through its wgmma instance.
+KERNEL_LAUNCHES = tuple(f"launches.K{i}" for i in range(1, 6))
+LAUNCHES = KERNEL_LAUNCHES + ("launches.K1_saved", "launches.K1_wgmma")
 
 
 def profiling() -> bool:
@@ -269,13 +274,14 @@ class Registry:
             self.counters[name] += n
 
     def read_counters(self) -> Dict[str, int]:
-        """A copy of the registry's own counters."""
+        """A copy of the counters, :data:`LAUNCHES` at 0 before their
+        first count."""
         with self._lock:
-            return dict(self.counters)
+            return {**dict.fromkeys(LAUNCHES, 0), **self.counters}
 
     def set_counters(self, values: Dict[str, int]) -> None:
-        """Put the registry's own counters back to `values` (a capture
-        takes its count off)."""
+        """Put the counters back to `values` (a capture takes its count
+        off)."""
         with self._lock:
             self.counters = collections.Counter(values)
 
@@ -442,22 +448,14 @@ class Registry:
         """Every name's samples (``start``, ``end`` and ``ms``; host spans
         on the host clock, device spans in ms from their window's first
         stamp) with their ``parent``, ``window``, ``steps`` and
-        ``profiled``, and every counter with K1-K5's launches."""
-        from ultra_pytorch_tpu_torch.run.window import (read_launches,
-                                                        saved_counter)
-
+        ``profiled``, and every counter, :data:`LAUNCHES` included."""
         self.resolve()
         keys = ("start", "end", "parent", "window", "steps", "profiled")
         with self._lock:
             spans = {name: {"clock": self.clocks[name], "samples": [
                 dict(zip(keys, s), ms=s[1] - s[0]) for s in ring]}
                 for name, ring in self.samples.items()}
-            counters = dict(self.counters)
-        counters.update((f"launches.K{i + 1}", n)
-                        for i, n in enumerate(read_launches()))
-        counters["launches.K1_saved"] = saved_counter().saved
-        counters["launches.K1_wgmma"] = saved_counter().wgmma
-        return {"spans": spans, "counters": counters}
+        return {"spans": spans, "counters": self.read_counters()}
 
 
 def _enter_range(name: str):
@@ -510,5 +508,6 @@ def latest_ms(name: str, window: int) -> Optional[float]:
 
 
 def reset() -> None:
-    """Drop every sample, pending replay and counter."""
+    """Drop every sample, pending replay and counter, the kernels' launch
+    counts included (for tests)."""
     REGISTRY.clear()
